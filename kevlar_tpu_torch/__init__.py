@@ -1,0 +1,73 @@
+"""kevlar_tpu_torch: the PyTorch + CUDA port of kevlar_tpu.
+
+The port runs the ``alac`` stage — assemble, localize, align and call — on
+one NVIDIA GPU: the contig x cutout ksw2 alignments go through a CUDA kernel
+written for Hopper (:mod:`kevlar_tpu_torch.ops.align_cuda`), and the rest is
+host code copied from ``kevlar_tpu`` with its imports rewritten.  It imports
+``torch`` and numpy, never ``jax`` and never ``kevlar_tpu``, so it runs on a
+machine that has no JAX.  Module names follow ``kevlar_tpu``, so each
+counterpart sits at the same path.
+"""
+
+import builtins
+from gzip import open as gzopen
+from os import makedirs
+from os.path import dirname
+import sys
+
+__version__ = '0.1.0'
+
+logstream = None
+teelog = False
+
+
+def plog(*args, **kwargs):
+    """Print logging output to the configured log stream."""
+    if logstream is not None:
+        print(*args, **kwargs, file=logstream)
+    if logstream is None or teelog:
+        print(*args, **kwargs, file=sys.stderr)
+
+
+def open(filename, mode):
+    """gz-aware text open; '-'/None mean stdin/stdout."""
+    if mode not in ('r', 'w'):
+        raise ValueError('invalid mode "{}"'.format(mode))
+    if filename in ('-', None):
+        return sys.stdin if mode == 'r' else sys.stdout
+    if str(filename).endswith('.gz'):
+        return gzopen(filename, mode + 't')
+    return builtins.open(filename, mode)
+
+
+def mkdirp(path, trim=False):
+    outdir = dirname(path) if trim else path
+    makedirs(outdir, exist_ok=True)
+    return outdir
+
+
+# Core substrate
+from kevlar_tpu_torch.dna import revcom, revcommin  # noqa: E402
+from kevlar_tpu_torch.sequence import (  # noqa: E402
+    Record, KmerOfInterest, parse_augmented_fastx, print_augmented_fastx,
+)
+from kevlar_tpu_torch import dna  # noqa: E402
+from kevlar_tpu_torch import seqio  # noqa: E402
+from kevlar_tpu_torch.seqio import (  # noqa: E402
+    parse_partitioned_reads, parse_single_partition,
+)
+
+# Pipeline stages, imported lazily via __getattr__ to keep startup light.
+_STAGE_MODULES = (
+    'assemble', 'augment', 'localize', 'reference', 'call', 'varmap',
+    'cigar', 'alac', 'vcf', 'readpair', 'cli', 'ops', 'native',
+)
+
+
+def __getattr__(name):
+    if name in _STAGE_MODULES:
+        import importlib
+        module = importlib.import_module('kevlar_tpu_torch.' + name)
+        globals()[name] = module
+        return module
+    raise AttributeError('module kevlar_tpu_torch has no attribute ' + name)

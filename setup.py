@@ -11,12 +11,15 @@ setup(
     long_description=open('README.md').read(),
     long_description_content_type='text/markdown',
     packages=find_packages(exclude=('tests',)),
-    package_data={'kevlar_tpu.native': ['*.cpp']},
+    package_data={'kevlar_tpu.native': ['*.cpp'],
+                  'kevlar_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=['jax', 'numpy'],
     entry_points={
         'console_scripts': [
             'kevlar-tpu = kevlar_tpu.cli:main',
+            # the PyTorch + CUDA port (alac so far)
+            'kevlar-tpu-torch = kevlar_tpu_torch.cli:main',
             # sandbox utilities (reference setup.py:65 installs
             # kevlar/sandbox/*.py as scripts)
             'kevlar-tpu-compact = kevlar_tpu.sandbox.compact:main',

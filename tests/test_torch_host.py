@@ -1,0 +1,206 @@
+"""The port's host modules against their ``kevlar_tpu`` originals.
+
+Tolerance: none.  These modules are copies of integer and string code, so
+every output — augmented FASTX text, seed matches, index arrays, contigs,
+cutouts, CIGARs and VCF rows — must be identical.
+"""
+
+import io
+import random
+import time
+
+import numpy as np
+import pytest
+
+import chip_smoke
+import kevlar_tpu
+import kevlar_tpu_torch
+from kevlar_tpu import assemble as jax_assemble
+from kevlar_tpu import dna as jax_dna
+from kevlar_tpu import localize as jax_localize
+from kevlar_tpu import native as jax_native
+from kevlar_tpu import reference as jax_reference
+from kevlar_tpu import varmap as jax_varmap
+from kevlar_tpu_torch import (
+    assemble, dna, localize, native, reference, seqio, varmap)
+
+from . import simdata
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_logstream():
+    kevlar_tpu_torch.logstream = None
+    yield
+    kevlar_tpu_torch.logstream = None
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native_loaded():
+    """``kevlar_tpu`` quietly falls back to a pure-Python assembler while
+    its native library is missing — or still being compiled by another
+    test worker.  Its contigs are only comparable once the library is
+    loaded, so wait for it here."""
+    from kevlar_tpu import native as jax_native
+    deadline = time.time() + 300
+    while jax_native.load() is None:
+        if time.time() > deadline:
+            pytest.fail('kevlar_tpu native library unavailable')
+        time.sleep(2)
+
+
+@pytest.fixture(scope='module')
+def case(tmp_path_factory):
+    """A small generated alac input: 12 loci over 120 kb."""
+    workdir = tmp_path_factory.mktemp('hostcase')
+    refr, reads, truth = chip_smoke.make_alac_case(
+        str(workdir), genome_len=120000, nloci=12, seed=5)
+    return refr, reads, truth
+
+
+def _partitions(pkg, path):
+    return list(pkg.seqio.parse_partitioned_reads(
+        pkg.parse_augmented_fastx(pkg.open(path, 'r'))))
+
+
+def _afx_text(pkg, records):
+    out = io.StringIO()
+    for record in records:
+        pkg.print_augmented_fastx(record, out)
+    return out.getvalue()
+
+
+def test_augmented_fastx_round_trip(case):
+    rng = random.Random(3)
+    genome = simdata.make_genome(rng, 400)
+    fasta = kevlar_tpu.Record('fa1 kvcc=2', genome[:120])
+    fasta.annotate(genome[10:31], 10, (12, 0, 1))
+    fasta.annotate(genome[50:71], 50, (9, 2))
+    fasta.add_mate(genome[200:300])
+    fastq = kevlar_tpu.Record('fq1', genome[100:250], quality='I' * 150)
+    fastq.annotate(genome[140:171], 40, (30, 0, 0))
+    text = _afx_text(kevlar_tpu, [fasta, fastq])
+    with open(case[1]) as fh:
+        text += fh.read()
+
+    ported = list(kevlar_tpu_torch.parse_augmented_fastx(io.StringIO(text)))
+    assert _afx_text(kevlar_tpu_torch, ported) == text
+    back = list(kevlar_tpu.parse_augmented_fastx(
+        io.StringIO(_afx_text(kevlar_tpu_torch, ported))))
+    assert _afx_text(kevlar_tpu, back) == text
+    assert [(r.name, r.sequence, r.quality, r.annotations, r.mates)
+            for r in ported] == [(r.name, r.sequence, r.quality,
+                                  r.annotations, r.mates) for r in back]
+    assert [(p, [r.name for r in reads])
+            for p, reads in _partitions(kevlar_tpu_torch, case[1])] == \
+        [(p, [r.name for r in reads])
+         for p, reads in _partitions(kevlar_tpu, case[1])]
+
+
+def test_dna_helpers_match():
+    rng = np.random.default_rng(9)
+    iupac = 'ACGTNRYSWKMBDHVacgtn'
+    seqs = [''.join(iupac[k] for k in rng.integers(0, len(iupac), n))
+            for n in (0, 1, 17, 64)]
+    for s in seqs:
+        assert dna.revcom(s) == jax_dna.revcom(s)
+        assert dna.revcommin(s) == jax_dna.revcommin(s)
+    for mine, theirs in zip(dna.encode_batch(seqs, pad_to=70),
+                            jax_dna.encode_batch(seqs, pad_to=70)):
+        np.testing.assert_array_equal(mine, theirs)
+    bases = rng.integers(0, 5, 9000).astype(np.uint8)    # > 4096: stream
+    for arr in (bases, bases[:300].reshape(3, 100)):
+        for size in (21, 51, 100):
+            for mine, theirs in zip(dna.seed_codes(arr, size),
+                                    jax_dna.seed_codes(arr, size)):
+                np.testing.assert_array_equal(mine, theirs)
+
+
+def test_seed_index_lookup_and_index_files(tmp_path):
+    rng = random.Random(21)
+    chr1 = simdata.make_genome(rng, 6000)
+    chr2 = chr1[1000:1400] + simdata.make_genome(rng, 3000) + 'N' * 60
+    seqs = {'chr1': chr1, 'chr2': chr2}
+    refr = str(tmp_path / 'refr.fa')
+    simdata.write_fasta(seqs, refr)
+    seeds = {dna.revcommin(s) for s in
+             [chr1[p:p + 51] for p in range(0, 5900, 97)] +
+             [chr2[p:p + 51] for p in range(0, 3300, 131)] +
+             [simdata.make_genome(rng, 51), 'N' * 51]}
+
+    mine = reference.SeedIndex(seqs, 51)
+    theirs = jax_reference.SeedIndex(seqs, 51)
+    want = theirs.lookup(seeds)
+    assert mine.lookup(seeds) == want
+    assert any(len(hits) > 1 for hits in want.values())   # shared segment
+
+    # JAX-written index, read by the port (autoindex picks it up by name)
+    jax_reference._index_cache.clear()
+    reference._index_cache.clear()
+    jax_reference.autoindex(refr, 51)
+    path = reference.index_path(refr, 51)
+    assert path == jax_reference.index_path(refr, 51)
+    loaded = reference.autoindex(refr, 51)
+    assert isinstance(loaded._keys, np.memmap)
+    assert loaded.lookup(seeds) == want
+    # port-written index, read by the JAX package
+    mine.save(str(tmp_path / 'port'))
+    back = jax_reference.SeedIndex.from_file(str(tmp_path / 'port.npz'),
+                                             seqs)
+    assert back.lookup(seeds) == want
+    for name in ('_keys', '_seqidx', '_pos', '_seqids'):
+        np.testing.assert_array_equal(getattr(back, name),
+                                      getattr(theirs, name))
+    jax_reference._index_cache.clear()
+    reference._index_cache.clear()
+
+
+def _contigs(pkg, path):
+    return [(p, c.name, c.sequence, c.annotations)
+            for p, c in pkg.assemble.assemble(_partitions(pkg, path))]
+
+
+def test_assemble_contigs_match(case):
+    mine = _contigs(kevlar_tpu_torch, case[1])
+    assert len({p for p, *_ in mine}) == 12
+    assert mine == _contigs(kevlar_tpu, case[1])
+    reads = _partitions(kevlar_tpu_torch, case[1])[0][1]
+    assert list(assemble.greedy_asm(reads)) == \
+        list(jax_assemble.greedy_asm(reads))
+    noisy = [r.sequence for r in reads]
+    noisy[0] = noisy[0][:60] + ('A' if noisy[0][60] != 'A' else 'C') + \
+        noisy[0][61:]
+    fixed = native.correct(noisy)
+    assert fixed == jax_native.correct(noisy)
+    assert fixed[0] == reads[0].sequence
+
+
+def test_localize_cutouts_and_varmap_calls_match(case):
+    refr = case[0]
+    by_part = {}
+    for partid, contig in assemble.assemble(
+            _partitions(kevlar_tpu_torch, refr.replace(
+                'refr.fa', 'partitioned.augfastq'))):
+        by_part.setdefault(partid, []).append(contig)
+    parts = sorted(by_part.items())
+    mine = list(localize.localize(parts, refr, seedsize=51, delta=50))
+    theirs = list(jax_localize.localize(parts, refr, seedsize=51, delta=50))
+    assert [(p, c.defline, c.sequence) for p, c in mine] == \
+        [(p, c.defline, c.sequence) for p, c in theirs]
+    assert len(mine) >= 12
+
+    rows = []
+    for partid, cutout in mine:
+        for contig in by_part[partid]:
+            ported = varmap.VariantMapping(contig, cutout, gapopen=5,
+                                           gapextend=1)
+            ref = jax_varmap.VariantMapping(contig, cutout, gapopen=5,
+                                            gapextend=1)
+            assert (ported.score, ported.cigar, ported.strand,
+                    ported.vartype) == (ref.score, ref.cigar, ref.strand,
+                                        ref.vartype)
+            got = [c.vcf for c in ported.call_variants(31)]
+            assert got == [c.vcf for c in ref.call_variants(31)]
+            rows += got
+    assert any('\tPASS\t' in row for row in rows)
+    assert seqio.parse_seq_dict(open(refr))['chr1'][:80] == \
+        open(refr).read().split('\n')[1]
