@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""GPU smoke run of kevlar_tpu_torch: build, check and drive the alac slice.
+"""GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; a few minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about ten minutes
 
 Phases (any failure raises, and the script exits non-zero):
 
 1. card: a CUDA device must be present; print its name and power limit;
-2. build: ``csrc/align.cu`` with nvcc for sm_90a and the C++ assembler with
-   g++, into the package's build directory; print the seconds each took;
+2. build: ``csrc/align.cu`` and ``csrc/kmer.cu`` with nvcc for sm_90a, the
+   C++ assembler and the FASTA/FASTQ reader with g++, all four compilers
+   started together, into the package's build directory; print the
+   seconds each took;
 3. kernel: the ksw_extz kernel against its plain PyTorch version on the
    card, on seeded pairs at the call stage's shapes (targets 100-2,000 bp,
    queries 100-1,000 bp, a few 10,000 bp targets, one pair whose wavefront
    state needs global memory, N bases, tandem-repeat ties) under gap
    penalties (5,0), (5,2) and (3,1): scores, op streams and exit cells must
    be identical (tolerance 0: the DP is integer arithmetic);
-4. slice: :func:`make_alac_case` writes a bigsim-scale input (80 Mb
+4. alac slice: :func:`make_alac_case` writes a bigsim-scale input (80 Mb
    reference, 1,500 de novo loci in the bigsim class mix, 150 bp reads at
    15x from the alt haplotype, one ``kvcc=`` partition per locus); the seed
    index is built apart (timed), then ``kevlar_tpu_torch.cli.main(['alac',
@@ -22,11 +24,30 @@ Phases (any failure raises, and the script exits non-zero):
    is aligned again with the plain version on the card (results must be
    identical, and both are timed), the kernel's launch count over the run
    must be positive, and the VCF is scored against the truth: recall below
-   0.90 fails.
+   0.90 fails;
+5. count kernels: K1 (k-mer hashing) at k = 21, 31, 33 and 51 with N bases
+   and row lengths that are not a multiple of 4 or 8, K2 (count gather) at
+   1, 4 and 8 bits with odd table sizes, and K3 (scatter-add) with heavy
+   duplicates and negative indices, each against its plain PyTorch version
+   on the card (tolerance 0: integer arithmetic), then timed against it at
+   the helium run's shapes;
+6. count -> novel slice: :func:`make_trio_case` writes the helium trio
+   (the reference's quick-start: 25 Mb genome, 30x trio of 150 bp reads
+   with 0.5% errors, 20 inherited and 5 de novo variants), and the trio
+   workflow's first steps run through ``kevlar_tpu_torch.cli.main`` with
+   ``--device cuda``: the reference mask (1-bit, 50M), the reference count
+   (4-bit, 50M), the masked 8-bit counts of the three samples (500M each)
+   and the novel screen (``--case-min 5 --ctrl-max 1``).  Every count
+   kernel's launch count over that run must be positive; the mask, refr and
+   proband tables and the novel text must equal those of the same commands
+   run with the plain versions on the card; and each de novo locus must
+   have a novel read whose annotated k-mer spans it.  Stage walls, reads
+   per second and the novel output's size are printed.
 
-The last two lines of standard output are the kernels record (JSON) and
-``{"ok": true, "device": {...}}``.  The generator imports nothing but
-numpy, so tests import it to build small cases.
+The last two lines of standard output are the kernels record (JSON: B1
+and K1-K3, each with its launches on its slice's run, max_abs_err, ms and
+plain_ms) and ``{"ok": true, "device": {...}}``.  The generators import
+nothing but numpy, so tests import them to build small cases.
 """
 
 import json
@@ -56,6 +77,19 @@ CLASSES = [('SNVs', 0, 0, 264), ('INDELs 1-10bp', 1, 10, 248),
 
 _BASES = np.frombuffer(b'ACGT', dtype=np.uint8)
 _RC = str.maketrans('ACGT', 'TGCA')
+
+# The helium trio: the reference's quick-start scenario (kevlar
+# docs/quick-start.rst), as tools/sim_trio_bench.py --preset helium builds
+# it: a 25 Mb genome, a trio at 30x of 150 bp reads with 0.5% substitution
+# errors, 20 inherited variants, and 5 de novo variants in the proband
+# (4 SNVs and one 300 bp insertion, a 5%-mutated copy of another stretch
+# of the genome).
+HELIUM_GENOME_LEN = 25_000_000
+HELIUM_COVERAGE = 30
+HELIUM_ERROR = 0.005
+HELIUM_INHERITED = 20
+HELIUM_INSERTION = 300
+SAMPLES = ('proband', 'mother', 'father')
 
 
 def _revcom(seq):
@@ -185,6 +219,152 @@ def make_alac_case(workdir, genome_len=GENOME_LEN, nloci=NLOCI,
                 out.write('\n'.join(lines) + '\n')
     truth.sort()
     return refrpath, readspath, truth
+
+
+def _apply_edits(genome, edits):
+    """A haplotype: ``genome`` (codes) with ``edits`` [(pos, reflen,
+    alt codes)] applied, positions in genome coordinates."""
+    pieces, last = [], 0
+    for pos, reflen, alt in sorted(edits, key=lambda e: e[0]):
+        pieces += [genome[last:pos], alt]
+        last = pos + reflen
+    pieces.append(genome[last:])
+    return np.concatenate(pieces)
+
+
+def _write_reads(path, haplotypes, coverage, readlen, error, rng):
+    """Uniform 150 bp reads from each haplotype at ``coverage``/2 x, with
+    substitution errors at rate ``error``, as fixed-width FASTQ records
+    (``@r`` + 9 digits); the read simulation of
+    tools/sim_trio_bench.py:82-123.  Returns the read count."""
+    total = 0
+    chunk = 250_000
+    offsets = np.arange(readlen)
+    with open(path, 'wb') as out:
+        for hap in haplotypes:
+            nreads = len(hap) * coverage // (2 * readlen)
+            for off in range(0, nreads, chunk):
+                m = min(chunk, nreads - off)
+                starts = rng.integers(0, len(hap) - readlen, size=m)
+                reads = hap[starts[:, None] + offsets]
+                flat = reads.reshape(-1)
+                nerr = int(rng.binomial(flat.size, error))
+                where = rng.integers(0, flat.size, size=nerr)
+                rot = rng.integers(1, 4, size=nerr).astype(np.uint8)
+                flat[where] = (flat[where] + rot) & 3
+                rl = readlen
+                rec = np.empty((m, 15 + 2 * rl + 1), np.uint8)
+                rec[:, 0] = ord('@')
+                rec[:, 1] = ord('r')
+                nums = np.arange(total + 1, total + m + 1, dtype=np.int64)
+                for j in range(9):
+                    rec[:, 2 + j] = (nums // 10 ** (8 - j)) % 10 + ord('0')
+                rec[:, 11] = ord('\n')
+                rec[:, 12:12 + rl] = _BASES[reads]
+                rec[:, 12 + rl] = ord('\n')
+                rec[:, 13 + rl] = ord('+')
+                rec[:, 14 + rl] = ord('\n')
+                rec[:, 15 + rl:15 + 2 * rl] = ord('I')
+                rec[:, 15 + 2 * rl] = ord('\n')
+                out.write(rec.tobytes())
+                total += m
+    return total
+
+
+def make_trio_case(workdir, genome_len=HELIUM_GENOME_LEN,
+                   coverage=HELIUM_COVERAGE, error=HELIUM_ERROR,
+                   ninherited=HELIUM_INHERITED, readlen=READLEN,
+                   insertion=HELIUM_INSERTION, ksize=KSIZE, seed=SEED):
+    """Write the helium trio into ``workdir``: ``refr.fa`` and
+    ``{proband,mother,father}.fq``.
+
+    A uniform random genome ``chr1``; ``ninherited`` variants (SNVs and
+    1-10 bp indels), each heterozygous in one parent and passed to the
+    proband when it sits on that parent's transmitted haplotype; and 5 de
+    novo variants on one proband haplotype each: 4 SNVs and one insertion
+    of ``insertion`` bp.  Variants lie at least 2 kb apart.  Returns
+    (refr path, {sample: reads path}, de novo list), each de novo entry
+    ``(pos0, kind, alt-window k-mers)``: the canonical k-mers of the alt
+    haplotype that overlap the variant.
+    """
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    refrpath = os.path.join(workdir, 'refr.fa')
+    _write_fasta(refrpath, 'chr1', genome)
+    nvar = ninherited + 5
+    lo, hi = genome_len // 20, genome_len - genome_len // 20
+    slots = np.sort(rng.choice((hi - lo) // 2000, nvar, replace=False))
+    positions = lo + slots * 2000 + rng.integers(0, 1000, nvar)
+    order = rng.permutation(nvar)
+    haps = {(who, h): [] for who in SAMPLES for h in (0, 1)}
+    denovo = []
+    for rank, pos in zip(order, positions.tolist()):
+        if rank < 5:                                  # de novo
+            ref = genome[pos:pos + 1]
+            if rank < 4:
+                alt = (ref + rng.integers(1, 4)).astype(np.uint8) & 3
+                kind, new, start = 'SNV', alt, pos
+            else:
+                src = int(rng.integers(0, genome_len - insertion))
+                new = genome[src:src + insertion].copy()
+                mut = rng.random(insertion) < 0.05
+                new[mut] = (new[mut] + rng.integers(
+                    1, 4, int(mut.sum()))).astype(np.uint8) & 3
+                alt = np.concatenate([ref, new])
+                kind, start = 'INS {} bp'.format(insertion), pos + 1
+            hap = int(rng.integers(0, 2))
+            haps[('proband', hap)].append((pos, 1, alt))
+            # the new bases with k-1 reference bases on each side
+            window = np.concatenate([genome[start - ksize + 1:start], new,
+                                     genome[pos + 1:pos + ksize]])
+            seq = _BASES[window].tobytes().decode()
+            kmers = {_canon(seq[s:s + ksize])
+                     for s in range(len(seq) - ksize + 1)}
+            denovo.append((pos, kind, kmers))
+            continue
+        size = int(rng.integers(1, 11))               # inherited
+        kind = int(rng.integers(0, 3))
+        ref = genome[pos:pos + 1]
+        if kind == 0:
+            alt = (ref + rng.integers(1, 4)).astype(np.uint8) & 3
+        elif kind == 1:
+            alt = np.concatenate([ref, rng.integers(0, 4, size,
+                                                    dtype=np.uint8)])
+        else:
+            ref = genome[pos:pos + 1 + size]
+            alt = genome[pos:pos + 1]
+        parent = SAMPLES[1 + int(rng.integers(0, 2))]
+        hap = int(rng.integers(0, 2))
+        edit = (pos, len(ref), alt)
+        haps[(parent, hap)].append(edit)
+        if hap == 0:       # the proband gets hap 0 of each parent
+            haps[('proband', 0 if parent == 'mother' else 1)].append(edit)
+    reads = {}
+    for i, who in enumerate(SAMPLES):
+        path = os.path.join(workdir, who + '.fq')
+        hapseqs = [_apply_edits(genome, haps[(who, h)]) for h in (0, 1)]
+        _write_reads(path, hapseqs, coverage, readlen, error,
+                     np.random.default_rng(seed + 7 * (i + 1)))
+        reads[who] = path
+    denovo.sort(key=lambda d: d[0])
+    return refrpath, reads, denovo
+
+
+def read_augfastx_kmers(path):
+    """[(read name, [(annotated k-mer, abundances), ...])] of an augmented
+    FASTQ file."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith('@'):
+                out.append((line[1:].strip(), []))
+                next(fh)
+                next(fh)
+                next(fh)
+            elif line.rstrip('\n').endswith('#'):
+                kmer, abund = line.strip()[:-1].split(None, 1)
+                out[-1][1].append((kmer, abund))
+    return out
 
 
 def read_vcf_calls(path):
@@ -403,6 +583,138 @@ def phase_kernel(device):
     return err
 
 
+def _max_diff(got, want, label):
+    """Max abs difference of two integer tensors; raises unless equal."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError('{}: kernel gave {} {}, plain {} {}'.format(
+            label, got.dtype, tuple(got.shape), want.dtype,
+            tuple(want.shape)))
+    diff = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if diff:
+        raise AssertionError('{}: {} of {} values differ from the plain '
+                             'version (max abs {})'.format(
+                                 label, int((got != want).sum()),
+                                 got.numel(), diff))
+    return diff
+
+
+def _wire(bases, device):
+    import torch
+    from kevlar_tpu_torch.batch import pack_bases
+    packed, badmask = pack_bases(bases)
+    return (torch.from_numpy(packed).to(device),
+            torch.from_numpy(badmask).to(device))
+
+
+def _read_bases(rng, nrows, L, readlen, nrate=0.002):
+    """[nrows, L] base codes: reads of ``readlen`` with N bases at
+    ``nrate``, padded with the invalid code 4 (a count batch)."""
+    bases = rng.integers(0, 4, (nrows, L), dtype=np.uint8)
+    bases[rng.random((nrows, L)) < nrate] = 4
+    bases[:, readlen:] = 4
+    return bases
+
+
+def phase_kmer_kernels(device):
+    """Phase 5: K1, K2 and K3 against their plain versions on the card, on
+    seeded inputs, then timed at the shapes of the helium run.  Returns
+    {kernel: dict(err, ms, plain_ms, shape)}."""
+    import torch
+    from kevlar_tpu_torch.ops import hashing, kmer_cuda, sketch_ops
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+
+    # K1: k = 21, 31, 33, 51; L not a multiple of 4 or 8; N bases
+    err = 0
+    for k in (21, 31, 33, 51):
+        for L, readlen in ((157, 150), (1021, 1021), (253, 61)):
+            packed, badmask = _wire(_read_bases(rng, 3001, L, readlen),
+                                    device)
+            got = kmer_cuda.kmer_hashes_cuda(packed, badmask, L, k)
+            want = hashing.kmer_hashes_packed_plain(packed, badmask, L, k)
+            for name, g, w in zip(('h1', 'h2', 'valid'), got, want):
+                err = max(err, _max_diff(g, w, 'K1 k={} L={} {}'.format(
+                    k, L, name)))
+    # the proband count's launch: 32,768 reads of 150 bp in a 160 bucket
+    packed, badmask = _wire(_read_bases(rng, 32768, 160, 150), device)
+    _, ms = _timed(kmer_cuda.kmer_hashes_cuda, packed, badmask, 160, KSIZE,
+                   reps=20)
+    _, plain_ms = _timed(hashing.kmer_hashes_packed_plain, packed, badmask,
+                         160, KSIZE, reps=3)
+    out['K1'] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                     shape='32,768 x 160 bases, k=31')
+    print('[smoke] K1 kmer_hashes: identical to plain at k=21/31/33/51 '
+          '(L=157/1021/253, N bases); {} kernel {:.3f} ms, plain {:.3f} ms'
+          .format(out['K1']['shape'], ms, plain_ms), flush=True)
+
+    # K2: 1, 4 and 8 bits, tablesizes not a multiple of 8
+    err = 0
+    for bits, tablesize in ((1, 1_000_003), (4, 999_999), (8, 500_001)):
+        width = sketch_ops.packed_width(tablesize, bits)
+        tables = torch.from_numpy(rng.integers(
+            0, 256, (4, width), dtype=np.uint8)).to(device)
+        h = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (2, 1_000_000), dtype=np.int64).astype(
+                np.int32)).to(device)
+        got = kmer_cuda.gather_counts_cuda(tables, h[0], h[1], bits,
+                                           tablesize)
+        want = sketch_ops.gather_counts_plain(tables, h[0], h[1], bits,
+                                              tablesize)
+        err = max(err, _max_diff(got, want, 'K2 {} bits'.format(bits)))
+    # a novel-screen launch: one 500 MB sample sketch, 4,096 reads
+    tablesize = 124_999_999
+    tables = torch.randint(0, 256, (4, tablesize), dtype=torch.uint8,
+                           device=device)
+    h = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 4096 * 130),
+                                      dtype=np.int64).astype(np.int32)).to(
+        device)
+    got, ms = _timed(kmer_cuda.gather_counts_cuda, tables, h[0], h[1], 8,
+                     tablesize, reps=20)
+    want, plain_ms = _timed(sketch_ops.gather_counts_plain, tables, h[0],
+                            h[1], 8, tablesize, reps=5)
+    err = max(err, _max_diff(got, want, 'K2 helium shape'))
+    out['K2'] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                     shape='532,480 k-mers, 4 x 124,999,999 8-bit')
+    print('[smoke] K2 gather_counts: identical to plain at 1/4/8 bits; {} '
+          'kernel {:.3f} ms, plain {:.3f} ms'.format(out['K2']['shape'], ms,
+                                                     plain_ms), flush=True)
+    del tables
+
+    # K3: heavy duplicates, negative indices, an odd bucket count
+    err = 0
+    for C, n, span in ((1001, 131072, 37), (999_999, 2_000_000, 999_999)):
+        idx = rng.integers(-5, span, (4, n)).astype(np.int32)
+        acc0 = rng.integers(0, 100, (4, C)).astype(np.int32)
+        got = kmer_cuda.scatter_add_cuda(
+            torch.from_numpy(acc0).to(device),
+            torch.from_numpy(idx).to(device))
+        want = sketch_ops.scatter_add_plain(
+            torch.from_numpy(acc0).to(device),
+            torch.from_numpy(idx).to(device))
+        err = max(err, _max_diff(got, want, 'K3 C={}'.format(C)))
+        ref = acc0 + np.stack([np.bincount(r[r >= 0], minlength=C)
+                               for r in idx])
+        err = max(err, _max_diff(got.cpu(), torch.from_numpy(ref.astype(
+            np.int32)), 'K3 C={} vs bincount'.format(C)))
+    # the proband count's launch: 2 GB accumulator, 32,768 reads x 130
+    # windows, 15% of them kept by the mask
+    C = 124_999_999
+    acc = torch.zeros((4, C), dtype=torch.int32, device=device)
+    n = 32768 * 130
+    idx = rng.integers(0, C, (4, n)).astype(np.int32)
+    idx[:, rng.random(n) >= 0.15] = -1
+    idx = torch.from_numpy(idx).to(device)
+    _, ms = _timed(kmer_cuda.scatter_add_cuda, acc, idx, reps=20)
+    _, plain_ms = _timed(sketch_ops.scatter_add_plain, acc, idx, reps=5)
+    out['K3'] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                     shape='4 x 4,259,840 indices (15% kept), 4 x '
+                     '124,999,999 int32')
+    print('[smoke] K3 scatter_add: identical to plain and bincount '
+          '(duplicates, negative indices); {} kernel {:.3f} ms, plain '
+          '{:.3f} ms'.format(out['K3']['shape'], ms, plain_ms), flush=True)
+    return out
+
+
 def phase_slice(device, workdir):
     """Phase 4: the alac slice at bigsim scale through the CLI."""
     import torch
@@ -504,36 +816,271 @@ def phase_slice(device, workdir):
     return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms)
 
 
+def _run_cli(argv, logpath):
+    """``kevlar_tpu_torch.cli.main(argv)`` with its log in ``logpath``;
+    returns the stage's wall seconds (the stage ends synchronised)."""
+    import torch
+    import kevlar_tpu_torch
+    from kevlar_tpu_torch import cli
+    t0 = time.time()
+    try:
+        cli.main(['-l', logpath] + argv)
+    finally:
+        if kevlar_tpu_torch.logstream not in (None, sys.stderr):
+            kevlar_tpu_torch.logstream.close()
+        kevlar_tpu_torch.logstream = None
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def _trio_stages(device, workdir, refr, reads, prefix, samples=SAMPLES,
+                 mask=None):
+    """The slice's commands, as the trio workflow runs them (workflow.py
+    steps 1-3): reference mask, reference count, masked sample counts,
+    novel screen.  Outputs are named ``prefix`` + file; with ``mask`` the
+    sample counts use that mask.  Returns {stage: wall seconds}."""
+    def out(name):
+        return os.path.join(workdir, prefix + name)
+
+    def log(name):
+        return out(name + '.log')
+
+    walls = {}
+    base = ['-k', str(KSIZE), '--device', device]
+    walls['count mask'] = _run_cli(
+        ['count'] + base + ['-c', '1', '-M', '50M', '--max-fpr', '0.01',
+                            out('mask.nt'), refr], log('mask'))
+    walls['count refr'] = _run_cli(
+        ['count'] + base + ['-c', '4', '-M', '50M', '--max-fpr', '1.0',
+                            out('refr.sct'), refr], log('refr'))
+    mask = mask or out('mask.nt')
+    for who in samples:
+        fpr = '0.6' if who == 'proband' else '0.2'
+        walls['count ' + who] = _run_cli(
+            ['count'] + base + ['-M', '500M', '--max-fpr', fpr, '--mask',
+                                mask, out(who + '.ct'), reads[who]],
+            log(who))
+    return walls
+
+
+def phase_trio(device, workdir):
+    """Phase 6: count and novel on the helium trio through the CLI, with
+    the kernels and then with their plain versions on the card."""
+    from kevlar_tpu_torch.ops import kmer_cuda, hashing, sketch_ops
+
+    t0 = time.time()
+    refr, reads, denovo = make_trio_case(workdir)
+    nreads = {}
+    for who, path in reads.items():
+        nreads[who] = os.path.getsize(path) // (16 + 2 * READLEN)
+    print('[smoke] generated the helium trio ({:,} reads per sample, '
+          '{:.1f} GB of FASTQ) in {:.1f} s'.format(
+              nreads['proband'],
+              sum(os.path.getsize(p) for p in reads.values()) / 1e9,
+              time.time() - t0), flush=True)
+
+    def novel_stage(prefix):
+        """The screen on the kernel run's counts; output ``prefix``ed."""
+        path = os.path.join(workdir, prefix + 'novel.augfastq')
+        wall = _run_cli(
+            ['novel', '-k', str(KSIZE), '--device', device, '--case',
+             reads['proband'], '--case-counts',
+             os.path.join(workdir, 'proband.ct'), '--control-counts',
+             os.path.join(workdir, 'mother.ct'),
+             os.path.join(workdir, 'father.ct'), '--case-min', '5',
+             '--ctrl-max', '1', '-o', path],
+            os.path.join(workdir, prefix + 'novel.log'))
+        return path, wall
+
+    # the main path, through the kernels
+    for name in kmer_cuda.launches:
+        kmer_cuda.launches[name] = 0
+    walls = _trio_stages(device, workdir, refr, reads, '')
+    novelpath, walls['novel'] = novel_stage('')
+    launches = dict(kmer_cuda.launches)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError('the helium run launched no {} kernel'
+                                 .format(name))
+
+    # the same commands with the plain versions, on the card
+    kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
+               kmer_cuda.scatter_add_cuda)
+    kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_packed_plain
+    kmer_cuda.gather_counts_cuda = sketch_ops.gather_counts_plain
+    kmer_cuda.scatter_add_cuda = sketch_ops.scatter_add_plain
+    try:
+        plain_walls = _trio_stages(
+            device, workdir, refr, reads, 'plain_', samples=('proband',),
+            mask=os.path.join(workdir, 'mask.nt'))
+        plainpath, plain_walls['novel'] = novel_stage('plain_')
+    finally:
+        (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
+         kmer_cuda.scatter_add_cuda) = kernels
+    if dict(kmer_cuda.launches) != launches:
+        raise AssertionError('the plain run launched a kernel')
+    for name in ('mask.nt', 'refr.sct', 'proband.ct'):
+        with np.load(os.path.join(workdir, name)) as got, \
+                np.load(os.path.join(workdir, 'plain_' + name)) as want:
+            for member in want.files:
+                if not np.array_equal(got[member], want[member]):
+                    raise AssertionError('{}: {} differs from the plain '
+                                         'run'.format(name, member))
+    with open(novelpath) as fh:
+        novel_text = fh.read()
+    with open(plainpath) as fh:
+        if fh.read() != novel_text:
+            raise AssertionError('novel output differs from the plain run')
+    print('[smoke] kernel run == plain run: mask.nt, refr.sct and '
+          'proband.ct tables, and the novel text ({:,} bytes)'.format(
+              len(novel_text)), flush=True)
+
+    for stage, wall in walls.items():
+        who = 'proband' if stage == 'novel' else stage.split()[-1]
+        rate = ' ({:,.0f} reads/s)'.format(nreads[who] / wall) \
+            if who in nreads else ''
+        plain = plain_walls.get(stage)
+        print('[smoke] stage {:<14s} {:7.2f} s{}{}'.format(
+            stage, wall, rate, '; plain {:.2f} s'.format(plain)
+            if plain is not None else ''), flush=True)
+
+    # the host's share of a sample count: the reader alone, then reader +
+    # 2-bit packing, over the proband's FASTQ (no device work)
+    from kevlar_tpu_torch.batch import native_base_batches, pack_bases
+    from kevlar_tpu_torch.count import COUNT_BATCH_READS
+    t0 = time.time()
+    for _ in native_base_batches(reads['proband'], COUNT_BATCH_READS,
+                                 overlap=KSIZE - 1):
+        pass
+    parse_s = time.time() - t0
+    t0 = time.time()
+    for bases, _ in native_base_batches(reads['proband'], COUNT_BATCH_READS,
+                                        overlap=KSIZE - 1):
+        pack_bases(bases)
+    print('[smoke] host share of count proband ({:.2f} s): reader {:.2f} s, '
+          'reader + 2-bit packing {:.2f} s'.format(
+              walls['count proband'], parse_s, time.time() - t0), flush=True)
+
+    # device busy share of a sample count, from a profiled repeat
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = _run_cli(['count', '-k', str(KSIZE), '--device', device, '-M',
+                         '500M', '--max-fpr', '0.2', '--mask',
+                         os.path.join(workdir, 'mask.nt'),
+                         os.path.join(workdir, 'prof_mother.ct'),
+                         reads['mother']],
+                        os.path.join(workdir, 'prof.log'))
+    def device_us(event):
+        return (getattr(event, 'self_device_time_total', 0) or
+                getattr(event, 'self_cuda_time_total', 0))
+
+    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in events)
+    print('[smoke] profiled count mother: {:.2f} s wall, device busy {} ; '
+          'top device time: {}'.format(
+              wall, '{:.3f} s ({:.2%})'.format(busy_us / 1e6,
+                                               busy_us / 1e6 / wall)
+              if busy_us else 'not measured (no device time in the trace)',
+              '; '.join('{} x{} {:.1f} ms'.format(
+                  e.key[:48], e.count, device_us(e) / 1e3)
+                  for e in events[:8])), flush=True)
+
+    records = read_augfastx_kmers(novelpath)
+    inside = set().union(*(d[2] for d in denovo))
+    nkmers = sum(len(ks) for _, ks in records)
+    outside = [(name, k, a) for name, ks in records for k, a in ks
+               if _canon(k) not in inside]
+    out_reads = sum(1 for _, ks in records
+                    if not any(_canon(k) in inside for k, _ in ks))
+    print('[smoke] novel: {} reads, {} k-mers; outside the de novo windows: '
+          '{} reads, {} k-mers ({} distinct){}'.format(
+              len(records), nkmers, out_reads, len(outside),
+              len({_canon(k) for _, k, _ in outside}),
+              ''.join('\n[smoke]   outside: {} {} {}'.format(*o)
+                      for o in outside[:5])), flush=True)
+    found = {_canon(k) for _, ks in records for k, _ in ks}
+    missed = []
+    for pos, kind, kmers in denovo:
+        hit = len(found & kmers)
+        print('[smoke] de novo {:<10s} at {:>10,}: {} of its {} k-mers '
+              'annotated'.format(kind, pos, hit, len(kmers)), flush=True)
+        if not hit:
+            missed.append((pos, kind))
+    if missed:
+        raise AssertionError('de novo loci without a novel read: {}'.format(
+            missed))
+    return dict(launches=launches, walls=walls, plain_walls=plain_walls)
+
+
+def build_all():
+    """Phase 2: compile every library from the checkout's sources, all at
+    once (one compiler process each); returns {library: seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kevlar_tpu_torch import native
+    from kevlar_tpu_torch.ops import align_cuda, kmer_cuda
+
+    def timed_build(fn):
+        t0 = time.time()
+        fn(force=True)
+        return time.time() - t0
+
+    builds = {'csrc/align.cu (nvcc)': align_cuda.build,
+              'csrc/kmer.cu (nvcc)': kmer_cuda.build,
+              'asm.cpp (g++)': native.build,
+              'fastx.cpp (g++ -lz)': native.build_fastx}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(timed_build, fn)
+                   for name, fn in builds.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
+    t_all = time.time()
     smi = _nvidia_smi()
     print(smi, flush=True)
 
-    from kevlar_tpu_torch import native
-    from kevlar_tpu_torch.ops import align_cuda
     t0 = time.time()
-    align_cuda.build(force=True)
-    nvcc_s = time.time() - t0
-    t0 = time.time()
-    native.build(force=True)
-    gxx_s = time.time() - t0
-    print('[smoke] built csrc/align.cu (nvcc, sm_90a) in {:.1f} s, '
-          'asm.cpp (g++) in {:.1f} s'.format(nvcc_s, gxx_s), flush=True)
+    builds = build_all()
+    print('[smoke] built in parallel in {:.1f} s: {}'.format(
+        time.time() - t0, ', '.join('{} {:.1f} s'.format(name, sec)
+                                    for name, sec in builds.items())),
+        flush=True)
 
     err = phase_kernel(device)
     with tempfile.TemporaryDirectory() as workdir:
         run = phase_slice(device, workdir)
+    kmer = phase_kmer_kernels(device)
+    with tempfile.TemporaryDirectory() as workdir:
+        trio = phase_trio(device, workdir)
+    print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
+          flush=True)
 
-    print(smi)
-    print(json.dumps({'kernels': [{
+    kernels = [{
         'name': 'ksw_extz (wavefront DP + traceback)', 'route': 'cuda',
         'source': 'kevlar_tpu_torch/csrc/align.cu',
         'replaces': 'kevlar_tpu/ops/align_pallas.py:204',
         'launches': run['launches'], 'max_abs_err': max(err, run['err']),
-        'ms': run['ms'], 'plain_ms': run['plain_ms']}]}))
+        'ms': run['ms'], 'plain_ms': run['plain_ms']}]
+    for key, name, counter, replaces in (
+            ('K1', 'kmer_hashes (wire-format k-mer hashing)', 'kmer_hashes',
+             'kevlar_tpu/ops/hashing.py:82'),
+            ('K2', 'gather_counts (Count-Min min over tables)',
+             'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60'),
+            ('K3', 'scatter_add (per-table int32 bincount)', 'scatter_add',
+             'tools/scatter_probe.py:76')):
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'kevlar_tpu_torch/csrc/kmer.cu', 'replaces': replaces,
+            'launches': trio['launches'][counter],
+            'max_abs_err': kmer[key]['err'], 'ms': kmer[key]['ms'],
+            'plain_ms': kmer[key]['plain_ms']})
+    print(smi)
+    print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

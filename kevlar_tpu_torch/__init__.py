@@ -1,9 +1,12 @@
 """kevlar_tpu_torch: the PyTorch + CUDA port of kevlar_tpu.
 
-The port runs the ``alac`` stage — assemble, localize, align and call — on
-one NVIDIA GPU: the contig x cutout ksw2 alignments go through a CUDA kernel
-written for Hopper (:mod:`kevlar_tpu_torch.ops.align_cuda`), and the rest is
-host code copied from ``kevlar_tpu`` with its imports rewritten.  It imports
+The port runs the ``count`` and ``novel`` stages and the ``alac`` stage —
+assemble, localize, align and call — on one NVIDIA GPU.  Their device work
+goes through CUDA kernels written for Hopper: k-mer hashing, the Count-Min
+gather and scatter (:mod:`kevlar_tpu_torch.ops.kmer_cuda`) and the
+contig x cutout ksw2 alignments (:mod:`kevlar_tpu_torch.ops.align_cuda`);
+the rest is torch and host code copied from ``kevlar_tpu`` with its
+imports rewritten.  It imports
 ``torch`` and numpy, never ``jax`` and never ``kevlar_tpu``, so it runs on a
 machine that has no JAX.  Module names follow ``kevlar_tpu``, so each
 counterpart sits at the same path.
@@ -59,8 +62,9 @@ from kevlar_tpu_torch.seqio import (  # noqa: E402
 
 # Pipeline stages, imported lazily via __getattr__ to keep startup light.
 _STAGE_MODULES = (
-    'assemble', 'augment', 'localize', 'reference', 'call', 'varmap',
-    'cigar', 'alac', 'vcf', 'readpair', 'cli', 'ops', 'native',
+    'count', 'novel', 'sketch', 'batch', 'support', 'assemble', 'augment',
+    'localize', 'reference', 'call', 'varmap', 'cigar', 'alac', 'vcf',
+    'readpair', 'cli', 'ops', 'native',
 )
 
 

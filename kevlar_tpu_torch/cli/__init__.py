@@ -1,15 +1,111 @@
-"""Command-line interface of the port: the ``alac`` subcommand.
+"""Command-line interface of the port: the ``count``, ``novel`` and
+``alac`` subcommands.
 
 Flag names, defaults and semantics follow ``kevlar_tpu.cli`` (and the
-reference's kevlar/cli/alac.py), plus ``--device``.  The other subcommands
-arrive with the later slices of the port.
+reference's kevlar/cli/*.py), plus ``--device``, the torch device the
+stage's kernels run on (default ``cuda``; ``cpu`` runs their plain PyTorch
+versions).  ``--shards`` and ``--sketch-format`` are not ported yet, nor
+are the other subcommands.
 """
 
 import argparse
 import os
+import re
 import sys
 
 import kevlar_tpu_torch
+
+
+def memory_setting(value):
+    """Parse a memory string like '1e6', '500M', '8G' into bytes (float)."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    value = value.strip()
+    match = re.match(r'^([\d.e+]+)\s*([KMGT]?)B?$', value, re.IGNORECASE)
+    if not match:
+        raise argparse.ArgumentTypeError(
+            'cannot parse memory setting "{}"'.format(value))
+    number = float(match.group(1))
+    suffix = match.group(2).upper()
+    multipliers = {'': 1, 'K': 1e3, 'M': 1e6, 'G': 1e9, 'T': 1e12}
+    return number * multipliers[suffix]
+
+
+def _one_thread(value):
+    """``-t`` of the stages that run on one device: only 1 is accepted."""
+    if value.strip() != '1':
+        raise argparse.ArgumentTypeError(
+            'only 1 is supported (the stage runs on one device), got '
+            '"{}"'.format(value))
+    return 1
+
+
+def _add_threads_arg(sp):
+    sp.add_argument('-t', '--threads', type=_one_thread, default=1,
+                    metavar='T', help='kept for kevlar_tpu\'s command line; '
+                    'only 1 is supported')
+
+
+def _add_device_arg(sp, what):
+    sp.add_argument('--device', default='cuda', metavar='DEV',
+                    help='torch device of {}: "cuda" (default; the CUDA '
+                    'kernels) or "cpu" (their plain PyTorch versions)'
+                    .format(what))
+
+
+def _count_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'count', description='Compute k-mer abundances for the provided '
+        'sample. Supports k-mer banding.')
+    sp.add_argument('-k', '--ksize', type=int, default=31, metavar='K',
+                    help='k-mer size; default is 31')
+    sp.add_argument('-c', '--counter-size', type=int, choices=(1, 4, 8),
+                    metavar='C', default=8, help='bits per counter: 1/4/8')
+    sp.add_argument('-M', '--memory', type=memory_setting, default=1e6,
+                    metavar='MEM', help='memory for the count table')
+    sp.add_argument('--max-fpr', type=float, default=0.2, metavar='FPR')
+    sp.add_argument('--mask', metavar='MSK', help='sketch of k-mers to '
+                    'ignore when counting')
+    sp.add_argument('--count-masked', action='store_true',
+                    help='count only k-mers in the mask')
+    sp.add_argument('--num-bands', type=int, metavar='N', default=None)
+    sp.add_argument('--band', type=int, metavar='I', default=None,
+                    help='band between 1 and N (inclusive) to process')
+    _add_threads_arg(sp)
+    _add_device_arg(sp, 'the sketch and the counting kernels')
+    sp.add_argument('counttable', type=str, help='output count table file')
+    sp.add_argument('seqfile', type=str, nargs='+',
+                    help='input Fastq/Fasta files')
+
+
+def _novel_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'novel', description='Identify "interesting" (potentially novel) '
+        'k-mers and output the corresponding reads.')
+    sp.add_argument('--case', metavar='F', nargs='+', required=True,
+                    action='append', help='FASTA/FASTQ files for a case '
+                    'sample; repeatable')
+    sp.add_argument('--case-counts', metavar='F', nargs='+',
+                    help='counttable file(s), one per case sample')
+    sp.add_argument('--control', metavar='F', nargs='+', action='append',
+                    help='FASTA/FASTQ files for a control sample; repeatable')
+    sp.add_argument('--control-counts', metavar='F', nargs='+',
+                    help='counttable file(s), one per control sample')
+    sp.add_argument('-x', '--ctrl-max', metavar='X', type=int, default=1)
+    sp.add_argument('-y', '--case-min', metavar='Y', type=int, default=6)
+    sp.add_argument('-M', '--memory', default=1e6, type=memory_setting,
+                    metavar='MEM')
+    sp.add_argument('--max-fpr', type=float, default=0.2, metavar='FPR')
+    sp.add_argument('--num-bands', type=int, metavar='N', default=None)
+    sp.add_argument('--band', type=int, metavar='I', default=None)
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('--save-case-counts', metavar='CT', nargs='+')
+    sp.add_argument('--save-ctrl-counts', metavar='CT', nargs='+')
+    sp.add_argument('-k', '--ksize', type=int, default=31, metavar='K')
+    sp.add_argument('--abund-screen', type=int, default=None, metavar='INT')
+    _add_threads_arg(sp)
+    sp.add_argument('--skip-until', type=str, metavar='ID')
+    _add_device_arg(sp, 'the sample sketches and the screen')
 
 
 def _add_score_args(sp):
@@ -36,15 +132,14 @@ def _alac_subparser(subparsers):
     sp.add_argument('-i', '--min-ikmers', metavar='I', type=int, default=None)
     sp.add_argument('-k', '--ksize', type=int, default=31, metavar='K')
     sp.add_argument('-t', '--threads', type=int, default=1, metavar='T')
-    sp.add_argument('--device', default='cuda', metavar='DEV',
-                    help='torch device of the contig x cutout alignments: '
-                    '"cuda" (default; the CUDA kernel) or "cpu" (its plain '
-                    'PyTorch version)')
+    _add_device_arg(sp, 'the contig x cutout alignments')
     sp.add_argument('infile', help='partitioned reads in augmented format')
     sp.add_argument('refr', help='reference genome in Fasta format')
 
 
 SUBPARSER_FUNCS = {
+    'count': _count_subparser,
+    'novel': _novel_subparser,
     'alac': _alac_subparser,
 }
 
@@ -52,6 +147,8 @@ SUBPARSER_FUNCS = {
 def mains():
     import kevlar_tpu_torch as kt
     return {
+        'count': kt.count.main,
+        'novel': kt.novel.main,
         'alac': kt.alac.main,
     }
 

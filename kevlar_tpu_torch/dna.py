@@ -1,11 +1,13 @@
-"""DNA sequence primitives: encoding, reverse complement, canonical seeds.
+"""DNA sequence primitives: encoding, reverse complement, canonical k-mer
+hashing and seeds.
 
 Reads are handled as ``uint8`` arrays of 2-bit base codes (A=0, C=1, G=2,
-T=3, anything else 4), the encoding the aligner kernel reads.  Host-side
-numpy only: a copy of the string and seed helpers of ``kevlar_tpu.dna``
-(the k-mer hashing there belongs to the count and screen stages, which this
-package does not run yet).  ``tests/test_torch_host.py`` pins the copy to
-its original.
+T=3, anything else 4), the encoding the kernels read.  Host-side numpy
+only: a copy of ``kevlar_tpu.dna``.  The k-mer hashing here serves point
+lookups (``Sketch.get``) and the tests; the batched hashing of the count
+and screen stages is :mod:`kevlar_tpu_torch.ops.hashing` and its CUDA
+kernel.  ``tests/test_torch_host.py`` and ``tests/test_torch_hashing.py``
+pin the copy to its original.
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ BASE_TO_CODE = np.full(256, 4, dtype=np.uint8)
 for _i, _b in enumerate('ACGT'):
     BASE_TO_CODE[ord(_b)] = _i
     BASE_TO_CODE[ord(_b.lower())] = _i
+CODE_TO_BASE = np.frombuffer(b'ACGTN', dtype=np.uint8)
 
 # IUPAC-aware reverse complement (same alphabet handling as the reference's
 # sequence module, kevlar/sequence.pyx:16-23).
@@ -41,6 +44,12 @@ def encode(sequence):
     return BASE_TO_CODE[raw]
 
 
+def decode(codes):
+    """Decode a uint8 code array back to a DNA string ('N' for invalid)."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    return CODE_TO_BASE[np.minimum(codes, 4)].tobytes().decode('ascii')
+
+
 def encode_batch(sequences, pad_to=None):
     """Encode a list of strings into a padded [B, L] code array + lengths.
 
@@ -53,6 +62,132 @@ def encode_batch(sequences, pad_to=None):
     for i, s in enumerate(sequences):
         out[i, :len(s)] = encode(s)
     return out, lengths
+
+
+# ---------------------------------------------------------------------------
+# Canonical k-mer codes and hashing (32-bit arithmetic only).
+# ---------------------------------------------------------------------------
+
+_U32 = np.uint32
+GOLDEN1 = _U32(0x3c6ef372)
+GOLDEN2 = _U32(0x9e3779b9)
+
+# long-k (k > 32) polynomial hashing: odd multipliers (units mod 2^32) and
+# their precomputed power tables; shared verbatim with ops/hashing.py
+MAX_KSIZE = 64
+POLY_M1 = 0x9E3779B1
+POLY_M2 = 0x85EBCA77
+POLY_POW1 = tuple(pow(POLY_M1, i, 1 << 32) for i in range(MAX_KSIZE))
+POLY_POW2 = tuple(pow(POLY_M2, i, 1 << 32) for i in range(MAX_KSIZE))
+
+
+def _fmix32(h):
+    """Murmur3 32-bit finaliser (numpy uint32, elementwise)."""
+    h = h.astype(np.uint32, copy=True)
+    h ^= h >> _U32(16)
+    h *= _U32(0x85ebca6b)
+    h ^= h >> _U32(13)
+    h *= _U32(0xc2b2ae35)
+    h ^= h >> _U32(16)
+    return h
+
+
+def kmer_codes(bases, ksize):
+    """Pack every k-window of `bases` into canonical (hi, lo) uint32 pairs.
+
+    Parameters
+    ----------
+    bases : uint8 array [..., L] of 2-bit codes (>=4 marks invalid bases)
+    ksize : static int, 1 <= ksize <= MAX_KSIZE
+
+    Returns
+    -------
+    (c_hi, c_lo, valid): uint32 [..., P], uint32 [..., P], bool [..., P]
+    with P = L - ksize + 1.  `valid[p]` is False if any base in the window is
+    invalid.  For k <= 32 the code pair is the lexicographic min of the
+    forward and reverse-complement packings, so string ``revcommin`` order
+    and numeric (hi, lo) order agree (A<C<G<T in both ASCII and numeric
+    code); for k > 32 each strand accumulates two polynomial hashes mod 2^32
+    and the smaller pair is kept.
+    """
+    if not 1 <= ksize <= MAX_KSIZE:
+        raise ValueError('ksize must be in [1, {}]'.format(MAX_KSIZE))
+    bases = np.asarray(bases, dtype=np.uint8)
+    L = bases.shape[-1]
+    P = L - ksize + 1
+    if P <= 0:
+        shape = bases.shape[:-1] + (0,)
+        z = np.zeros(shape, dtype=np.uint32)
+        return z, z.copy(), np.zeros(shape, dtype=bool)
+
+    lo_len = min(ksize, 16)
+    hi_len = ksize - lo_len
+
+    b = bases.astype(np.uint32)
+    comp = _U32(3) - np.minimum(b, 3).astype(np.uint32)  # garbage where invalid; masked later
+
+    f_lo = np.zeros(bases.shape[:-1] + (P,), dtype=np.uint32)
+    f_hi = np.zeros_like(f_lo)
+    r_lo = np.zeros_like(f_lo)
+    r_hi = np.zeros_like(f_lo)
+    if ksize > 32:
+        # the reverse strand uses the mirrored powers, so the {forward,
+        # reverse} accumulator pair is strand-symmetric and the min below
+        # stays canonical
+        for i in range(ksize):
+            w = b[..., i:i + P]
+            c = comp[..., i:i + P]
+            f_lo += w * _U32(POLY_POW1[ksize - 1 - i])
+            f_hi += w * _U32(POLY_POW2[ksize - 1 - i])
+            r_lo += c * _U32(POLY_POW1[i])
+            r_hi += c * _U32(POLY_POW2[i])
+    else:
+        for i in range(ksize):
+            w = b[..., i:i + P]
+            c = comp[..., i:i + P]
+            if i >= ksize - lo_len:
+                f_lo += w << _U32(2 * (ksize - 1 - i))
+            else:
+                f_hi += w << _U32(2 * (hi_len - 1 - i))
+            if i < lo_len:
+                r_lo += c << _U32(2 * i)
+            else:
+                r_hi += c << _U32(2 * (i - lo_len))
+
+    bad = (bases >= 4)
+    cum = np.zeros(bases.shape[:-1] + (L + 1,), dtype=np.int32)
+    np.cumsum(bad, axis=-1, out=cum[..., 1:])
+    valid = (cum[..., ksize:ksize + P] - cum[..., :P]) == 0
+
+    use_f = (f_hi < r_hi) | ((f_hi == r_hi) & (f_lo <= r_lo))
+    c_hi = np.where(use_f, f_hi, r_hi)
+    c_lo = np.where(use_f, f_lo, r_lo)
+    return c_hi, c_lo, valid
+
+
+def hash_pair(c_hi, c_lo):
+    """Two independent 32-bit hashes from a canonical code pair.
+
+    h2 is forced odd so (h1 + t*h2) mod tablesize gives distinct per-table
+    probes (Kirsch-Mitzenmacher double hashing).
+    """
+    h1 = _fmix32(c_lo ^ _fmix32(c_hi ^ GOLDEN1))
+    h2 = _fmix32(c_hi ^ _fmix32(c_lo ^ GOLDEN2)) | _U32(1)
+    return h1, h2
+
+
+def kmer_hashes(bases, ksize):
+    """Canonical (h1, h2, valid) for every k-window. See `kmer_codes`."""
+    c_hi, c_lo, valid = kmer_codes(bases, ksize)
+    return (*hash_pair(c_hi, c_lo), valid)
+
+
+def hash_kmer(kmer):
+    """Hash a single k-mer string; returns (h1, h2) as python ints."""
+    h1, h2, valid = kmer_hashes(encode(kmer), len(kmer))
+    if not valid[0]:
+        raise ValueError('k-mer contains non-ACGT characters: ' + kmer)
+    return int(h1[0]), int(h2[0])
 
 
 def seed_codes(bases, seedsize):

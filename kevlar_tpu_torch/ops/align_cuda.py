@@ -27,7 +27,6 @@ empty row), the traceback's op codes in walk order (0=M, 1=D, 2=I,
 
 import ctypes
 import os
-import shutil
 
 import numpy as np
 import torch
@@ -54,19 +53,11 @@ launches = 0
 _lib = None
 
 
-def _nvcc():
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
-    return os.path.join(home, 'bin', 'nvcc')
-
-
 def build(force=False):
     """Compile ``csrc/align.cu`` for sm_90a; returns the library path."""
     return native.build_shared(
         'libkevlar_align.so',
-        [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+        [native.nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
          '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v'],
         [SOURCE], force=force)
 

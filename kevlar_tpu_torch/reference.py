@@ -49,6 +49,12 @@ def _fold_codes(codes):
     return acc
 
 
+# .npy header readers by format version: numpy's public API only (its
+# private ``_read_array_header`` is missing from later numpy 2 releases)
+_NPY_HEADER_READERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}
+
+
 def _load_npz_mmap(filename):
     """Zero-copy load of an uncompressed npz: map each array member
     directly from the zip (copy-on-write, so callers may mutate without
@@ -78,8 +84,10 @@ def _load_npz_mmap(filename):
             fh.seek(data_off)
             try:
                 version = np.lib.format.read_magic(fh)
-                shape, fortran, dtype = \
-                    np.lib.format._read_array_header(fh, version)
+                read_header = _NPY_HEADER_READERS.get(version)
+                if read_header is None:
+                    return None
+                shape, fortran, dtype = read_header(fh)
             except (ValueError, OSError):
                 return None
             if dtype.hasobject:

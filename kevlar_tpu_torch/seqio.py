@@ -1,4 +1,4 @@
-"""Host sequence I/O: FASTA parsing and partitioned-read streams.
+"""Host sequence I/O: FASTA/FASTQ parsing and partitioned-read streams.
 
 Behavioral contract (reference kevlar/seqio.py): partition streams group
 consecutive reads sharing a ``kvcc=N`` label in the read name; mixing
@@ -9,6 +9,9 @@ label-tagging generator rather than the reference's explicit state machine.
 
 from itertools import groupby
 import re
+
+import kevlar_tpu_torch
+from kevlar_tpu_torch.sequence import Record
 
 _PART_LABEL = re.compile(r'kvcc=(\d+)')
 
@@ -42,6 +45,47 @@ def parse_seq_dict(data):
         assert key not in seqs, key
         seqs[key] = seq
     return seqs
+
+
+def _lines(instream):
+    for line in instream:
+        if line.strip():
+            yield line.rstrip('\n')
+
+
+def parse_fastx(instream):
+    """Yield plain Records from FASTA or FASTQ text (no annotations)."""
+    lines = _lines(instream)
+    head = next(lines, None)
+    if head is None:
+        return
+    if head[0] == '>':
+        defline = head
+        body = []
+        for line in lines:
+            if line[0] == '>':
+                yield Record(name=defline[1:].strip(),
+                             sequence=''.join(body))
+                defline, body = line, []
+            else:
+                body.append(line.strip())
+        yield Record(name=defline[1:].strip(), sequence=''.join(body))
+    elif head[0] == '@':
+        while head is not None:
+            seq = next(lines)
+            next(lines)  # '+' separator
+            qual = next(lines)
+            yield Record(name=head[1:].strip(), sequence=seq.strip(),
+                         quality=qual.strip())
+            head = next(lines, None)
+    else:
+        raise ValueError('unrecognized sequence format: ' + head[:40])
+
+
+def multi_file_iter(filenames, parser=parse_fastx):
+    for filename in filenames:
+        with kevlar_tpu_torch.open(filename, 'r') as fh:
+            yield from parser(fh)
 
 
 def partition_id(readname):

@@ -64,6 +64,11 @@ class Record:
         return self.sequence[ikmer.offset:ikmer.offset + ikmer.ksize]
 
 
+def copy_record(record):
+    qual = getattr(record, 'quality', None)
+    return Record(record.name, record.sequence, qual)
+
+
 def print_augmented_fastx(record, outstream):
     if record.quality is not None:
         recstr = '@{}\n{}\n+\n{}\n'.format(record.name, record.sequence,

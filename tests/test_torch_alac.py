@@ -182,6 +182,8 @@ def test_port_imports_no_jax():
     code = ('import sys\n'
             'import kevlar_tpu_torch.cli, kevlar_tpu_torch.alac\n'
             'import kevlar_tpu_torch.ops.align_cuda, kevlar_tpu_torch.call\n'
+            'import kevlar_tpu_torch.count, kevlar_tpu_torch.novel\n'
+            'import kevlar_tpu_torch.ops.kmer_cuda\n'
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "kevlar_tpu.")) or m == "kevlar_tpu"]\n'
             'assert not bad, bad\n'
