@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about ten minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 15 minutes
 
 Phases (any failure raises, and the script exits non-zero):
 
 1. card: a CUDA device must be present; print its name and power limit;
-2. build: ``csrc/align.cu`` and ``csrc/kmer.cu`` with nvcc for sm_90a, the
-   C++ assembler and the FASTA/FASTQ reader with g++, all four compilers
-   started together, into the package's build directory; print the
-   seconds each took;
+2. build: ``csrc/align.cu``, ``csrc/kmer.cu`` and ``csrc/cc.cu`` with nvcc
+   for sm_90a, the C++ assembler and the FASTA/FASTQ reader with g++, all
+   five compilers started together, into the package's build directory;
+   print the seconds each took;
 3. kernel: the ksw_extz kernel against its plain PyTorch version on the
    card, on seeded pairs at the call stage's shapes (targets 100-2,000 bp,
    queries 100-1,000 bp, a few 10,000 bp targets, one pair whose wavefront
@@ -42,16 +42,37 @@ Phases (any failure raises, and the script exits non-zero):
    proband tables and the novel text must equal those of the same commands
    run with the plain versions on the card; and each de novo locus must
    have a novel read whose annotated k-mer spans it.  Stage walls, reads
-   per second and the novel output's size are printed.
+   per second and the novel output's size are printed;
+7. K4 (read-graph label propagation) against its plain PyTorch version on
+   the card: seeded random incidences, a chain of 5,000 reads (diameter in
+   the thousands), isolated reads, single-read k-mers and duplicate pairs,
+   E = 0 and E = 1 (labels identical: tolerance 0), then both timed on
+   phase 8's incidence (so phase 7 runs after phase 8);
+8. partition at bigsim scale: phase 4's reads with their ``kvcc=`` labels
+   stripped go through ``cli.main(['partition', ..., '--device',
+   'cuda'])``.  The read-k-mer pair count must reach
+   ``HOST_CC_THRESHOLD`` (so K4 runs, as in ``kevlar_tpu`` the device
+   program), K4's launch count must be positive, its labels must equal the
+   plain version's on the card, and every partition must hold the reads
+   of exactly one locus;
+9. the trio workflow: ``kevlar_tpu_torch.workflow.run_mark1`` on phase 6's
+   helium trio with the helium configuration of
+   tools/sim_trio_bench.py (seed index built beforehand, timed apart).  K1,
+   K2, K3 and B1 must each launch during the run, every checkpoint must
+   exist, the four de novo SNVs must be PASS calls at their positions, and
+   no PASS call may lie more than 10 bp from a de novo locus.  Whether the
+   300 bp insertion was called, the stage walls, the peak RSS and the read
+   and call counts of each stage are printed.
 
 The last two lines of standard output are the kernels record (JSON: B1
-and K1-K3, each with its launches on its slice's run, max_abs_err, ms and
+and K1-K4, each with its launches on its slice's run, max_abs_err, ms and
 plain_ms) and ``{"ok": true, "device": {...}}``.  The generators import
 nothing but numpy, so tests import them to build small cases.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -813,7 +834,8 @@ def phase_slice(device, workdir):
     if score['recall_pass'] < MIN_RECALL:
         raise AssertionError('PASS recall {:.4f} below {}'.format(
             score['recall_pass'], MIN_RECALL))
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms)
+    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
+                reads=reads)
 
 
 def _run_cli(argv, logpath):
@@ -1010,7 +1032,252 @@ def phase_trio(device, workdir):
     if missed:
         raise AssertionError('de novo loci without a novel read: {}'.format(
             missed))
-    return dict(launches=launches, walls=walls, plain_walls=plain_walls)
+    return dict(launches=launches, walls=walls, plain_walls=plain_walls,
+                refr=refr, reads=reads, denovo=denovo)
+
+
+def _cc_graphs(rng):
+    """Seeded incidences (name, read_ids, kmer_ids, n_reads, n_kmers)."""
+    graphs = []
+    for n_reads, n_kmers, E in ((1000, 3000, 1500), (200_000, 600_000,
+                                                     2_000_000)):
+        graphs.append(('random {:,} pairs'.format(E),
+                       rng.integers(0, n_reads, E),
+                       rng.integers(0, n_kmers, E), n_reads, n_kmers))
+    # a chain read - k-mer - read - ..., read indices shuffled so that the
+    # minimum sits anywhere: diameter 5,000 reads
+    n = 5000
+    perm = rng.permutation(n)
+    graphs.append(('chain of {:,} reads'.format(n),
+                   np.concatenate([perm[:-1], perm[1:]]),
+                   np.tile(np.arange(n - 1), 2), n, n - 1))
+    # isolated reads, k-mers held by one read, duplicate pairs
+    reads = rng.integers(0, 5000, 20000) * 2          # odd reads isolated
+    kmers = rng.integers(0, 40000, 20000)             # most k-mers single
+    dup = rng.integers(0, 20000, 5000)
+    graphs.append(('isolated/single/duplicate',
+                   np.concatenate([reads, reads[dup]]),
+                   np.concatenate([kmers, kmers[dup]]), 10001, 40000))
+    graphs.append(('E = 0', np.zeros(0), np.zeros(0), 17, 1))
+    graphs.append(('E = 1', np.array([5]), np.array([0]), 9, 1))
+    return [(name, r.astype(np.int32), k.astype(np.int32), nr, nk)
+            for name, r, k, nr, nk in graphs]
+
+
+def phase_cc_kernel(device, incidence):
+    """Phase 7: K4 against its plain version on seeded graphs, then both
+    timed on ``incidence`` (phase 8's read-k-mer pairs)."""
+    import torch
+    from kevlar_tpu_torch.ops import cc_cuda, cc_ops
+    rng = np.random.default_rng(SEED + 7)
+    err = 0
+    for name, reads, kmers, n_reads, n_kmers in _cc_graphs(rng):
+        r = torch.from_numpy(reads).to(device)
+        k = torch.from_numpy(kmers).to(device)
+        got = cc_cuda.cc_labels_cuda(r, k, n_reads, n_kmers)
+        iters = cc_cuda.last_iterations
+        want = cc_ops.connected_components_plain(r, k, n_reads, n_kmers)
+        err = max(err, _max_diff(got, want, 'K4 ' + name))
+        print('[smoke] K4 vs plain, {}: identical ({} components, {} '
+              'iterations)'.format(name, len(torch.unique(got)), iters),
+              flush=True)
+    r, k, n_reads, n_kmers = incidence
+    got, ms = _timed(cc_cuda.cc_labels_cuda, r, k, n_reads, n_kmers,
+                     reps=5)
+    want, plain_ms = _timed(cc_ops.connected_components_plain, r, k, n_reads,
+                            n_kmers, reps=3)
+    err = max(err, _max_diff(got, want, 'K4 bigsim partition'))
+    shape = '{:,} pairs, {:,} reads, {:,} k-mers'.format(r.numel(), n_reads,
+                                                         n_kmers)
+    print('[smoke] K4 cc_labels: {} kernel {:.3f} ms ({} iterations), '
+          'plain {:.3f} ms'.format(shape, ms, cc_cuda.last_iterations,
+                                   plain_ms), flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+
+
+def _locus(readname):
+    """Locus of a make_alac_case read name, ``read<locus>_<n>``."""
+    return readname.split('_')[0]
+
+
+def phase_partition(device, workdir, reads):
+    """Phase 8: the partition stage at bigsim scale through K4.  Returns
+    the launch count, the wall and the incidence (for phase 7's timing)."""
+    import torch
+    from kevlar_tpu_torch.ops import cc_cuda, cc_ops
+    with open(reads, 'rb') as fh:
+        data = fh.read()
+    unlabelled = os.path.join(workdir, 'novel.augfastq')
+    with open(unlabelled, 'wb') as fh:
+        fh.write(re.sub(rb' kvcc=\d+\n', b'\n', data))
+    del data
+
+    seen = []
+    components = cc_ops.connected_components_bipartite
+
+    def recording(read_ids, kmer_ids, n_reads, n_kmers):
+        out = components(read_ids, kmer_ids, n_reads, n_kmers)
+        seen.append((read_ids, kmer_ids, n_reads, n_kmers, out,
+                     cc_cuda.last_iterations))
+        return out
+
+    outpath = os.path.join(workdir, 'repartitioned.augfastq')
+    cc_ops.connected_components_bipartite = recording
+    cc_cuda.launches['cc_labels'] = 0
+    try:
+        wall = _run_cli(['partition', '--device', device, '-o', outpath,
+                         unlabelled], os.path.join(workdir, 'partition.log'))
+    finally:
+        cc_ops.connected_components_bipartite = components
+    launches = cc_cuda.launches['cc_labels']
+    if launches <= 0 or len(seen) != 1:
+        raise AssertionError('the partition run launched K4 {} times over '
+                             '{} graphs'.format(launches, len(seen)))
+    r, k, n_reads, n_kmers, labels, iters = seen[0]
+    if r.numel() < cc_ops.HOST_CC_THRESHOLD:
+        raise AssertionError('{} pairs: below the threshold'.format(
+            r.numel()))
+    plain = cc_ops.connected_components_plain(r, k, n_reads, n_kmers)
+    _max_diff(labels, plain, 'K4 on the partition run')
+
+    members = {}
+    with open(outpath) as fh:
+        for line in fh:
+            if line.startswith('@read'):
+                name, label = line[1:].split()
+                members.setdefault(label, set()).add(_locus(name))
+    mixed = {lab: loci for lab, loci in members.items() if len(loci) != 1}
+    if mixed:
+        raise AssertionError('{} partitions mix loci, e.g. {}'.format(
+            len(mixed), sorted(mixed.items())[:3]))
+    loci = set().union(*members.values())
+    print('[smoke] partition (bigsim reads, kvcc labels stripped): {:.1f} s '
+          'wall; {:,} read-k-mer pairs over {:,} reads and {:,} k-mers; K4 '
+          '{} launch, {} iterations; labels == plain; {:,} partitions, each '
+          'one locus, covering {} of the loci'.format(
+              wall, r.numel(), n_reads, n_kmers, launches, iters,
+              len(members), len(loci)), flush=True)
+    torch.cuda.synchronize()
+    return dict(launches=launches, wall=wall,
+                incidence=(r, k, n_reads, n_kmers))
+
+
+def _count_reads(path):
+    import kevlar_tpu_torch
+    with kevlar_tpu_torch.open(path, 'r') as fh:
+        return sum(1 for line in fh if line.startswith('@'))
+
+
+def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
+                   maskmemory='50M'):
+    """Phase 9: run_mark1 on the helium trio of phase 6 (sample sketches
+    of ``memory``, mask and reference count of ``maskmemory``)."""
+    import resource
+    import torch
+    import kevlar_tpu_torch
+    from kevlar_tpu_torch import reference, workflow
+    from kevlar_tpu_torch.ops import align_cuda, cc_cuda, kmer_cuda
+
+    t0 = time.time()
+    reference.autoindex(refr, 51)
+    print('[smoke] seed index of the helium genome (seed 51) built in '
+          '{:.1f} s (set-up)'.format(time.time() - t0), flush=True)
+    outdir = os.path.join(workdir, 'workflow')
+    config = {
+        'ksize': KSIZE, 'outdir': outdir, 'device': device,
+        'reference': {'fasta': refr},
+        'case': {'fastx': [reads['proband']], 'label': 'Proband',
+                 'memory': memory, 'max_fpr': 0.6},
+        'controls': [
+            {'fastx': [reads['mother']], 'label': 'Mother',
+             'memory': memory, 'max_fpr': 0.2},
+            {'fastx': [reads['father']], 'label': 'Father',
+             'memory': memory, 'max_fpr': 0.2}],
+        'mask': {'memory': maskmemory, 'max_fpr': 0.01},
+        'novel': {'case_min': 5, 'ctrl_max': 1},
+        'localize': {'seed_size': 51, 'delta': 50},
+        'simlike': {'mu': HELIUM_COVERAGE, 'sigma': HELIUM_COVERAGE * 0.3,
+                    'epsilon': 0.001},
+    }
+    for name in kmer_cuda.launches:
+        kmer_cuda.launches[name] = 0
+    cc_cuda.launches['cc_labels'] = 0
+    align_cuda.launches = 0
+    logpath = os.path.join(workdir, 'workflow.log')
+    kevlar_tpu_torch.logstream = open(logpath, 'w')
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    t0 = time.time()
+    try:
+        final = workflow.run_mark1(config)
+    finally:
+        kevlar_tpu_torch.logstream.close()
+        kevlar_tpu_torch.logstream = None
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kmer_cuda.launches, ksw_extz=align_cuda.launches,
+                    cc_labels=cc_cuda.launches['cc_labels'])
+    missing = [name for name in ('kmer_hashes', 'gather_counts',
+                                 'scatter_add', 'ksw_extz')
+               if launches[name] <= 0]
+    if missing:
+        raise AssertionError('the workflow launched no {} kernel'.format(
+            missing))
+    for artifact in ('mask.nt', 'refr.sct', 'case.ct', 'control0.ct',
+                     'control1.ct', 'novel.augfastq.gz',
+                     'filtered.augfastq.gz', 'partitioned.augfastq.gz',
+                     'calls.prelim.vcf', 'callmask.nt',
+                     'calls.scored.sorted.vcf.gz'):
+        if not os.path.exists(os.path.join(outdir, artifact)):
+            raise AssertionError('the workflow wrote no ' + artifact)
+
+    calls = []
+    with kevlar_tpu_torch.open(final, 'r') as fh:
+        for line in fh:
+            if not line.startswith('#'):
+                f = line.split('\t')
+                if f[1] != '.':
+                    calls.append((int(f[1]) - 1, f[3], f[4], f[6]))
+    passing = [c for c in calls if c[3] == 'PASS']
+    for pos, kind, _ in denovo:
+        if kind == 'SNV':
+            hit = [c for c in passing if c[0] == pos and len(c[1]) ==
+                   len(c[2]) == 1]
+            print('[smoke] de novo SNV at {:,}: {}'.format(
+                pos, 'PASS call {} > {}'.format(hit[0][1], hit[0][2])
+                if hit else 'NOT CALLED'), flush=True)
+            if not hit:
+                raise AssertionError('de novo SNV at {} is not a PASS '
+                                     'call'.format(pos))
+        else:
+            hit = [c for c in passing if abs(c[0] - pos) <= 10 and
+                   len(c[2]) - len(c[1]) == HELIUM_INSERTION]
+            print('[smoke] de novo {} at {:,}: {}'.format(
+                kind, pos, 'called (PASS, {} bp longer at {:,})'.format(
+                    HELIUM_INSERTION, hit[0][0]) if hit else 'not called'),
+                flush=True)
+    stray = [c for c in passing
+             if all(abs(c[0] - pos) > 10 for pos, _, _ in denovo)]
+    if stray:
+        raise AssertionError('PASS calls away from every de novo locus: '
+                             '{}'.format(stray[:5]))
+    counts = {name: _count_reads(os.path.join(outdir, name))
+              for name in ('novel.augfastq.gz', 'filtered.augfastq.gz',
+                           'partitioned.augfastq.gz')}
+    # the process's peak so far; it covers the earlier phases too, so the
+    # peak before the run says whether the workflow raised it
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    print('[smoke] workflow: {:.1f} s wall; reads novel {:,}, filtered {:,}, '
+          'partitioned {:,}; {} calls, {} PASS (none away from a de novo '
+          'locus); peak RSS of the process {:.0f} MB after the run, {:.0f} '
+          'MB before it; launches {}'.format(
+              wall, counts['novel.augfastq.gz'],
+              counts['filtered.augfastq.gz'],
+              counts['partitioned.augfastq.gz'], len(calls), len(passing),
+              rss, rss_before, launches), flush=True)
+    print('[smoke] workflow stage walls: {}'.format('; '.join(
+        '{} {:.2f} s'.format(stage, sec)
+        for stage, sec in workflow.run_mark1.last_stage_times)), flush=True)
+    return dict(launches=launches, wall=wall)
 
 
 def build_all():
@@ -1018,7 +1285,7 @@ def build_all():
     once (one compiler process each); returns {library: seconds}."""
     from concurrent.futures import ThreadPoolExecutor
     from kevlar_tpu_torch import native
-    from kevlar_tpu_torch.ops import align_cuda, kmer_cuda
+    from kevlar_tpu_torch.ops import align_cuda, cc_cuda, kmer_cuda
 
     def timed_build(fn):
         t0 = time.time()
@@ -1027,6 +1294,7 @@ def build_all():
 
     builds = {'csrc/align.cu (nvcc)': align_cuda.build,
               'csrc/kmer.cu (nvcc)': kmer_cuda.build,
+              'csrc/cc.cu (nvcc)': cc_cuda.build,
               'asm.cpp (g++)': native.build,
               'fastx.cpp (g++ -lz)': native.build_fastx}
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -1054,9 +1322,13 @@ def main():
     err = phase_kernel(device)
     with tempfile.TemporaryDirectory() as workdir:
         run = phase_slice(device, workdir)
+        part = phase_partition(device, workdir, run['reads'])
+        cc = phase_cc_kernel(device, part.pop('incidence'))
     kmer = phase_kmer_kernels(device)
     with tempfile.TemporaryDirectory() as workdir:
         trio = phase_trio(device, workdir)
+        phase_workflow(device, workdir, trio['refr'], trio['denovo'],
+                       trio['reads'])
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
           flush=True)
 
@@ -1079,6 +1351,12 @@ def main():
             'launches': trio['launches'][counter],
             'max_abs_err': kmer[key]['err'], 'ms': kmer[key]['ms'],
             'plain_ms': kmer[key]['plain_ms']})
+    kernels.append({
+        'name': 'cc_labels (read-graph min-label propagation)',
+        'route': 'cuda', 'source': 'kevlar_tpu_torch/csrc/cc.cu',
+        'replaces': 'kevlar_tpu/ops/cc_ops.py:16',
+        'launches': part['launches'], 'max_abs_err': cc['err'],
+        'ms': cc['ms'], 'plain_ms': cc['plain_ms']})
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

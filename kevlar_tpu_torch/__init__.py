@@ -1,12 +1,14 @@
 """kevlar_tpu_torch: the PyTorch + CUDA port of kevlar_tpu.
 
-The port runs the ``count`` and ``novel`` stages and the ``alac`` stage —
-assemble, localize, align and call — on one NVIDIA GPU.  Their device work
-goes through CUDA kernels written for Hopper: k-mer hashing, the Count-Min
-gather and scatter (:mod:`kevlar_tpu_torch.ops.kmer_cuda`) and the
-contig x cutout ksw2 alignments (:mod:`kevlar_tpu_torch.ops.align_cuda`);
-the rest is torch and host code copied from ``kevlar_tpu`` with its
-imports rewritten.  It imports
+The port runs the trio workflow (:mod:`kevlar_tpu_torch.workflow`) on one
+NVIDIA GPU: ``count``, ``novel``, ``filter``, ``partition``, ``alac`` —
+assemble, localize, align and call — ``varfilter`` and ``simlike``.  Their
+device work goes through CUDA kernels written for Hopper: k-mer hashing,
+the Count-Min gather and scatter (:mod:`kevlar_tpu_torch.ops.kmer_cuda`),
+the read-graph label propagation (:mod:`kevlar_tpu_torch.ops.cc_cuda`) and
+the contig x cutout ksw2 alignments
+(:mod:`kevlar_tpu_torch.ops.align_cuda`); the rest is torch and host code
+copied from ``kevlar_tpu`` with its imports rewritten.  It imports
 ``torch`` and numpy, never ``jax`` and never ``kevlar_tpu``, so it runs on a
 machine that has no JAX.  Module names follow ``kevlar_tpu``, so each
 counterpart sits at the same path.
@@ -16,6 +18,7 @@ import builtins
 from gzip import open as gzopen
 from os import makedirs
 from os.path import dirname
+import re
 import sys
 
 __version__ = '0.1.0'
@@ -49,6 +52,21 @@ def mkdirp(path, trim=False):
     return outdir
 
 
+def parse_bed(instream):
+    """Yield (chrom, start, end, extra-fields) from BED text."""
+    for line in instream:
+        row = line.strip()
+        if not row or row.startswith('#'):
+            continue
+        chrom, start, end, *extra = re.split(r'\s+', row)
+        yield chrom, int(start), int(end), extra
+
+
+def bedstream(bedfilelist):
+    for bedfile in bedfilelist:
+        yield from parse_bed(open(bedfile, 'r'))
+
+
 # Core substrate
 from kevlar_tpu_torch.dna import revcom, revcommin  # noqa: E402
 from kevlar_tpu_torch.sequence import (  # noqa: E402
@@ -62,9 +80,10 @@ from kevlar_tpu_torch.seqio import (  # noqa: E402
 
 # Pipeline stages, imported lazily via __getattr__ to keep startup light.
 _STAGE_MODULES = (
-    'count', 'novel', 'sketch', 'batch', 'support', 'assemble', 'augment',
-    'localize', 'reference', 'call', 'varmap', 'cigar', 'alac', 'vcf',
-    'readpair', 'cli', 'ops', 'native',
+    'count', 'novel', 'filter', 'partition', 'sketch', 'batch', 'support',
+    'assemble', 'augment', 'localize', 'reference', 'call', 'varmap',
+    'cigar', 'alac', 'varfilter', 'simlike', 'vcf', 'readgraph', 'readpair',
+    'intervalforest', 'oxli', 'workflow', 'cli', 'ops', 'native',
 )
 
 

@@ -40,7 +40,8 @@ def _localized_targets(contigs_by_partition, refrfile, **kw):
 def alac(pstream, refrfile, threads=1, ksize=31, maxreads=10000, delta=50,
          seedsize=31, maxdiff=None, inclpattern=None, exclpattern=None,
          match=1, mismatch=2, gapopen=5, gapextend=0, min_ikmers=None,
-         maxtargetlen=10000, device='cuda'):
+         maskfile=None, maskmem=1e6, maskmaxfpr=0.01, maxtargetlen=10000,
+         device='cuda'):
     import time
     from kevlar_tpu_torch import call as call_mod
 
@@ -84,10 +85,15 @@ def alac(pstream, refrfile, threads=1, ksize=31, maxreads=10000, delta=50,
     calls.sort(key=lambda c: (c.seqid, c.position))
     t4 = time.time()
 
+    if maskfile:
+        kevlar_tpu_torch.plog('[kevlar::alac] generating mask of '
+                              'variant-spanning k-mers')
+        call_mod.make_call_mask(calls, ksize, maskmem, maskmaxfpr, maskfile,
+                                logprefix='[kevlar::alac]')
     kevlar_tpu_torch.plog(
         '[kevlar::alac] phase walls: assemble {:.1f}s, localize {:.1f}s, '
-        'align {:.1f}s, call {:.1f}s'.format(
-            t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+        'align {:.1f}s, call {:.1f}s, mask {:.1f}s'.format(
+            t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.time() - t4))
     yield from calls
 
 
@@ -109,6 +115,8 @@ def main(args):
                         exclpattern=args.exclude, match=args.match,
                         mismatch=args.mismatch, gapopen=args.open,
                         gapextend=args.extend, min_ikmers=args.min_ikmers,
+                        maskfile=args.gen_mask, maskmem=args.mask_mem,
+                        maskmaxfpr=args.mask_max_fpr,
                         maxtargetlen=args.max_target_length,
                         device=args.device):
         writer.write(varcall)

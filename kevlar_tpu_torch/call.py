@@ -4,7 +4,8 @@ Per partition, every contig aligns against every cutout (all pairs batched
 through the ksw2 wavefront on the chosen device, ops/align_cuda.py); only
 the interpretable alignment(s) with the optimal score are reported. Calls
 dedup by (seqid, pos) keeping the longest window, adjacent SNVs merge into
-MNVs, and targets beyond ``--max-target-length`` become no-calls.
+MNVs, targets beyond ``--max-target-length`` become no-calls, and
+``--gen-mask`` persists a Bloom mask of variant-spanning k-mers.
 Behavioral contract: reference kevlar/call.py:18-172.
 """
 
@@ -149,3 +150,29 @@ def call(*args, **kwargs):
     """prelim_call + dedup + adjacent-SNV merge."""
     yield from merge_adjacent(dedup(prelim_call(*args, **kwargs)))
 
+
+def make_call_mask(calls, ksize, maskmem, maskmaxfpr=0.01, maskfile=None,
+                   logprefix='[kevlar::call]'):
+    """Build a Bloom mask of ALTWINDOW k-mers from a call set.
+
+    The mask is a khmer-binary-compatible nodetable (oxli engine), so a
+    ``--gen-mask`` file is byte-identical to the reference's and to
+    ``kevlar_tpu``'s, and can be fed to either implementation.
+    """
+    from kevlar_tpu_torch import sketch
+    from kevlar_tpu_torch.oxli import OxliSketch
+    buckets = int(maskmem) * sketch.BUCKETS_PER_BYTE[1] // 4
+    mask = OxliSketch(ksize, buckets, 4, counter_bits=1)
+    for varcall in calls:
+        window = varcall.attribute('ALTWINDOW')
+        if window is not None and len(window) >= ksize:
+            mask.consume(window)
+    fpr = sketch.estimate_fpr(mask)
+    if fpr > maskmaxfpr:
+        kevlar_tpu_torch.plog(
+            logprefix,
+            'WARNING: mask FPR is {:.4f}; exceeds user-specified limit '
+            'of {:.4f}'.format(fpr, maskmaxfpr))
+    if maskfile:
+        mask.save(maskfile)
+    return mask

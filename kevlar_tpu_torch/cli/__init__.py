@@ -1,11 +1,13 @@
-"""Command-line interface of the port: the ``count``, ``novel`` and
-``alac`` subcommands.
+"""Command-line interface of the port: the ``count``, ``novel``,
+``filter``, ``partition``, ``alac``, ``varfilter`` and ``simlike``
+subcommands (the trio workflow itself is ``python -m
+kevlar_tpu_torch.workflow``).
 
 Flag names, defaults and semantics follow ``kevlar_tpu.cli`` (and the
-reference's kevlar/cli/*.py), plus ``--device``, the torch device the
-stage's kernels run on (default ``cuda``; ``cpu`` runs their plain PyTorch
-versions).  ``--shards`` and ``--sketch-format`` are not ported yet, nor
-are the other subcommands.
+reference's kevlar/cli/*.py), plus ``--device`` where a stage touches a
+device: the torch device of its kernels (default ``cuda``; ``cpu`` runs
+their plain PyTorch versions).  ``--shards``, ``--sketch-format`` and
+``--profile`` are not ported yet, nor are the other subcommands.
 """
 
 import argparse
@@ -108,11 +110,49 @@ def _novel_subparser(subparsers):
     _add_device_arg(sp, 'the sample sketches and the screen')
 
 
+def _filter_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'filter', description='Discard k-mers and reads whose abundances '
+        'were inflated during the preliminary k-mer counting stage.')
+    sp.add_argument('-M', '--memory', type=memory_setting, default=1e6,
+                    metavar='MEM')
+    sp.add_argument('--max-fpr', type=float, default=0.01, metavar='FPR')
+    sp.add_argument('--mask', metavar='MSK')
+    sp.add_argument('-x', '--ctrl-max', metavar='X', type=int, default=1)
+    sp.add_argument('-y', '--case-min', metavar='Y', type=int, default=6)
+    sp.add_argument('-o', '--out', metavar='FILE')
+    _add_device_arg(sp, 'the mask sketch')
+    sp.add_argument('augfastq', help='novel reads in augmented Fastq format')
+
+
+def _partition_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'partition', description='Group reads by shared interesting k-mers.')
+    sp.add_argument('-s', '--strict', action='store_true')
+    sp.add_argument('--min-abund', metavar='X', type=int, default=2)
+    sp.add_argument('--max-abund', metavar='Y', type=int, default=200)
+    sp.add_argument('--no-dedup', dest='dedup', action='store_false',
+                    default=True)
+    sp.add_argument('--gml', metavar='FILE')
+    sp.add_argument('--split', type=str, metavar='OUTPREFIX')
+    sp.add_argument('-o', '--out', metavar='FILE')
+    _add_device_arg(sp, 'the read-graph components (at or above 200,000 '
+                    'read-k-mer pairs)')
+    sp.add_argument('infile', help='input reads in augmented format')
+
+
 def _add_score_args(sp):
     sp.add_argument('-A', '--match', type=int, default=1, metavar='A')
     sp.add_argument('-B', '--mismatch', type=int, default=2, metavar='B')
     sp.add_argument('-O', '--open', type=int, default=5, metavar='O')
     sp.add_argument('-E', '--extend', type=int, default=0, metavar='E')
+
+
+def _add_mask_args(sp):
+    sp.add_argument('--gen-mask', metavar='FILE')
+    sp.add_argument('--mask-mem', type=memory_setting, default=1e6,
+                    metavar='MEM')
+    sp.add_argument('--mask-max-fpr', type=float, default=0.01, metavar='FPR')
 
 
 def _alac_subparser(subparsers):
@@ -128,6 +168,7 @@ def _alac_subparser(subparsers):
     sp.add_argument('--max-target-length', type=int, default=10000,
                     metavar='L')
     _add_score_args(sp)
+    _add_mask_args(sp)
     sp.add_argument('-o', '--out', metavar='FILE')
     sp.add_argument('-i', '--min-ikmers', metavar='I', type=int, default=None)
     sp.add_argument('-k', '--ksize', type=int, default=31, metavar='K')
@@ -137,10 +178,60 @@ def _alac_subparser(subparsers):
     sp.add_argument('refr', help='reference genome in Fasta format')
 
 
+def _varfilter_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'varfilter', description='Filter out calls overlapping the given '
+        'BED regions.')
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('filt', help='BED file containing regions to filter out')
+    sp.add_argument('vcf', nargs='+', help='VCF file(s) with calls to filter')
+
+
+def _simlike_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'simlike', description='Sort variant calls by likelihood score.')
+    sp.add_argument('--case', metavar='CT', required=True,
+                    help='k-mer counttable for case/proband')
+    sp.add_argument('--controls', nargs='+', metavar='CT', required=True,
+                    help='k-mer counttables for controls/parents')
+    sp.add_argument('--refr', metavar='REFR', required=True,
+                    help='k-mer smallcounttable for reference genome')
+    sp.add_argument('--ctrl-max', metavar='X', type=int, default=1)
+    sp.add_argument('--case-min', metavar='Y', type=int, default=6)
+    sp.add_argument('--mu', metavar='M', type=float, default=30.0)
+    sp.add_argument('--sigma', metavar='S', type=float, default=8.0)
+    sp.add_argument('--epsilon', metavar='E', type=float, default=0.001)
+    sp.add_argument('--ctrl-abund-high', metavar='H', type=int, default=4)
+    sp.add_argument('--case-abund-low', metavar='L', type=int, default=5)
+    sp.add_argument('--case-abund-gate', metavar='G', type=float,
+                    default=300.0,
+                    help='rescind sole CaseAbundance/Homopolymer filters '
+                         'when LIKESCORE exceeds G (the likelihood verdict '
+                         'overrides the heuristics); 0 restores '
+                         'reference semantics [300.0]')
+    sp.add_argument('--shared-kmer-min', metavar='S', type=int,
+                    default=None,
+                    help='mask ALT-window k-mers with abundance >= S in '
+                         'EVERY control (family background cannot carry '
+                         'de novo evidence; only a minority of the window '
+                         'may be masked); 0 disables [case-min]')
+    sp.add_argument('--min-like-score', metavar='S', type=float, default=0.0)
+    sp.add_argument('--drop-outliers', action='store_true')
+    sp.add_argument('--ambig-thresh', metavar='A', type=int, default=10)
+    sp.add_argument('--sample-labels', metavar='LBL', type=str, nargs='+')
+    sp.add_argument('-f', '--fast-mode', action='store_true')
+    sp.add_argument('-o', '--out', metavar='OUT', default='-')
+    sp.add_argument('vcf', nargs='+')
+
+
 SUBPARSER_FUNCS = {
     'count': _count_subparser,
     'novel': _novel_subparser,
+    'filter': _filter_subparser,
+    'partition': _partition_subparser,
     'alac': _alac_subparser,
+    'varfilter': _varfilter_subparser,
+    'simlike': _simlike_subparser,
 }
 
 
@@ -149,7 +240,11 @@ def mains():
     return {
         'count': kt.count.main,
         'novel': kt.novel.main,
+        'filter': kt.filter.main,
+        'partition': kt.partition.main,
         'alac': kt.alac.main,
+        'varfilter': kt.varfilter.main,
+        'simlike': kt.simlike.main,
     }
 
 

@@ -22,7 +22,7 @@ import kevlar_tpu_torch
 from kevlar_tpu_torch.batch import native_base_batches, pack_bases
 from kevlar_tpu_torch.ops import sketch_ops
 from kevlar_tpu_torch.sketch import (
-    allocate_from_memory, estimate_fpr, get_extension,
+    allocate_from_memory, estimate_fpr, get_extension, register_saved,
     KevlarUnsuitableFPRError,
 )
 from kevlar_tpu_torch.support import Timer
@@ -44,6 +44,10 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
     k-mer is lost or counted twice.
     """
     device = sketch.device
+    if mask is not None and getattr(mask, 'backend', None) != 'device':
+        raise ValueError('the mask must be a device sketch of this '
+                         'package (khmer-format masks are not supported '
+                         'by the port\'s count)')
     if mask is not None and mask.device != device:
         raise ValueError('mask is on {}, sketch on {}'.format(mask.device,
                                                               device))
@@ -107,9 +111,14 @@ def load_sample_seqfile(seqfiles, ksize, memory, maxfpr=0.2, count=True,
                         smallcount=False, mask=None, maskmaxabund=0,
                         consume_masked=False, numbands=None, band=None,
                         outfile=None, batch_size=COUNT_BATCH_READS,
-                        device='cuda'):
+                        device='cuda', save_async=False):
     """Compute k-mer abundances for one sample on ``device``; returns the
-    sketch (saved to ``outfile`` when given)."""
+    sketch (saved to ``outfile`` when given).
+
+    With ``save_async`` the save runs on a background thread, off the
+    critical path (the tables are not written to again); callers join
+    ``sketch._save_thread`` before relying on the file, and
+    :func:`kevlar_tpu_torch.sketch.load` of that file joins it itself."""
     counter_bits = (4 if smallcount else 8) if count else 1
     sketch = allocate_from_memory(ksize, memory, num_tables=4,
                                   counter_bits=counter_bits, device=device)
@@ -138,7 +147,15 @@ def load_sample_seqfile(seqfiles, ksize, memory, maxfpr=0.2, count=True,
         extensions = get_extension(count=count, smallcount=smallcount)
         if not outfile.endswith(extensions):
             outfile += extensions[1]
-        sketch.save(outfile)
+        if save_async:
+            import threading
+            thread = threading.Thread(target=sketch.save, args=(outfile,),
+                                      name='kevlar-save')
+            thread.start()
+            sketch._save_thread = thread
+        else:
+            sketch.save(outfile)
+        register_saved(outfile, sketch)
         message += ';\n    saved to "{:s}"'.format(outfile)
     kevlar_tpu_torch.plog('[kevlar::count]', message)
     return sketch

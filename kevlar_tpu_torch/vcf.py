@@ -1,10 +1,9 @@
-"""Variant records, filters, and VCF 4.2 writing.
+"""Variant records, filters, and VCF 4.2 reading/writing.
 
 The INFO/FORMAT/FILTER vocabulary and header descriptions are an exchange
 contract shared with the reference implementation (kevlar/vcf.py:25-36,
 262-424) and must stay byte-identical; the record model, merge procedure,
-and writer logic here are original (the reader of ``kevlar_tpu.vcf``
-arrives with the slice that reads VCF). Positions are 0-based
+and reader/writer logic here are original. Positions are 0-based
 internally and shifted +1 on write.
 """
 
@@ -339,3 +338,80 @@ class VCFWriter:
             formatstr, columns = self._sample_columns(variant)
             row = '\t'.join([row, formatstr] + columns)
         print(row, file=self._out)
+
+
+class VCFReader:
+    def __init__(self, instream):
+        self._in = instream
+        self._sample_labels = []
+        self.suppress_filter_warnings = False
+
+    def _parse_filters(self, variant, filterstr):
+        import kevlar_tpu_torch
+        if filterstr in ('.', 'PASS'):
+            return
+        for label in filterstr.split(';'):
+            if hasattr(VariantFilter, label):
+                variant.filter(VariantFilter[label])
+            elif not self.suppress_filter_warnings:
+                kevlar_tpu_torch.plog(
+                    '[kevlar::vcf]',
+                    'filter "{}" not recognized; attempting to write this '
+                    'variant to VCF will probably turn out poorly'.format(
+                        filterstr))
+
+    def _parse_samples(self, variant, fmtcol, samplecols, line):
+        keys = fmtcol.split(':')
+        if self._sample_labels and \
+                len(samplecols) != len(self._sample_labels):
+            raise VariantAnnotationError('sample number mismatch: ' + line)
+        for label, data in zip(self._sample_labels, samplecols):
+            if data in ('.', './.'):
+                continue
+            values = data.split(':')
+            if len(keys) != len(values):
+                raise VariantAnnotationError('format data mismatch: ' + line)
+            for key, value in zip(keys, values):
+                variant.format(label, key, value)
+
+    def _parse_row(self, line):
+        fields = line.strip().split('\t')
+        pos = '.' if fields[1] == '.' else int(fields[1]) - 1
+        variant = Variant(fields[0], pos, fields[3], fields[4])
+        for kvp in fields[7].split(';'):
+            if '=' in kvp:
+                key, values = kvp.split('=')
+                for value in values.split(','):
+                    variant.annotate(key, value)
+            else:
+                variant.annotate(kvp, True)
+        self._parse_filters(variant, fields[6])
+        if len(fields) > 9:
+            self._parse_samples(variant, fields[8], fields[9:], line)
+        return variant
+
+    def __iter__(self):
+        import kevlar_tpu_torch
+        for line in self._in:
+            if line.startswith('#CHROM\t'):
+                columns = line.strip().split('\t')
+                assert len(columns) >= 8
+                if len(columns) > 8:
+                    self._sample_labels = columns[9:]
+                break
+            if not line.startswith('#'):
+                kevlar_tpu_torch.plog(
+                    '[kevlar::vcf]',
+                    'WARNING: VCF file has no samples annotated, certain '
+                    'sanity checks disabled')
+                yield self._parse_row(line)
+                break
+        for line in self._in:
+            if not line.startswith('#'):
+                yield self._parse_row(line)
+
+
+def vcfstream(filelist):
+    import kevlar_tpu_torch
+    for infile in filelist:
+        yield from VCFReader(kevlar_tpu_torch.open(infile, 'r'))

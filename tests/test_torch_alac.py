@@ -184,6 +184,13 @@ def test_port_imports_no_jax():
             'import kevlar_tpu_torch.ops.align_cuda, kevlar_tpu_torch.call\n'
             'import kevlar_tpu_torch.count, kevlar_tpu_torch.novel\n'
             'import kevlar_tpu_torch.ops.kmer_cuda\n'
+            'import kevlar_tpu_torch.filter, kevlar_tpu_torch.partition\n'
+            'import kevlar_tpu_torch.simlike, kevlar_tpu_torch.workflow\n'
+            'import kevlar_tpu_torch.oxli, kevlar_tpu_torch.ops.cc_cuda\n'
+            'import kevlar_tpu_torch.varfilter, kevlar_tpu_torch.readgraph\n'
+            'import kevlar_tpu_torch.cli as c\n'
+            'for name in ("filter", "partition", "simlike", "varfilter"):\n'
+            '    c.mains()[name]\n'
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "kevlar_tpu.")) or m == "kevlar_tpu"]\n'
             'assert not bad, bad\n'
