@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about 15 minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 10 minutes
+    python3 chip_smoke.py --compare-parent DIR
+                                 # K1/K2 and a helium sample count of this
+                                 # tree against an older checkout in DIR
+    python3 chip_smoke.py --profile-workflow
+                                 # the helium trio workflow under
+                                 # torch.profiler: the card's busy share
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -25,12 +31,15 @@ Phases (any failure raises, and the script exits non-zero):
    identical, and both are timed), the kernel's launch count over the run
    must be positive, and the VCF is scored against the truth: recall below
    0.90 fails;
-5. count kernels: K1 (k-mer hashing) at k = 21, 31, 33 and 51 with N bases
-   and row lengths that are not a multiple of 4 or 8, K2 (count gather) at
-   1, 4 and 8 bits with odd table sizes, and K3 (scatter-add) with heavy
-   duplicates and negative indices, each against its plain PyTorch version
-   on the card (tolerance 0: integer arithmetic), then timed against it at
-   the helium run's shapes;
+5. count kernels: K1 (k-mer hashing of base codes) at k = 15, 21, 31, 32,
+   33 and 51 with N bases, padding rows, row lengths that are not a
+   multiple of 4, 8 or 16, rows of 1,024 bases and rows that start off a
+   16-byte boundary; K2 (count gather) with 1, 3 and 9 sketches in a call,
+   at 1, 4 and 8 bits, uniform and mixed, at odd and edge table sizes (1,
+   2, 2^31 - 1) and with a three-table sketch; and K3 (scatter-add) with
+   heavy duplicates and negative indices; each against its plain PyTorch
+   version on the card (tolerance 0: integer arithmetic), then timed
+   against it at the helium run's shapes;
 6. count -> novel slice: :func:`make_trio_case` writes the helium trio
    (the reference's quick-start: 25 Mb genome, 30x trio of 150 bp reads
    with 0.5% errors, 20 inherited and 5 de novo variants), and the trio
@@ -65,8 +74,12 @@ Phases (any failure raises, and the script exits non-zero):
    and call counts of each stage are printed.
 
 The last two lines of standard output are the kernels record (JSON: B1
-and K1-K4, each with its launches on its slice's run, max_abs_err, ms and
-plain_ms) and ``{"ok": true, "device": {...}}``.  The generators import
+and K1-K4, each with its launches on its slice's run, max_abs_err, ms,
+plain_ms, its bound on this run's inputs (``bound_ms``, ``bound_by``: the
+larger of bytes over ``HBM_BYTES_PER_S`` and operations over
+``OPS_PER_S``) and ``library_ms``, the time of one PyTorch call computing
+the same function where there is one) and ``{"ok": true, "device":
+{...}}``.  The generators import
 nothing but numpy, so tests import them to build small cases.
 """
 
@@ -85,8 +98,19 @@ NLOCI = 1500
 READLEN = 150
 COVERAGE = 15          # per haplotype
 KSIZE = 31
+DEFAULT_SCREEN_READS = 4096     # kevlar_tpu_torch.batch.DEFAULT_BATCH_SIZE
 SEED = 20261016
 MIN_RECALL = 0.90
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory, and float32 outside the tensor cores.  The kernels here
+# are integer code, which runs at no more than half the float32 rate, so
+# a bound by operations is lenient.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+SECTOR = 32        # bytes a random access into device memory costs
+SPIN_CYCLES = 20_000_000       # ~10 ms of the card's clock
+L2_BYTES = 50e6
 
 # (class, min size, max size, share of loci): the class mix of the bigsim
 # trio (ACCURACY_BIGSIM_CLASSMIX.json: 264 SNVs, ~250 per indel band)
@@ -535,19 +559,56 @@ def _compare(kernel_out, plain_out, label):
     return err
 
 
-def _timed(fn, *args, reps=1, **kw):
-    """(result, ms per call) by CUDA events, after one warm-up call."""
+def _timed(fn, *args, reps=1, spin=False, **kw):
+    """(result, ms per call) by CUDA events, after one warm-up call.  With
+    ``spin`` the calls queue up behind a spin kernel of a few milliseconds,
+    so that the card runs them back to back and a kernel shorter than its
+    launch's host time is not timed as that host time."""
     import torch
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn(*args, **kw)
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop) / reps
+
+
+def _bound(nbytes, nops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``nops`` operations."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * nops / OPS_PER_S
+    return ((by_bytes, 'bytes') if by_bytes >= by_ops
+            else (by_ops, 'operations'))
+
+
+def _table_bytes(tables, probes):
+    """Bytes ``probes`` random single-counter reads of ``tables`` must
+    move: a sector each, but no more than the tables hold."""
+    return min(probes * SECTOR, tables.numel())
+
+
+def _launch_times(fn, reps):
+    """ms of each of ``reps`` calls of ``fn`` by CUDA events, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, stop in events:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(stop) for start, stop in events]
 
 
 def phase_kernel(device):
@@ -619,14 +680,6 @@ def _max_diff(got, want, label):
     return diff
 
 
-def _wire(bases, device):
-    import torch
-    from kevlar_tpu_torch.batch import pack_bases
-    packed, badmask = pack_bases(bases)
-    return (torch.from_numpy(packed).to(device),
-            torch.from_numpy(badmask).to(device))
-
-
 def _read_bases(rng, nrows, L, readlen, nrate=0.002):
     """[nrows, L] base codes: reads of ``readlen`` with N bases at
     ``nrate``, padded with the invalid code 4 (a count batch)."""
@@ -636,70 +689,148 @@ def _read_bases(rng, nrows, L, readlen, nrate=0.002):
     return bases
 
 
+# ops per k-window in K1 (roll both strands ~14, canonical pick ~5, four
+# fmix32 of 8 each and the two outer xors) and per probe in K2 (index,
+# reciprocal reduction, counter extraction, min)
+K1_OPS_PER_WINDOW = 56
+K2_OPS_PER_PROBE = 12
+
+
+def _k1_bound(nrows, L, ksize):
+    P = L - ksize + 1
+    return _bound(nrows * L + nrows * P * 9, nrows * P * K1_OPS_PER_WINDOW)
+
+
+def _k2_bound(samples, n):
+    probes = sum(t.shape[0] for t, _, _ in samples) * n
+    nbytes = n * (8 + len(samples)) + sum(
+        _table_bytes(t, t.shape[0] * n) for t, _, _ in samples)
+    return _bound(nbytes, probes * K2_OPS_PER_PROBE)
+
+
+def _random_hashes(rng, n, device):
+    import torch
+    h = rng.integers(-2**31, 2**31, (2, n), dtype=np.int64).astype(np.int32)
+    h[:, :4] = [[0, 1, -1, -2**31], [1, -1, 3, 2**31 - 1]]
+    h = torch.from_numpy(h).to(device)
+    return h[0], h[1]
+
+
+def _random_sketch(rng, bits, tablesize, device, ntables=4):
+    """(tables, bits, tablesize) of random counters on the card."""
+    import torch
+    from kevlar_tpu_torch.ops import sketch_ops
+    width = sketch_ops.packed_width(tablesize, bits)
+    if ntables * width > 1 << 26:
+        tables = torch.randint(0, 256, (ntables, width), dtype=torch.uint8,
+                               device=device)
+    else:
+        tables = torch.from_numpy(rng.integers(
+            0, 256, (ntables, width), dtype=np.uint8)).to(device)
+    return tables, bits, tablesize
+
+
 def phase_kmer_kernels(device):
     """Phase 5: K1, K2 and K3 against their plain versions on the card, on
     seeded inputs, then timed at the shapes of the helium run.  Returns
-    {kernel: dict(err, ms, plain_ms, shape)}."""
+    {kernel: dict(err, ms, plain_ms, bound_ms, bound_by, library_ms,
+    shape)}."""
     import torch
     from kevlar_tpu_torch.ops import hashing, kmer_cuda, sketch_ops
     rng = np.random.default_rng(SEED + 5)
     out = {}
 
-    # K1: k = 21, 31, 33, 51; L not a multiple of 4 or 8; N bases
+    # K1: short and long k; L not a multiple of 4, 8 or 16; the 1,024
+    # bucket; N bases; padding rows; rows off the 16-byte grid
     err = 0
-    for k in (21, 31, 33, 51):
-        for L, readlen in ((157, 150), (1021, 1021), (253, 61)):
-            packed, badmask = _wire(_read_bases(rng, 3001, L, readlen),
-                                    device)
-            got = kmer_cuda.kmer_hashes_cuda(packed, badmask, L, k)
-            want = hashing.kmer_hashes_packed_plain(packed, badmask, L, k)
+    for k in (15, 21, 31, 32, 33, 51):
+        for L, readlen in ((157, 150), (1021, 1021), (253, 61),
+                           (1024, 1024), (k, k)):
+            bases = _read_bases(rng, 3002, L, readlen)
+            bases[-7:] = 4
+            codes = torch.from_numpy(bases).to(device)[1:]
+            got = kmer_cuda.kmer_hashes_cuda(codes, k)
+            want = hashing.kmer_hashes_plain(codes, k)
             for name, g, w in zip(('h1', 'h2', 'valid'), got, want):
                 err = max(err, _max_diff(g, w, 'K1 k={} L={} {}'.format(
                     k, L, name)))
-    # the proband count's launch: 32,768 reads of 150 bp in a 160 bucket
-    packed, badmask = _wire(_read_bases(rng, 32768, 160, 150), device)
-    _, ms = _timed(kmer_cuda.kmer_hashes_cuda, packed, badmask, 160, KSIZE,
-                   reps=20)
-    _, plain_ms = _timed(hashing.kmer_hashes_packed_plain, packed, badmask,
-                         160, KSIZE, reps=3)
-    out['K1'] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                     shape='32,768 x 160 bases, k=31')
-    print('[smoke] K1 kmer_hashes: identical to plain at k=21/31/33/51 '
-          '(L=157/1021/253, N bases); {} kernel {:.3f} ms, plain {:.3f} ms'
-          .format(out['K1']['shape'], ms, plain_ms), flush=True)
+    # the sample counts' launch (32,768 reads of 150 bp in a 160 bucket)
+    # and the screen's (4,096 reads)
+    times = {}
+    for nrows in (32768, DEFAULT_SCREEN_READS):
+        codes = torch.from_numpy(_read_bases(rng, nrows, 160, 150)).to(
+            device)
+        _, ms = _timed(kmer_cuda.kmer_hashes_cuda, codes, KSIZE, reps=20,
+                       spin=True)
+        _, plain_ms = _timed(hashing.kmer_hashes_plain, codes, KSIZE, reps=3)
+        times[nrows] = (ms, plain_ms) + _k1_bound(nrows, 160, KSIZE)
+    ms, plain_ms, bound_ms, bound_by = times[32768]
+    out['K1'] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None,
+                     shape='32,768 x 160 base codes, k=31')
+    print('[smoke] K1 kmer_hashes: identical to plain at k=15/21/31/32/33/51 '
+          '(L=157/1021/253/1024/k, N bases, padding rows, unaligned rows); '
+          '{}'.format('; '.join(
+              '{:,} x 160, k=31: kernel {:.4f} ms, plain {:.3f} ms, bound '
+              '{:.4f} ms by {}'.format(n, *times[n]) for n in times)),
+          flush=True)
 
-    # K2: 1, 4 and 8 bits, tablesizes not a multiple of 8
+    # K2: 1, 3 and 9 sketches a call; 1, 4 and 8 bits, uniform and mixed;
+    # odd and edge table sizes; a sketch of three tables
     err = 0
-    for bits, tablesize in ((1, 1_000_003), (4, 999_999), (8, 500_001)):
-        width = sketch_ops.packed_width(tablesize, bits)
-        tables = torch.from_numpy(rng.integers(
-            0, 256, (4, width), dtype=np.uint8)).to(device)
-        h = torch.from_numpy(rng.integers(
-            -2**31, 2**31, (2, 1_000_000), dtype=np.int64).astype(
-                np.int32)).to(device)
-        got = kmer_cuda.gather_counts_cuda(tables, h[0], h[1], bits,
-                                           tablesize)
-        want = sketch_ops.gather_counts_plain(tables, h[0], h[1], bits,
-                                              tablesize)
-        err = max(err, _max_diff(got, want, 'K2 {} bits'.format(bits)))
-    # a novel-screen launch: one 500 MB sample sketch, 4,096 reads
-    tablesize = 124_999_999
-    tables = torch.randint(0, 256, (4, tablesize), dtype=torch.uint8,
-                           device=device)
-    h = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 4096 * 130),
-                                      dtype=np.int64).astype(np.int32)).to(
-        device)
-    got, ms = _timed(kmer_cuda.gather_counts_cuda, tables, h[0], h[1], 8,
-                     tablesize, reps=20)
-    want, plain_ms = _timed(sketch_ops.gather_counts_plain, tables, h[0],
-                            h[1], 8, tablesize, reps=5)
-    err = max(err, _max_diff(got, want, 'K2 helium shape'))
-    out['K2'] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                     shape='532,480 k-mers, 4 x 124,999,999 8-bit')
-    print('[smoke] K2 gather_counts: identical to plain at 1/4/8 bits; {} '
-          'kernel {:.3f} ms, plain {:.3f} ms'.format(out['K2']['shape'], ms,
-                                                     plain_ms), flush=True)
-    del tables
+    h1, h2 = _random_hashes(rng, 1_000_000, device)
+    uniform = {bits: [_random_sketch(rng, bits, size, device)
+                      for size in sizes]
+               for bits, sizes in ((1, (1_000_003, 1, (1 << 31) - 1)),
+                                   (4, (999_999, 2, 1_000_001)),
+                                   (8, (500_001, 65_536, 1)))}
+    mixed = [uniform[8][0], uniform[1][0], uniform[4][0]]
+    cases = [('{} bits x{}'.format(bits, n), sketches[:n])
+             for bits, sketches in uniform.items() for n in (1, 3)]
+    cases += [('mixed x3', mixed), ('mixed x9', mixed * 3),
+              ('three tables', [mixed[0], _random_sketch(
+                  rng, 4, 77_777, device, ntables=3)])]
+    for label, samples in cases:
+        got = kmer_cuda.gather_counts_cuda(samples, h1, h2)
+        want = sketch_ops.gather_counts_multi_plain(samples, h1, h2)
+        err = max(err, _max_diff(got, want, 'K2 ' + label))
+    del uniform, mixed, cases
+    # the screen's launch (three 500 MB sample sketches, 4,096 reads) and
+    # a count's masked launch shape, one sketch and three
+    samples = [_random_sketch(rng, 8, 124_999_999, device) for _ in range(3)]
+    times = {}
+    for n in (DEFAULT_SCREEN_READS * 130, 32768 * 130):
+        h1, h2 = _random_hashes(rng, n, device)
+        for S in (1, 3):
+            got, ms = _timed(kmer_cuda.gather_counts_cuda, samples[:S], h1,
+                             h2, reps=20, spin=True)
+            want, plain_ms = _timed(sketch_ops.gather_counts_multi_plain,
+                                    samples[:S], h1, h2, reps=5)
+            err = max(err, _max_diff(got, want, 'K2 helium shape'))
+            times[(n, S)] = (ms, plain_ms) + _k2_bound(samples[:S], n)
+    # the card's rate of random byte reads, by one PyTorch gather of as
+    # many bytes as the screen's launch probes in one sketch
+    flat = samples[0][0].view(-1)
+    where = torch.randint(0, flat.numel(), (DEFAULT_SCREEN_READS * 130 * 4,),
+                          device=device)
+    _, take_ms = _timed(torch.take, flat, where, reps=20, spin=True)
+    print('[smoke] random-read yardstick: torch.take of {:,} random bytes '
+          'of a 500 MB table {:.4f} ms ({:.1f} G reads/s)'.format(
+              where.numel(), take_ms, where.numel() / take_ms / 1e6),
+          flush=True)
+    del flat, where
+    ms, plain_ms, bound_ms, bound_by = times[(DEFAULT_SCREEN_READS * 130, 3)]
+    out['K2'] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None,
+                     shape='532,480 k-mers, 3 sketches of 4 x 124,999,999 '
+                     '8-bit')
+    print('[smoke] K2 gather_counts: identical to plain (1/3/9 sketches, '
+          '1/4/8 bits and mixed, tablesizes 1, 2, 2^31-1, three tables); '
+          '4 x 124,999,999 8-bit: {}'.format('; '.join(
+              '{:,} k-mers x {} sketches: kernel {:.4f} ms, plain {:.3f} ms, '
+              'bound {:.4f} ms by {}'.format(n, S, *times[(n, S)])
+              for n, S in times)), flush=True)
+    del samples
 
     # K3: heavy duplicates, negative indices, an odd bucket count
     err = 0
@@ -725,15 +856,35 @@ def phase_kmer_kernels(device):
     idx = rng.integers(0, C, (4, n)).astype(np.int32)
     idx[:, rng.random(n) >= 0.15] = -1
     idx = torch.from_numpy(idx).to(device)
-    _, ms = _timed(kmer_cuda.scatter_add_cuda, acc, idx, reps=20)
+    _, ms = _timed(kmer_cuda.scatter_add_cuda, acc, idx, reps=20, spin=True)
     _, plain_ms = _timed(sketch_ops.scatter_add_plain, acc, idx, reps=5)
-    out['K3'] = dict(err=err, ms=ms, plain_ms=plain_ms,
+    # one library call for the same function: index_add_ on the flat
+    # accumulator, its kept flat indices prepared outside the timing
+    kept = idx >= 0
+    nkept = int(kept.sum())
+    flat = (idx.long() + torch.arange(4, device=device)[:, None] * C)[kept]
+    ones = torch.ones_like(flat, dtype=torch.int32)
+    _, library_ms = _timed(acc.view(-1).index_add_, 0, flat, ones, reps=5,
+                           spin=True)
+    del flat, ones, kept
+    # every index read once; a kept update reads and writes its sector
+    bound_ms, bound_by = _bound(idx.numel() * 4 + nkept * 2 * SECTOR, nkept)
+    out['K3'] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms,
                      shape='4 x 4,259,840 indices (15% kept), 4 x '
                      '124,999,999 int32')
     print('[smoke] K3 scatter_add: identical to plain and bincount '
           '(duplicates, negative indices); {} kernel {:.3f} ms, plain '
-          '{:.3f} ms'.format(out['K3']['shape'], ms, plain_ms), flush=True)
+          '{:.3f} ms, one index_add_ {:.3f} ms, bound {:.4f} ms by {}'
+          .format(out['K3']['shape'], ms, plain_ms, library_ms, bound_ms,
+                  bound_by), flush=True)
     return out
+
+
+# integer operations per DP cell in csrc/align.cu's inner loop: indices 3,
+# the diagonal's source 3, E and F 3 each, the substitution score 5, the
+# maxima and direction code 5, the continuation bits 7, the stores' address 1
+B1_OPS_PER_CELL = 30
 
 
 def phase_slice(device, workdir):
@@ -790,9 +941,14 @@ def phase_slice(device, workdir):
 
     # every pair again: kernel and plain version, chunk by chunk
     err, ms, plain_ms = 0, 0.0, 0.0
+    cells = moved = 0
     for targets, queries, kw, out in seen:
         tl = np.array([len(s) for s in targets])
         ql = np.array([len(s) for s in queries])
+        # the DP's cells; bases in, a direction byte per cell written, and
+        # out a score, two exit cells and tlen + qlen ops per pair
+        cells += int((tl * ql).sum())
+        moved += int((tl * ql).sum() + 2 * (tl + ql).sum() + 12 * len(tl))
         for idx in align_cuda._chunks(tl, ql,
                                       align_cuda.ZDIAG_BUDGET_BYTES):
             batch = _encode([(targets[k], queries[k]) for k in idx], device)
@@ -834,8 +990,13 @@ def phase_slice(device, workdir):
     if score['recall_pass'] < MIN_RECALL:
         raise AssertionError('PASS recall {:.4f} below {}'.format(
             score['recall_pass'], MIN_RECALL))
+    bound_ms, bound_by = _bound(moved, cells * B1_OPS_PER_CELL)
+    print('[smoke] ksw_extz bound: {:,} DP cells x {} operations, {:,} bytes '
+          '(bases, a direction byte per cell, ops out): {:.4f} ms by {}'
+          .format(cells, B1_OPS_PER_CELL, moved, bound_ms, bound_by),
+          flush=True)
     return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
-                reads=reads)
+                bound_ms=bound_ms, bound_by=bound_by, reads=reads)
 
 
 def _run_cli(argv, logpath):
@@ -885,6 +1046,48 @@ def _trio_stages(device, workdir, refr, reads, prefix, samples=SAMPLES,
     return walls
 
 
+def _print_busy(label, prof, wall):
+    """The card's busy share of ``wall`` seconds from a torch.profiler
+    trace (the sum of every event's own device time), and what took it."""
+    def device_us(event):
+        return (getattr(event, 'self_device_time_total', 0) or
+                getattr(event, 'self_cuda_time_total', 0))
+
+    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in events)
+    print('[smoke] {}: {:.2f} s wall, device busy {} ; top device time: {}'
+          .format(label, wall,
+                  '{:.3f} s ({:.2%})'.format(busy_us / 1e6,
+                                             busy_us / 1e6 / wall)
+                  if busy_us else 'not measured (no device time in the '
+                  'trace)',
+                  '; '.join('{} x{} {:.1f} ms'.format(
+                      e.key[:48], e.count, device_us(e) / 1e3)
+                      for e in events[:8])), flush=True)
+
+
+def _producer_split(fastq, device):
+    """The host's share of a sample count, with no consume: seconds of the
+    C++ reader alone over ``fastq``, then of the count's producer as it
+    runs (the reader filling pinned buffers, a non-blocking copy of each
+    batch to the card)."""
+    import torch
+    from kevlar_tpu_torch.batch import CodeStager, native_base_batches
+    from kevlar_tpu_torch.count import COUNT_BATCH_READS
+    t0 = time.time()
+    for _ in native_base_batches(fastq, COUNT_BATCH_READS,
+                                 overlap=KSIZE - 1):
+        pass
+    parse_s = time.time() - t0
+    t0 = time.time()
+    stager = CodeStager(device)
+    for _ in native_base_batches(fastq, COUNT_BATCH_READS, overlap=KSIZE - 1,
+                                 alloc=stager.buffer):
+        stager.ship()
+    torch.cuda.synchronize()
+    return parse_s, time.time() - t0
+
+
 def phase_trio(device, workdir):
     """Phase 6: count and novel on the helium trio through the CLI, with
     the kernels and then with their plain versions on the card."""
@@ -928,8 +1131,8 @@ def phase_trio(device, workdir):
     # the same commands with the plain versions, on the card
     kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
                kmer_cuda.scatter_add_cuda)
-    kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_packed_plain
-    kmer_cuda.gather_counts_cuda = sketch_ops.gather_counts_plain
+    kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
+    kmer_cuda.gather_counts_cuda = sketch_ops.gather_counts_multi_plain
     kmer_cuda.scatter_add_cuda = sketch_ops.scatter_add_plain
     try:
         plain_walls = _trio_stages(
@@ -966,22 +1169,10 @@ def phase_trio(device, workdir):
             stage, wall, rate, '; plain {:.2f} s'.format(plain)
             if plain is not None else ''), flush=True)
 
-    # the host's share of a sample count: the reader alone, then reader +
-    # 2-bit packing, over the proband's FASTQ (no device work)
-    from kevlar_tpu_torch.batch import native_base_batches, pack_bases
-    from kevlar_tpu_torch.count import COUNT_BATCH_READS
-    t0 = time.time()
-    for _ in native_base_batches(reads['proband'], COUNT_BATCH_READS,
-                                 overlap=KSIZE - 1):
-        pass
-    parse_s = time.time() - t0
-    t0 = time.time()
-    for bases, _ in native_base_batches(reads['proband'], COUNT_BATCH_READS,
-                                        overlap=KSIZE - 1):
-        pack_bases(bases)
     print('[smoke] host share of count proband ({:.2f} s): reader {:.2f} s, '
-          'reader + 2-bit packing {:.2f} s'.format(
-              walls['count proband'], parse_s, time.time() - t0), flush=True)
+          'reader into pinned memory + copies to the card {:.2f} s'.format(
+              walls['count proband'], *_producer_split(reads['proband'],
+                                                       device)), flush=True)
 
     # device busy share of a sample count, from a profiled repeat
     from torch.profiler import ProfilerActivity, profile
@@ -993,20 +1184,7 @@ def phase_trio(device, workdir):
                          os.path.join(workdir, 'prof_mother.ct'),
                          reads['mother']],
                         os.path.join(workdir, 'prof.log'))
-    def device_us(event):
-        return (getattr(event, 'self_device_time_total', 0) or
-                getattr(event, 'self_cuda_time_total', 0))
-
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
-    busy_us = sum(device_us(e) for e in events)
-    print('[smoke] profiled count mother: {:.2f} s wall, device busy {} ; '
-          'top device time: {}'.format(
-              wall, '{:.3f} s ({:.2%})'.format(busy_us / 1e6,
-                                               busy_us / 1e6 / wall)
-              if busy_us else 'not measured (no device time in the trace)',
-              '; '.join('{} x{} {:.1f} ms'.format(
-                  e.key[:48], e.count, device_us(e) / 1e3)
-                  for e in events[:8])), flush=True)
+    _print_busy('profiled count mother', prof, wall)
 
     records = read_augfastx_kmers(novelpath)
     inside = set().union(*(d[2] for d in denovo))
@@ -1089,10 +1267,17 @@ def phase_cc_kernel(device, incidence):
     err = max(err, _max_diff(got, want, 'K4 bigsim partition'))
     shape = '{:,} pairs, {:,} reads, {:,} k-mers'.format(r.numel(), n_reads,
                                                          n_kmers)
+    # each iteration reads every pair (two int32) in both passes; the
+    # labels are read and written at least once
+    iters = cc_cuda.last_iterations
+    bound_ms, bound_by = _bound(
+        r.numel() * 8 * 2 * iters + 4 * 2 * (n_reads + n_kmers),
+        r.numel() * 2 * iters * 4)
     print('[smoke] K4 cc_labels: {} kernel {:.3f} ms ({} iterations), '
-          'plain {:.3f} ms'.format(shape, ms, cc_cuda.last_iterations,
-                                   plain_ms), flush=True)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+          'plain {:.3f} ms, bound {:.4f} ms by {}'.format(
+              shape, ms, iters, plain_ms, bound_ms, bound_by), flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=shape)
 
 
 def _locus(readname):
@@ -1169,9 +1354,12 @@ def _count_reads(path):
 
 
 def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
-                   maskmemory='50M'):
+                   maskmemory='50M', profiled=False):
     """Phase 9: run_mark1 on the helium trio of phase 6 (sample sketches
-    of ``memory``, mask and reference count of ``maskmemory``)."""
+    of ``memory``, mask and reference count of ``maskmemory``).  With
+    ``profiled`` the run is traced by torch.profiler and the card's busy
+    share of the wall is printed."""
+    import contextlib
     import resource
     import torch
     import kevlar_tpu_torch
@@ -1206,14 +1394,22 @@ def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
     logpath = os.path.join(workdir, 'workflow.log')
     kevlar_tpu_torch.logstream = open(logpath, 'w')
     rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    tracer = contextlib.nullcontext()
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        tracer = profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
     t0 = time.time()
     try:
-        final = workflow.run_mark1(config)
+        with tracer as prof:
+            final = workflow.run_mark1(config)
+            torch.cuda.synchronize()
     finally:
         kevlar_tpu_torch.logstream.close()
         kevlar_tpu_torch.logstream = None
-    torch.cuda.synchronize()
     wall = time.time() - t0
+    if profiled:
+        _print_busy('profiled workflow', prof, wall)
     launches = dict(kmer_cuda.launches, ksw_extz=align_cuda.launches,
                     cc_labels=cc_cuda.launches['cc_labels'])
     missing = [name for name in ('kmer_hashes', 'gather_counts',
@@ -1280,6 +1476,200 @@ def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
     return dict(launches=launches, wall=wall)
 
 
+# ------------------------------------------- against an older checkout
+
+
+def _spread(times):
+    """'median (min-max)' of a list of milliseconds."""
+    return '{:.4f} ms ({:.4f}-{:.4f})'.format(
+        float(np.median(times)), min(times), max(times))
+
+
+def _parent_kmer_lib(parent, builddir):
+    """The older tree's ``csrc/kmer.cu`` built apart and bound with the
+    signatures it had: K1 over the 2-bit wire format, K2 one sketch a
+    launch."""
+    import ctypes
+    from kevlar_tpu_torch import native
+    lib = os.path.join(builddir, 'libkevlar_kmer_parent.so')
+    subprocess.run(
+        [native.nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+         '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o', lib,
+         os.path.join(parent, 'kevlar_tpu_torch', 'csrc', 'kmer.cu')],
+        check=True)
+    lib = ctypes.CDLL(lib)
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.kt_kmer_hashes.restype = ci
+    lib.kt_kmer_hashes.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp, vp, vp, vp]
+    lib.kt_gather_counts.restype = ci
+    lib.kt_gather_counts.argtypes = [vp, ci, cl, cl, ci, vp, vp, cl, vp, vp]
+    return lib
+
+
+def compare_kernels(parent, device, workdir, reps=30):
+    """K1 and K2 of the older tree and of this one at the helium run's
+    shapes, in turns (old, new, new, old) on the same inputs: results must
+    be identical; prints the median and range of ``2 x reps`` launches."""
+    import torch
+    from kevlar_tpu_torch.batch import pack_bases
+    from kevlar_tpu_torch.ops import kmer_cuda
+    old = _parent_kmer_lib(parent, workdir)
+    rng = np.random.default_rng(SEED + 11)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    for nrows in (32768, DEFAULT_SCREEN_READS):
+        bases = _read_bases(rng, nrows, 160, 150)
+        codes = torch.from_numpy(bases).to(device)
+        packed, badmask = (torch.from_numpy(x).to(device)
+                           for x in pack_bases(bases))
+        P = 160 - KSIZE + 1
+        outs = [torch.empty((nrows, P), dtype=dt, device=device)
+                for dt in (torch.int32, torch.int32, torch.uint8)]
+
+        def old_k1():
+            err = old.kt_kmer_hashes(
+                packed.data_ptr(), badmask.data_ptr(), nrows,
+                packed.shape[1], badmask.shape[1], P, KSIZE,
+                *(x.data_ptr() for x in outs), stream)
+            if err:
+                raise RuntimeError('parent kt_kmer_hashes: CUDA error {}'
+                                   .format(err))
+
+        def new_k1():
+            return kmer_cuda.kmer_hashes_cuda(codes, KSIZE)
+
+        old_k1()
+        for got, want in zip(new_k1(), outs):
+            _max_diff(got, want, 'K1 new vs old')
+        times = [_launch_times(fn, reps)
+                 for fn in (old_k1, new_k1, new_k1, old_k1)]
+        print('[compare] K1 {:,} x 160, k=31: old {}; new {}; bound {:.4f} '
+              'ms'.format(nrows, _spread(times[0] + times[3]),
+                          _spread(times[1] + times[2]),
+                          _k1_bound(nrows, 160, KSIZE)[0]), flush=True)
+
+    samples = [_random_sketch(rng, 8, 124_999_999, device) for _ in range(3)]
+    for n in (DEFAULT_SCREEN_READS * 130, 32768 * 130):
+        h1, h2 = _random_hashes(rng, n, device)
+        out = torch.empty((3, n), dtype=torch.uint8, device=device)
+        for S in (1, 3):
+            def old_k2():
+                for s, (tables, bits, tablesize) in enumerate(samples[:S]):
+                    err = old.kt_gather_counts(
+                        tables.data_ptr(), 4, tables.shape[1], tablesize,
+                        bits, h1.data_ptr(), h2.data_ptr(), n,
+                        out[s].data_ptr(), stream)
+                    if err:
+                        raise RuntimeError('parent kt_gather_counts: CUDA '
+                                           'error {}'.format(err))
+
+            def new_k2():
+                return kmer_cuda.gather_counts_cuda(samples[:S], h1, h2)
+
+            old_k2()
+            _max_diff(new_k2(), out[:S], 'K2 new vs old')
+            times = [_launch_times(fn, reps)
+                     for fn in (old_k2, new_k2, new_k2, old_k2)]
+            print('[compare] K2 {:,} k-mers x {} sketches of 4 x 124,999,999 '
+                  '8-bit: old ({} launches) {}; new (1 launch) {}; bound '
+                  '{:.4f} ms'.format(n, S, S, _spread(times[0] + times[3]),
+                                     _spread(times[1] + times[2]),
+                                     _k2_bound(samples[:S], n)[0]),
+                  flush=True)
+
+
+def _cli_count(tree, argv, logpath):
+    """``python -m kevlar_tpu_torch -l logpath count argv`` in a process
+    of its own, from the checkout ``tree``; returns (the stage's own
+    "Total time" in seconds, the process's wall)."""
+    t0 = time.time()
+    subprocess.run([sys.executable, '-m', 'kevlar_tpu_torch', '-l', logpath,
+                    'count'] + argv, cwd=tree, check=True)
+    wall = time.time() - t0
+    with open(logpath) as fh:
+        total = re.findall(r'Total time: ([0-9.]+) seconds', fh.read())
+    return float(total[-1]), wall
+
+
+def compare_counts(parent, device, workdir):
+    """The helium proband's masked count through the CLI of the older tree
+    and of this one, each run a process of its own, in the order parent,
+    change, change, parent; then the producer's share in both."""
+    import torch
+    from kevlar_tpu_torch.batch import native_base_batches, pack_bases
+    from kevlar_tpu_torch.count import COUNT_BATCH_READS
+    here = os.path.dirname(os.path.abspath(__file__))
+    refr, reads, _ = make_trio_case(workdir)
+    base = ['-k', str(KSIZE), '--device', device]
+    mask = os.path.join(workdir, 'mask.nt')
+    _cli_count(here, base + ['-c', '1', '-M', '50M', '--max-fpr', '0.01',
+                             mask, refr], os.path.join(workdir, 'mask.log'))
+    # a small count first, so that each tree has built its libraries
+    small = os.path.join(workdir, 'small.fq')
+    with open(reads['proband'], 'rb') as fh, open(small, 'wb') as out:
+        out.write(fh.read(40000 * (16 + 2 * READLEN)))
+    tables = []
+    for turn, tree in enumerate((parent, here, here, parent)):
+        name = 'parent' if tree == parent else 'change'
+        if turn < 2:
+            _cli_count(tree, base + ['-M', '8M', '--max-fpr', '1.0',
+                                     os.path.join(workdir, 'small.ct'),
+                                     small],
+                       os.path.join(workdir, 'small.log'))
+        out = os.path.join(workdir, 'proband{}.ct'.format(turn))
+        total, wall = _cli_count(
+            tree, base + ['-M', '500M', '--max-fpr', '0.6', '--mask', mask,
+                          out, reads['proband']],
+            os.path.join(workdir, 'count{}.log'.format(turn)))
+        with np.load(out) as members:
+            tables.append(members['tables'])
+        os.remove(out)
+        print('[compare] count proband, {}: {:.2f} s (stage), {:.2f} s '
+              '(process)'.format(name, total, wall), flush=True)
+    if not all(np.array_equal(tables[0], t) for t in tables[1:]):
+        raise AssertionError('the trees\' proband tables differ')
+    print('[compare] the four runs\' tables are identical', flush=True)
+
+    parse_s, staged_s = _producer_split(reads['proband'], device)
+    t0 = time.time()
+    for bases, _ in native_base_batches(reads['proband'], COUNT_BATCH_READS,
+                                        overlap=KSIZE - 1):
+        for x in pack_bases(bases):
+            torch.from_numpy(x).to(device)
+    torch.cuda.synchronize()
+    print('[compare] producer alone over the proband: reader {:.2f} s; '
+          'change (reader into pinned memory + copies) {:.2f} s; parent '
+          '(reader + 2-bit packing + copies) {:.2f} s'.format(
+              parse_s, staged_s, time.time() - t0), flush=True)
+
+
+def profile_workflow():
+    """``--profile-workflow``: the helium trio through run_mark1 under
+    torch.profiler, for the card's busy share of the trio wall."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    print(_nvidia_smi(), flush=True)
+    build_all()
+    with tempfile.TemporaryDirectory() as workdir:
+        refr, reads, denovo = make_trio_case(workdir)
+        phase_workflow('cuda', workdir, refr, denovo, reads, profiled=True)
+    return 0
+
+
+def compare_parent(parent):
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    parent = os.path.abspath(parent)
+    print(_nvidia_smi(), flush=True)
+    build_all()
+    with tempfile.TemporaryDirectory() as workdir:
+        compare_kernels(parent, 'cuda', workdir)
+        compare_counts(parent, 'cuda', workdir)
+    return 0
+
+
 def build_all():
     """Phase 2: compile every library from the checkout's sources, all at
     once (one compiler process each); returns {library: seconds}."""
@@ -1305,6 +1695,10 @@ def build_all():
 
 def main():
     import torch
+    if sys.argv[1:2] == ['--compare-parent']:
+        return compare_parent(sys.argv[2])
+    if sys.argv[1:2] == ['--profile-workflow']:
+        return profile_workflow()
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -1337,11 +1731,13 @@ def main():
         'source': 'kevlar_tpu_torch/csrc/align.cu',
         'replaces': 'kevlar_tpu/ops/align_pallas.py:204',
         'launches': run['launches'], 'max_abs_err': max(err, run['err']),
-        'ms': run['ms'], 'plain_ms': run['plain_ms']}]
+        'ms': run['ms'], 'plain_ms': run['plain_ms'],
+        'bound_ms': run['bound_ms'], 'bound_by': run['bound_by'],
+        'library_ms': None}]
     for key, name, counter, replaces in (
-            ('K1', 'kmer_hashes (wire-format k-mer hashing)', 'kmer_hashes',
-             'kevlar_tpu/ops/hashing.py:82'),
-            ('K2', 'gather_counts (Count-Min min over tables)',
+            ('K1', 'kmer_hashes (rolling k-mer hashing of base codes)',
+             'kmer_hashes', 'kevlar_tpu/ops/hashing.py:82'),
+            ('K2', 'gather_counts (Count-Min min over tables, all samples)',
              'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60'),
             ('K3', 'scatter_add (per-table int32 bincount)', 'scatter_add',
              'tools/scatter_probe.py:76')):
@@ -1350,13 +1746,18 @@ def main():
             'source': 'kevlar_tpu_torch/csrc/kmer.cu', 'replaces': replaces,
             'launches': trio['launches'][counter],
             'max_abs_err': kmer[key]['err'], 'ms': kmer[key]['ms'],
-            'plain_ms': kmer[key]['plain_ms']})
+            'plain_ms': kmer[key]['plain_ms'],
+            'bound_ms': kmer[key]['bound_ms'],
+            'bound_by': kmer[key]['bound_by'],
+            'library_ms': kmer[key]['library_ms']})
     kernels.append({
         'name': 'cc_labels (read-graph min-label propagation)',
         'route': 'cuda', 'source': 'kevlar_tpu_torch/csrc/cc.cu',
         'replaces': 'kevlar_tpu/ops/cc_ops.py:16',
         'launches': part['launches'], 'max_abs_err': cc['err'],
-        'ms': cc['ms'], 'plain_ms': cc['plain_ms']})
+        'ms': cc['ms'], 'plain_ms': cc['plain_ms'],
+        'bound_ms': cc['bound_ms'], 'bound_by': cc['bound_by'],
+        'library_ms': None})
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

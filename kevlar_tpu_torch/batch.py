@@ -3,16 +3,19 @@
 A copy of ``kevlar_tpu.batch``.  Reads are marshalled into padded
 ``uint8 [B, L]`` base-code arrays (padding code 4 so padded windows are
 invalid and never counted), with lengths bucketed to a small set of padded
-widths, and shipped to the device in the 2-bit wire format of
-:func:`pack_bases`.  The bucketing also fixes the order in which
-:func:`batches_from_records` emits reads of mixed lengths, which the novel
-stage's output follows, so it is kept as it is.
+widths, and shipped to the device as they are, one byte a base, through a
+:class:`CodeStager` (``kevlar_tpu``'s unpacked-wire route; its 2-bit wire
+format, :func:`pack_bases`, served a slow link and is kept for the tests
+that hold the two packages' formats together).  The bucketing also fixes
+the order in which :func:`batches_from_records` emits reads of mixed
+lengths, which the novel stage's output follows, so it is kept as it is.
 """
 
 import queue
 import threading
 
 import numpy as np
+import torch
 
 from kevlar_tpu_torch import dna
 
@@ -93,26 +96,79 @@ def batches_from_records(recordstream, batch_size=DEFAULT_BATCH_SIZE):
             yield ReadBatch(pending[b], pad_to=b, pad_rows=batch_size)
 
 
+class CodeStager:
+    """Ships ``uint8`` base-code batches to a device.
+
+    :meth:`buffer` hands out a host array to fill and :meth:`ship` copies
+    it to the device.  For a CUDA device the arrays are a ring of pinned
+    buffers and the copies do not block the host: a buffer is handed out
+    again only once the copy out of it has completed (its event), so the
+    host fills one batch while the copy of the one before is in flight.
+    For the CPU every batch gets a fresh array, which the tensor shares.
+    One thread uses a stager at a time.
+    """
+
+    DEPTH = 2       # pinned buffers: one being filled, one being copied
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._pinned = self.device.type == 'cuda'
+        self._ring = [[None, None] for _ in range(self.DEPTH)]
+        self._next = 0
+        self._current = None
+
+    def buffer(self, shape):
+        """A ``uint8`` array of ``shape`` to fill with the next batch."""
+        if not self._pinned:
+            self._current = torch.empty(shape, dtype=torch.uint8)
+            return self._current.numpy()
+        slot = self._ring[self._next]
+        self._next = (self._next + 1) % len(self._ring)
+        tensor, event = slot
+        if event is not None:
+            event.synchronize()
+        if tensor is None or tuple(tensor.shape) != tuple(shape):
+            tensor = slot[0] = torch.empty(shape, dtype=torch.uint8,
+                                           pin_memory=True)
+        self._current = slot
+        return tensor.numpy()
+
+    def ship(self):
+        """The device tensor of the array :meth:`buffer` returned last."""
+        if not self._pinned:
+            return self._current
+        slot = self._current
+        out = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record(torch.cuda.current_stream(self.device))
+        return out
+
+
 def native_base_batches(path, batch_size=DEFAULT_BATCH_SIZE, max_len=1024,
-                        overlap=0):
+                        overlap=0, alloc=None):
     """Stream ``(bases [batch_size, bucket] uint8, lengths)`` batches through
     the C++ reader (no per-read Python objects).  The column bucket adapts
     to the longest read seen so far (never shrinks).  Records longer than
     ``max_len`` chunk into rows sharing ``overlap`` characters (pass
-    ksize-1 so genome-scale FASTA records lose no k-mers).  The reader is
-    compiled at first use; a failed build raises."""
+    ksize-1 so genome-scale FASTA records lose no k-mers).  ``alloc(shape)``
+    gives the array each batch is written into (a fresh one by default; a
+    :meth:`CodeStager.buffer` to fill pinned memory directly).  The reader
+    is compiled at first use; a failed build raises."""
     from kevlar_tpu_torch import native
     reader = native.FastxBatchReader(path, max_reads=batch_size,
-                                     max_len=max_len, overlap=overlap)
+                                     max_len=max_len, overlap=overlap,
+                                     want_names=False, reuse=True)
     bucket = 0
     for out in reader:
         bases, lengths = out[0], out[1]
         maxlen = int(lengths.max()) if len(lengths) else 0
         bucket = max(bucket, bucket_length(maxlen))
-        view = bases[:, :bucket]
-        if view.shape[0] < batch_size:
-            view = pad_batch_rows(view, batch_size)
-        yield np.ascontiguousarray(view), lengths
+        shape = (batch_size, bucket)
+        dest = alloc(shape) if alloc else np.empty(shape, np.uint8)
+        n = bases.shape[0]
+        dest[:n] = bases[:, :bucket]
+        dest[n:] = 4
+        yield dest, lengths
 
 
 def pack_bases(bases):
@@ -137,16 +193,6 @@ def pack_bases(bases):
     bad = (bases >= 4)
     badmask = np.packbits(bad, axis=-1)
     return packed, badmask
-
-
-def pad_batch_rows(bases, batch_size):
-    """Pad the batch (row) dimension up to `batch_size` with invalid bases."""
-    B, L = bases.shape
-    if B == batch_size:
-        return bases
-    out = np.full((batch_size, L), 4, dtype=np.uint8)
-    out[:B] = bases
-    return out
 
 
 def prefetch_iter(iterable, depth=4):

@@ -5,9 +5,10 @@ counting with an optional mask (skip masked k-mers, or count *only* masked
 k-mers), optional hash-space banding, khmer-style memory->tablesize sizing,
 the FPR bailout, and extension-typed sketch files.
 
-A producer thread parses the input with the C++ reader, packs each batch
-into the 2-bit wire format and copies it to the device, one batch ahead
-of the consume, which runs on the calling thread: hash (K1), band and mask
+A producer thread parses the input with the C++ reader straight into
+pinned host memory and copies each batch of base codes (one byte a base)
+to the device without blocking, ahead of the consume, which runs on the
+calling thread: hash (K1), band and mask
 predicates (mask counts by K2), per-table bucket indices, scatter-add into
 the consume's int32 accumulator (K3).  The accumulator saturates and packs
 into the sketch's tables once, when the call ends.
@@ -19,7 +20,7 @@ import threading
 import torch
 
 import kevlar_tpu_torch
-from kevlar_tpu_torch.batch import native_base_batches, pack_bases
+from kevlar_tpu_torch.batch import CodeStager, native_base_batches
 from kevlar_tpu_torch.ops import sketch_ops
 from kevlar_tpu_torch.sketch import (
     allocate_from_memory, estimate_fpr, get_extension, register_saved,
@@ -60,15 +61,14 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
 
     def produce():
         try:
+            stager = CodeStager(device)
             for seqfile in seqfiles:
-                for bases, lengths in native_base_batches(
-                        seqfile, batch_size, overlap=wing):
+                for _, lengths in native_base_batches(
+                        seqfile, batch_size, overlap=wing,
+                        alloc=stager.buffer):
                     if stop.is_set():
                         return
-                    packed, badmask = pack_bases(bases)
-                    q.put((torch.from_numpy(packed).to(device),
-                           torch.from_numpy(badmask).to(device),
-                           bases.shape[1], len(lengths)))
+                    q.put((stager.ship(), len(lengths)))
         except BaseException as exc:  # surfaced on the calling thread
             producer_error.append(exc)
         finally:
@@ -85,10 +85,10 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
             item = q.get()
             if item is None:
                 break
-            packed, badmask, L, nreads = item
-            sketch_ops.consume_packed(
-                acc, packed, badmask, L, sketch.ksize(), numbands=numbands,
-                band=band, mask=maskspec, mask_threshold=threshold,
+            codes, nreads = item
+            sketch_ops.consume_codes(
+                acc, codes, sketch.ksize(), numbands=numbands, band=band,
+                mask=maskspec, mask_threshold=threshold,
                 consume_masked=consume_masked)
             numreads += nreads
     finally:

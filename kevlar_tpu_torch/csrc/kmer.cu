@@ -2,19 +2,28 @@
 // min-over-tables count gather (K2) and the per-table scatter-add (K3).
 //
 // K1 kt_kmer_hashes replaces the XLA program of
-//   kevlar_tpu/ops/hashing.py :: unpack_bases + kmer_codes + hash_pair
-//   (jitted inside sketch_ops.consume_batch_stack_packed and
-//   novel_ops.novel_screen_compact_stack_packed).
-//   One thread per k-window.  It reads its k bases straight from the 2-bit
-//   wire format (k/4 packed bytes plus k/8 bad-mask bytes, which neighbouring
-//   threads share through L1), so the [N, L] base array the XLA program
-//   materialises never exists; it is bound by the 9 bytes a window writes
-//   (h1, h2, valid) and by ~4k integer operations per window.
+//   kevlar_tpu/ops/hashing.py :: kmer_codes + hash_pair
+//   (jitted inside sketch_ops.consume_batch_stack and
+//   novel_ops.novel_screen_compact_stack, the unpacked-wire route).
+//   Input: the reader's base codes, one byte a base (0-3, >= 4 invalid).
+//   A block stages a tile of whole rows in shared memory with 16-byte
+//   loads; each thread takes a run of kRun consecutive windows of one row,
+//   builds the first in k steps and rolls the others in O(1): both strands'
+//   codes are sums in the ring of integers mod 2^32, so the update
+//   "multiply, add the incoming digit, subtract the outgoing one" gives the
+//   numbers of the window-by-window definition at every window, valid or
+//   not.  A warp's runs are consecutive in the flat [N, P] output, so it
+//   stages its results in shared memory and writes them out coalesced.
+//   Bound by bytes: N*L read, 9 bytes a window written.
 // K2 kt_gather_counts replaces
-//   kevlar_tpu/ops/sketch_ops.py :: gather_counts (B4).
-//   One thread per k-mer; T dependent random byte reads into tables far
-//   larger than L2 (a 500 MB sample sketch).  Bound by DRAM sector latency:
-//   many threads in flight are its only defence in this first version.
+//   kevlar_tpu/ops/sketch_ops.py :: gather_counts and gather_counts_multi
+//   (B4).  One launch serves up to kMaxSamples sketches (each as it lies in
+//   memory: no interleaved copy): a thread reads its (h1, h2) once,
+//   computes all S x T bucket indices (x mod tablesize by a multiply-high
+//   with a host-made reciprocal, no division), starts all S x T byte loads
+//   through the read-only path without allocating in L1, and only then
+//   takes the minima.  Bound by bytes: a random byte of a table far larger
+//   than L2 costs its 32-byte DRAM sector.
 // K3 kt_scatter_add replaces
 //   tools/scatter_probe.py :: pallas_scatter_add (B10, the pl.pallas_call at
 //   :76), the core of sketch_ops._scatter_hashes_i32.
@@ -49,76 +58,230 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
     return h;
 }
 
-// base code at position pos of row `prow` / `brow`: 0-3, or 4 when the bad
-// mask (np.packbits order: bit 7 - pos % 8) marks it invalid
-__device__ __forceinline__ uint32_t base_at(const uint8_t *prow,
-                                            const uint8_t *brow, int pos) {
-    uint32_t bad = (brow[pos >> 3] >> (7 - (pos & 7))) & 1u;
-    uint32_t b = (prow[pos >> 2] >> (2 * (pos & 3))) & 3u;
-    return bad ? 4u : b;
-}
+// ------------------------------------------------------------------- K1
 
-__global__ void kmer_hashes_kernel(const uint8_t *__restrict__ packed,
-                                   const uint8_t *__restrict__ badmask,
-                                   int64_t nrows, int pw, int bw, int P,
-                                   int k, int32_t *__restrict__ h1_out,
-                                   int32_t *__restrict__ h2_out,
-                                   uint8_t *__restrict__ valid_out) {
-    int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= nrows * P) return;
-    int64_t n = g / P;
-    int p = (int)(g - n * P);
-    const uint8_t *prow = packed + n * pw;
-    const uint8_t *brow = badmask + n * bw;
-    uint32_t f_lo = 0, f_hi = 0, r_lo = 0, r_hi = 0;
-    bool ok = true;
-    if (k > 32) {
-        // f = sum_i w_i M^(k-1-i) by Horner; r = sum_i c_i M^i by a running
-        // power: both exact in the ring of integers mod 2^32
+constexpr int kRun = 16;                   // windows a thread rolls through
+constexpr int kWarps = kThreads / 32;
+// a warp's staged windows, padded one word a run against bank conflicts
+constexpr int kStage = 32 * kRun + 32;
+constexpr int kStageBytes = kStage * 9;    // h1, h2 (4 bytes each), valid
+static_assert(kStageBytes % 16 == 0, "stages keep 16-byte alignment");
+
+__device__ __forceinline__ int stage_slot(int i) { return i + i / kRun; }
+
+// Constants of the rolling update, made by the host from k (see
+// kmer_cuda.roll_constants): for k <= 32 the weights of the digits that
+// leave the two forward halves (0 where the weight is 4^16 = 2^32); for
+// k > 32 the k-th and (k-1)-th powers and the inverses of the two odd
+// polynomial multipliers, all mod 2^32.
+struct RollConstants {
+    uint32_t out_hi, out_lo;
+    uint32_t m1k, m2k, m1km1, m2km1, m1inv, m2inv;
+};
+
+// Both strands' codes of the window starting at s[0], then rolled along.
+template <bool POLY>
+struct Roller {
+    uint32_t f_lo = 0, f_hi = 0;     // forward strand
+    uint32_t r_lo = 0, r_hi = 0;     // reverse strand (POLY)
+    uint64_t r = 0;                  // reverse strand, 2 bits a base (!POLY)
+    int last_bad = -1;               // position of the last invalid base
+
+    __device__ __forceinline__ void build(const uint8_t *s, int k,
+                                          int hi_len) {
         uint32_t pw1 = 1u, pw2 = 1u;
         for (int i = 0; i < k; ++i) {
-            uint32_t w = base_at(prow, brow, p + i);
+            uint32_t w = s[i];
             uint32_t c = 3u - (w < 3u ? w : 3u);
-            ok = ok && w < 4u;
-            f_lo = f_lo * kPolyM1 + w;
-            f_hi = f_hi * kPolyM2 + w;
-            r_lo += c * pw1;
-            r_hi += c * pw2;
-            pw1 *= kPolyM1;
-            pw2 *= kPolyM2;
-        }
-    } else {
-        int lo_len = k < 16 ? k : 16;
-        int hi_len = k - lo_len;
-        for (int i = 0; i < k; ++i) {
-            uint32_t w = base_at(prow, brow, p + i);
-            uint32_t c = 3u - (w < 3u ? w : 3u);
-            ok = ok && w < 4u;
-            if (i >= k - lo_len) {
-                f_lo += w << (2 * (k - 1 - i));
+            if (w >= 4u) last_bad = i;
+            if (POLY) {
+                f_lo = f_lo * kPolyM1 + w;
+                f_hi = f_hi * kPolyM2 + w;
+                r_lo += c * pw1;
+                r_hi += c * pw2;
+                pw1 *= kPolyM1;
+                pw2 *= kPolyM2;
             } else {
-                f_hi += w << (2 * (hi_len - 1 - i));
-            }
-            if (i < lo_len) {
-                r_lo += c << (2 * i);
-            } else {
-                r_hi += c << (2 * (i - lo_len));
+                if (i < hi_len) {
+                    f_hi = (f_hi << 2) + w;
+                } else {
+                    f_lo = (f_lo << 2) + w;
+                }
+                r |= (uint64_t)c << (2 * i);
             }
         }
     }
-    bool use_f = (f_hi < r_hi) || (f_hi == r_hi && f_lo <= r_lo);
-    uint32_t c_hi = use_f ? f_hi : r_hi;
-    uint32_t c_lo = use_f ? f_lo : r_lo;
-    uint32_t h1 = fmix32(c_lo ^ fmix32(c_hi ^ kGolden1));
-    uint32_t h2 = fmix32(c_hi ^ fmix32(c_lo ^ kGolden2)) | 1u;
-    h1_out[g] = (int32_t)h1;
-    h2_out[g] = (int32_t)h2;
-    valid_out[g] = ok ? 1 : 0;
+
+    // from the window at s[j - 1] to the one at s[j]
+    __device__ __forceinline__ void roll(const uint8_t *s, int j, int k,
+                                         int hi_len,
+                                         const RollConstants &rc) {
+        uint32_t w_out = s[j - 1];
+        uint32_t w_in = s[j + k - 1];
+        uint32_t c_in = 3u - (w_in < 3u ? w_in : 3u);
+        if (w_in >= 4u) last_bad = j + k - 1;
+        if (POLY) {
+            uint32_t c_out = 3u - (w_out < 3u ? w_out : 3u);
+            f_lo = f_lo * kPolyM1 + w_in - w_out * rc.m1k;
+            f_hi = f_hi * kPolyM2 + w_in - w_out * rc.m2k;
+            r_lo = (r_lo - c_out) * rc.m1inv + c_in * rc.m1km1;
+            r_hi = (r_hi - c_out) * rc.m2inv + c_in * rc.m2km1;
+        } else {
+            // the digit at hi_len moves from the low half to the high one
+            uint32_t w_mid = s[j - 1 + hi_len];
+            f_hi = (f_hi << 2) + w_mid - w_out * rc.out_hi;
+            f_lo = (f_lo << 2) + w_in - w_mid * rc.out_lo;
+            r = (r >> 2) | ((uint64_t)c_in << (2 * (k - 1)));
+        }
+    }
+
+    __device__ __forceinline__ void emit(int j, uint32_t *h1, uint32_t *h2,
+                                         uint8_t *valid) {
+        // !POLY: 16 bases fill the low word; a shorter k leaves the high 0
+        uint32_t rl = POLY ? r_lo : (uint32_t)r;
+        uint32_t rh = POLY ? r_hi : (uint32_t)(r >> 32);
+        bool use_f = (f_hi < rh) || (f_hi == rh && f_lo <= rl);
+        uint32_t c_hi = use_f ? f_hi : rh;
+        uint32_t c_lo = use_f ? f_lo : rl;
+        *h1 = fmix32(c_lo ^ fmix32(c_hi ^ kGolden1));
+        *h2 = fmix32(c_hi ^ fmix32(c_lo ^ kGolden2)) | 1u;
+        *valid = last_bad < j ? 1 : 0;
+    }
+};
+
+// rows_per_block rows a block; runs_per_row = ceil(P / kRun) runs a row.
+// Dynamic shared memory: the tile's codes (at the global address's offset
+// within 16 bytes, so that 16-byte loads line up), then a stage per warp.
+template <bool POLY>
+__global__ void kmer_hashes_kernel(const uint8_t *__restrict__ codes,
+                                   int64_t nrows, int L, int P, int k,
+                                   int rows_per_block, int runs_per_row,
+                                   int code_bytes, RollConstants rc,
+                                   int32_t *__restrict__ h1_out,
+                                   int32_t *__restrict__ h2_out,
+                                   uint8_t *__restrict__ valid_out) {
+    extern __shared__ uint4 smem[];
+    uint8_t *s_codes = reinterpret_cast<uint8_t *>(smem);
+    const int64_t row0 = (int64_t)blockIdx.x * rows_per_block;
+    const int nr = (int)(nrows - row0 < rows_per_block ? nrows - row0
+                                                       : rows_per_block);
+    const uint8_t *g = codes + row0 * L;
+    const int lead = (int)(reinterpret_cast<uintptr_t>(g) & 15);
+    const int nbytes = nr * L;
+    const uint8_t *ga = g - lead;
+    const int nchunks = (lead + nbytes + 15) / 16;
+    for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
+        int b0 = c * 16;
+        if (b0 >= lead && b0 + 16 <= lead + nbytes) {
+            smem[c] = __ldg(reinterpret_cast<const uint4 *>(ga) + c);
+        } else {
+            for (int b = b0; b < b0 + 16; ++b) {
+                if (b >= lead && b < lead + nbytes) s_codes[b] = ga[b];
+            }
+        }
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    uint8_t *stage = s_codes + code_bytes + warp * kStageBytes;
+    uint32_t *s_h1 = reinterpret_cast<uint32_t *>(stage);
+    uint32_t *s_h2 = s_h1 + kStage;
+    uint8_t *s_valid = reinterpret_cast<uint8_t *>(s_h2 + kStage);
+    const int hi_len = k > 16 ? k - 16 : 0;
+    const int total_runs = nr * runs_per_row;
+    const int64_t flat0 = row0 * P;
+
+    for (int base = warp * 32; base < total_runs; base += kWarps * 32) {
+        // the warp's runs base .. base+31 cover one contiguous range of
+        // the tile's flat windows, [first, first + count)
+        int brow = base / runs_per_row;
+        int first = brow * P + (base - brow * runs_per_row) * kRun;
+        int last_run = base + 31 < total_runs ? base + 31 : total_runs - 1;
+        int lrow = last_run / runs_per_row;
+        int lp = (last_run - lrow * runs_per_row) * kRun;
+        int count = lrow * P + (lp + kRun < P ? lp + kRun : P) - first;
+
+        int run = base + lane;
+        if (run < total_runs) {
+            int row = run / runs_per_row;
+            int p0 = (run - row * runs_per_row) * kRun;
+            int nw = P - p0 < kRun ? P - p0 : kRun;
+            int off = row * P + p0 - first;
+            const uint8_t *s = s_codes + lead + row * L + p0;
+            Roller<POLY> roller;
+            roller.build(s, k, hi_len);
+            for (int j = 0; j < nw; ++j) {
+                if (j) roller.roll(s, j, k, hi_len, rc);
+                int slot = stage_slot(off + j);
+                roller.emit(j, s_h1 + slot, s_h2 + slot, s_valid + slot);
+            }
+        }
+        __syncwarp();
+        for (int i = lane; i < count; i += 32) {
+            int slot = stage_slot(i);
+            int64_t o = flat0 + first + i;
+            h1_out[o] = (int32_t)s_h1[slot];
+            h2_out[o] = (int32_t)s_h2[slot];
+            valid_out[o] = s_valid[slot];
+        }
+        __syncwarp();
+    }
 }
 
-__global__ void gather_counts_kernel(const uint8_t *__restrict__ tables,
-                                     int ntables, int64_t width,
-                                     uint32_t tablesize, int bits,
+// ------------------------------------------------------------------- K2
+
+constexpr int kMaxSamples = 8;
+
+// One sketch: its tables as they lie in memory, and the reciprocal
+// floor(2^32 / tablesize) (2^32 - 1 for tablesize 1) that mod_by() needs.
+struct GatherSample {
+    const uint8_t *tables;
+    int64_t width;          // bytes per table row
+    uint32_t tablesize;     // buckets per table, in [1, 2^31)
+    uint32_t magic;
+    int32_t ntables;
+    int32_t bits;           // 1, 4 or 8 per counter
+};
+
+struct GatherArgs {
+    GatherSample s[kMaxSamples];
+};
+
+// x mod d without a division, exact for every x and every d in [1, 2^31):
+// with m = floor(2^32 / d), q = umulhi(x, m) is floor(x / d) or one less
+// (x * (2^32/d - m) / 2^32 < 1), so x - q*d lies in [0, 2d), which 32 bits
+// hold, and one conditional subtraction finishes.
+__device__ __forceinline__ uint32_t mod_by(uint32_t x, uint32_t d,
+                                           uint32_t m) {
+    uint32_t r = x - __umulhi(x, m) * d;
+    return r >= d ? r - d : r;
+}
+
+// A byte through the read-only path, not kept in L1: a 500 MB table has no
+// reuse there.
+__device__ __forceinline__ uint32_t load_streamed(const uint8_t *p) {
+    uint32_t v;
+    asm("ld.global.nc.L1::no_allocate.u8 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+
+// counter `idx` out of its byte, at `bits` per counter, LSB first
+__device__ __forceinline__ uint32_t counter_of(uint32_t byte, uint32_t idx,
+                                               int bits) {
+    int lg = bits == 8 ? 0 : (bits == 4 ? 1 : 3);   // log2(counters a byte)
+    return (byte >> ((idx & ((1u << lg) - 1u)) * bits)) & ((1u << bits) - 1u);
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint32_t idx, int bits) {
+    return idx >> (bits == 8 ? 0 : (bits == 4 ? 1 : 3));
+}
+
+// S samples (the first `nsamples` of them live) of T tables each; BITS is
+// the counter width of all of them, or 0 when the samples' widths differ.
+// All indices first, then all loads, then the minima.
+template <int S, int T, int BITS>
+__global__ void gather_counts_kernel(const __grid_constant__ GatherArgs args,
+                                     int nsamples,
                                      const int32_t *__restrict__ h1,
                                      const int32_t *__restrict__ h2,
                                      int64_t n, uint8_t *__restrict__ out) {
@@ -126,22 +289,69 @@ __global__ void gather_counts_kernel(const uint8_t *__restrict__ tables,
     if (g >= n) return;
     uint32_t a = (uint32_t)h1[g];
     uint32_t b = (uint32_t)h2[g];
-    uint32_t m = 255u;
-    for (int t = 0; t < ntables; ++t) {
-        uint32_t idx = (a + (uint32_t)t * b) % tablesize;
-        const uint8_t *row = tables + (int64_t)t * width;
-        uint32_t c;
-        if (bits == 8) {
-            c = row[idx];
-        } else if (bits == 4) {
-            c = (row[idx >> 1] >> ((idx & 1u) << 2)) & 0xFu;
-        } else {
-            c = (row[idx >> 3] >> (idx & 7u)) & 1u;
+    uint32_t idx[S][T], byte[S][T];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        if (s < nsamples) {
+#pragma unroll
+            for (int t = 0; t < T; ++t) {
+                idx[s][t] = mod_by(a + (uint32_t)t * b, args.s[s].tablesize,
+                                   args.s[s].magic);
+            }
         }
-        m = c < m ? c : m;
     }
-    out[g] = (uint8_t)m;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        if (s < nsamples) {
+            int bits = BITS ? BITS : args.s[s].bits;
+#pragma unroll
+            for (int t = 0; t < T; ++t) {
+                byte[s][t] = load_streamed(args.s[s].tables +
+                                           t * args.s[s].width +
+                                           byte_of(idx[s][t], bits));
+            }
+        }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        if (s < nsamples) {
+            int bits = BITS ? BITS : args.s[s].bits;
+            uint32_t m = 255u;
+#pragma unroll
+            for (int t = 0; t < T; ++t) {
+                uint32_t c = counter_of(byte[s][t], idx[s][t], bits);
+                m = c < m ? c : m;
+            }
+            out[(int64_t)s * n + g] = (uint8_t)m;
+        }
+    }
 }
+
+// Any table count per sample: the loops run as the data says.
+__global__ void gather_counts_any_kernel(
+        const __grid_constant__ GatherArgs args, int nsamples,
+        const int32_t *__restrict__ h1, const int32_t *__restrict__ h2,
+        int64_t n, uint8_t *__restrict__ out) {
+    int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= n) return;
+    uint32_t a = (uint32_t)h1[g];
+    uint32_t b = (uint32_t)h2[g];
+    for (int s = 0; s < nsamples; ++s) {
+        const GatherSample &sm = args.s[s];
+        uint32_t m = 255u;
+        for (int t = 0; t < sm.ntables; ++t) {
+            uint32_t idx = mod_by(a + (uint32_t)t * b, sm.tablesize,
+                                  sm.magic);
+            uint32_t c = counter_of(
+                load_streamed(sm.tables + t * sm.width +
+                              byte_of(idx, sm.bits)), idx, sm.bits);
+            m = c < m ? c : m;
+        }
+        out[(int64_t)s * n + g] = (uint8_t)m;
+    }
+}
+
+// ------------------------------------------------------------------- K3
 
 __global__ void scatter_add_kernel(int32_t *__restrict__ acc, int64_t C,
                                    const int32_t *__restrict__ idx,
@@ -158,31 +368,103 @@ inline unsigned blocks_for(int64_t total) {
     return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
+template <int S, int BITS>
+int launch_gather(const GatherArgs &args, int nsamples, const int32_t *h1,
+                  const int32_t *h2, int64_t n, uint8_t *out,
+                  cudaStream_t stream) {
+    gather_counts_kernel<S, 4, BITS><<<blocks_for(n), kThreads, 0, stream>>>(
+        args, nsamples, h1, h2, n, out);
+    return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int launch_gather_bits(const GatherArgs &args, int nsamples,
+                       const int32_t *h1, const int32_t *h2, int64_t n,
+                       uint8_t *out, cudaStream_t stream) {
+    switch (nsamples) {
+    case 1:
+        return launch_gather<1, BITS>(args, 1, h1, h2, n, out, stream);
+    case 2:
+        return launch_gather<2, BITS>(args, 2, h1, h2, n, out, stream);
+    case 3:
+        return launch_gather<3, BITS>(args, 3, h1, h2, n, out, stream);
+    case 4:
+        return launch_gather<4, BITS>(args, 4, h1, h2, n, out, stream);
+    default:
+        return launch_gather<kMaxSamples, BITS>(args, nsamples, h1, h2, n,
+                                                out, stream);
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
-int kt_kmer_hashes(const void *packed, const void *badmask, int64_t nrows,
-                   int pw, int bw, int P, int k, void *h1, void *h2,
-                   void *valid, void *stream) {
-    int64_t total = nrows * (int64_t)P;
-    if (total == 0) return 0;
-    kmer_hashes_kernel<<<blocks_for(total), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint8_t *)packed, (const uint8_t *)badmask, nrows, pw, bw, P,
-        k, (int32_t *)h1, (int32_t *)h2, (uint8_t *)valid);
+// codes [nrows, L] uint8 -> h1, h2 [nrows, P] int32 (uint32 bits), valid
+// [nrows, P] uint8, P = L - k + 1 >= 1.  `rc` points to the 8 uint32 of
+// RollConstants.
+int kt_kmer_hashes(const void *codes, int64_t nrows, int L, int k,
+                   const uint32_t *rc, void *h1, void *h2, void *valid,
+                   void *stream) {
+    int P = L - k + 1;
+    if (nrows == 0) return 0;
+    if (P < 1 || k < 1) return (int)cudaErrorInvalidValue;
+    int runs_per_row = (P + kRun - 1) / kRun;
+    int rows_per_block = kThreads / runs_per_row;
+    if (rows_per_block < 1) rows_per_block = 1;
+    if ((int64_t)rows_per_block > nrows) rows_per_block = (int)nrows;
+    // the tile, up to 15 bytes of lead, rounded up to whole 16-byte chunks
+    int code_bytes = (rows_per_block * L + 15 + 15) / 16 * 16;
+    size_t smem = (size_t)code_bytes + (size_t)kWarps * kStageBytes;
+    RollConstants c = {rc[0], rc[1], rc[2], rc[3], rc[4], rc[5], rc[6],
+                       rc[7]};
+    unsigned blocks =
+        (unsigned)((nrows + rows_per_block - 1) / rows_per_block);
+    auto kernel = k > 32 ? kmer_hashes_kernel<true>
+                         : kmer_hashes_kernel<false>;
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t *)codes, nrows, L, P, k, rows_per_block, runs_per_row,
+        code_bytes, c, (int32_t *)h1, (int32_t *)h2, (uint8_t *)valid);
     return (int)cudaGetLastError();
 }
 
-int kt_gather_counts(const void *tables, int ntables, int64_t width,
-                     int64_t tablesize, int bits, const void *h1,
+// `args` points to a GatherArgs on the host, of which the first `nsamples`
+// (1 .. kMaxSamples) entries are filled; out is uint8 [nsamples, n].
+int kt_gather_counts(const void *args, int nsamples, const void *h1,
                      const void *h2, int64_t n, void *out, void *stream) {
     if (n == 0) return 0;
-    gather_counts_kernel<<<blocks_for(n), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const uint8_t *)tables, ntables, width, (uint32_t)tablesize, bits,
-        (const int32_t *)h1, (const int32_t *)h2, n, (uint8_t *)out);
-    return (int)cudaGetLastError();
+    if (nsamples < 1 || nsamples > kMaxSamples)
+        return (int)cudaErrorInvalidValue;
+    const GatherArgs &a = *(const GatherArgs *)args;
+    const int32_t *p1 = (const int32_t *)h1, *p2 = (const int32_t *)h2;
+    uint8_t *o = (uint8_t *)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    bool four = true, same = true;
+    for (int s = 0; s < nsamples; ++s) {
+        four = four && a.s[s].ntables == 4;
+        same = same && a.s[s].bits == a.s[0].bits;
+    }
+    if (!four) {
+        gather_counts_any_kernel<<<blocks_for(n), kThreads, 0, st>>>(
+            a, nsamples, p1, p2, n, o);
+        return (int)cudaGetLastError();
+    }
+    int bits = same ? a.s[0].bits : 0;
+    switch (bits) {
+    case 8:
+        return launch_gather_bits<8>(a, nsamples, p1, p2, n, o, st);
+    case 4:
+        return launch_gather_bits<4>(a, nsamples, p1, p2, n, o, st);
+    case 1:
+        return launch_gather_bits<1>(a, nsamples, p1, p2, n, o, st);
+    default:
+        return launch_gather_bits<0>(a, nsamples, p1, p2, n, o, st);
+    }
 }
 
 int kt_scatter_add(void *acc, int64_t C, const void *idx, int64_t ntables,

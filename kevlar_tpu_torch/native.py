@@ -174,10 +174,16 @@ class FastxBatchReader:
     [n] int32, names, quals)``: padding holds the invalid code 4, and
     ``quals`` is a [n, max_len] uint8 array (zero past each read) with
     ``want_quals``, else None.  Records longer than ``max_len`` chunk into
-    rows sharing ``overlap`` characters."""
+    rows sharing ``overlap`` characters.
+
+    With ``want_names=False`` the names are not decoded (``names`` is
+    None).  With ``reuse=True`` every item's ``bases`` is a view of one
+    buffer that the next step overwrites, for a caller that copies each
+    batch out at once: a step then re-fills only what the last one wrote
+    instead of a fresh ``max_reads x max_len`` array."""
 
     def __init__(self, path, max_reads=4096, max_len=1024, want_quals=False,
-                 overlap=0):
+                 overlap=0, want_names=True, reuse=False):
         self._lib = load_fastx()
         self._handle = self._lib.kt_fastx_open(path.encode())
         if not self._handle:
@@ -187,17 +193,34 @@ class FastxBatchReader:
         self.max_reads = max_reads
         self.max_len = max_len
         self.want_quals = want_quals
+        self.want_names = want_names
+        self.reuse = reuse
+        self._bases = None
+        self._names = None
+        self._dirty = (0, 0)        # rows and columns the last step wrote
 
     def __iter__(self):
         return self
 
+    def _buffers(self):
+        """(bases filled with 4, names buffer) for one step."""
+        names_cap = self.max_reads * 256
+        if not self.reuse or self._bases is None:
+            bases = np.full((self.max_reads, self.max_len), 4,
+                            dtype=np.uint8)
+            names = ctypes.create_string_buffer(names_cap)
+            if self.reuse:
+                self._bases, self._names = bases, names
+            return bases, names
+        rows, cols = self._dirty
+        self._bases[:rows, :cols] = 4
+        return self._bases, self._names
+
     def __next__(self):
         if not self._handle:
             raise StopIteration
-        bases = np.full((self.max_reads, self.max_len), 4, dtype=np.uint8)
+        bases, names = self._buffers()
         lengths = np.zeros(self.max_reads, dtype=np.int32)
-        names_cap = self.max_reads * 256
-        names = ctypes.create_string_buffer(names_cap)
         qbuf = None
         if self.want_quals:
             qbuf = ctypes.create_string_buffer(self.max_reads * self.max_len)
@@ -205,22 +228,25 @@ class FastxBatchReader:
             self._handle, self.max_reads, self.max_len,
             bases.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            names, names_cap, qbuf)
+            names, len(names), qbuf)
         if n < 0:
             self.close()
             raise IOError('parse error in FASTX input')
         if n == 0:
             self.close()
             raise StopIteration
-        # maxsplit: the zero-filled buffer tail would otherwise split into
-        # ~names_cap empty strings
-        namelist = names.raw.split(b'\0', n)[:n]
+        self._dirty = (n, int(lengths[:n].max()))
+        namelist = None
+        if self.want_names:
+            # maxsplit: the buffer's tail would otherwise split into
+            # ~names_cap empty strings
+            namelist = [s.decode('ascii', 'replace')
+                        for s in names.raw.split(b'\0', n)[:n]]
         quals = None
         if qbuf is not None:
             quals = np.frombuffer(qbuf.raw, dtype=np.uint8).reshape(
                 self.max_reads, self.max_len)[:n]
-        return (bases[:n], lengths[:n],
-                [s.decode('ascii', 'replace') for s in namelist], quals)
+        return bases[:n], lengths[:n], namelist, quals
 
     def close(self):
         if self._handle:

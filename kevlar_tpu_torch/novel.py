@@ -7,9 +7,10 @@ failing case abundance is below it are discarded entirely; reads shorter
 than k or containing non-ACGT bases are skipped; emitted records carry
 (kmer, offset, abundance-tuple) annotations.
 
-Each read batch goes to the sample sketches' device in the 2-bit wire
-format and through :func:`kevlar_tpu_torch.ops.novel_ops.novel_screen`
-(K1 hashing, K2 gathers, torch predicates and compaction); only the hits
+Each read batch's base codes go to the sample sketches' device as they are
+(one byte a base, from pinned host memory) and through
+:func:`kevlar_tpu_torch.ops.novel_ops.novel_screen` (K1 hashing, one K2
+gather for all samples, torch predicates and compaction); only the hits
 come back.  Banding: the user-facing `--band` is 1-based; internally band
 b of N keeps k-mers with ``h1 & (N-1) == b``, as in the count stage.
 """
@@ -181,16 +182,17 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
     # device screen never waits on the reader (order is preserved)
     batchstream = batch_mod.prefetch_iter(batchstream, depth=6)
 
+    stager = batch_mod.CodeStager(device)
+
     def screen(rbatch):
         """(hits, hit abundances, discard) of one batch, on the host."""
-        packed, badmask = batch_mod.pack_bases(rbatch.bases)
+        np.copyto(stager.buffer(rbatch.bases.shape), rbatch.bases)
         hits, hit_abunds, discard = novel_ops.novel_screen(
-            specs, ncase, torch.from_numpy(packed).to(device),
-            torch.from_numpy(badmask).to(device),
+            specs, ncase, stager.ship(),
             torch.from_numpy(np.asarray(rbatch.lengths, np.int32)).to(
                 device),
-            rbatch.bases.shape[1], ksize, casemin, ctrlmax,
-            screen=abundscreen, numbands=numbands, band=band)
+            ksize, casemin, ctrlmax, screen=abundscreen, numbands=numbands,
+            band=band)
         return (hits.cpu().numpy(), hit_abunds.cpu().numpy(),
                 discard.cpu().numpy())
 

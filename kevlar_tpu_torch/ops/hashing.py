@@ -7,12 +7,15 @@ tensor and masks with ``& 0xFFFFFFFF`` after each operation that can leave
 32 bits (add, multiply, left shift); the CUDA kernel
 (``csrc/kmer.cu::kt_kmer_hashes``) uses ``uint32_t`` throughout.
 
-:func:`kmer_hashes_packed` is the entry point of the count and screen
-stages: it takes the 2-bit wire format of :func:`kevlar_tpu_torch.batch.
-pack_bases` and returns ``(h1, h2, valid)`` as ``[N, P]`` int32 (the uint32
+:func:`kmer_hashes_codes` is the entry point of the count and screen
+stages: it takes the reader's ``uint8 [N, L]`` base codes (0-3, 4 = not
+ACGT) and returns ``(h1, h2, valid)`` as ``[N, P]`` int32 (the uint32
 bits) and uint8 tensors.  On a CUDA tensor it launches the kernel; on a CPU
-tensor it runs :func:`kmer_hashes_packed_plain`.  No path falls back from
-one to the other.
+tensor it runs :func:`kmer_hashes_plain`.  No path falls back from one to
+the other.  :func:`unpack_bases` and :func:`unpack_badmask` read the 2-bit
+wire format of ``kevlar_tpu`` (:func:`kevlar_tpu_torch.batch.pack_bases`);
+no stage ships it any more, and they stay for the tests that hold the two
+packages' formats together.
 """
 
 import torch
@@ -129,44 +132,34 @@ def unpack_bases(packed, badmask, L):
                        bases)
 
 
-def kmer_hashes_packed_plain(packed, badmask, L, ksize):
-    """Plain PyTorch version of the K1 kernel, on any device: unpack, hash
-    and convert to the kernel's output types ([N, P] int32 h1, h2 holding
-    the uint32 bits; uint8 valid)."""
-    h1, h2, valid = kmer_hashes(unpack_bases(packed, badmask, L), ksize)
+def kmer_hashes_plain(codes, ksize):
+    """Plain PyTorch version of the K1 kernel, on any device: hash every
+    window and convert to the kernel's output types ([N, P] int32 h1, h2
+    holding the uint32 bits; uint8 valid)."""
+    h1, h2, valid = kmer_hashes(codes, ksize)
     return to_i32_bits(h1), to_i32_bits(h2), valid.to(torch.uint8)
 
 
-def _check_wire(packed, badmask, L, ksize):
-    """Validate a wire-format batch; raises ValueError."""
-    for name, x in (('packed', packed), ('badmask', badmask)):
-        if x.dtype != torch.uint8 or x.dim() != 2 or not x.is_contiguous():
-            raise ValueError('{} must be a contiguous 2-D uint8 tensor, got '
-                             '{} {}'.format(name, x.dtype, tuple(x.shape)))
-    if badmask.device != packed.device:
-        raise ValueError('badmask is on {}, packed on {}'.format(
-            badmask.device, packed.device))
-    if packed.shape[0] != badmask.shape[0]:
-        raise ValueError('row counts differ: packed {}, badmask {}'.format(
-            packed.shape[0], badmask.shape[0]))
-    if packed.shape[1] != -(-L // 4) or badmask.shape[1] != -(-L // 8):
-        raise ValueError('widths {} / {} do not hold L = {}'.format(
-            packed.shape[1], badmask.shape[1], L))
+def kmer_hashes_codes(codes, ksize):
+    """(h1, h2, valid) for every k-window of ``codes`` (uint8 [N, L] base
+    codes, >= 4 invalid): [N, P] int32 (uint32 bits), int32, uint8.  A CUDA
+    batch launches the kernel, a CPU batch runs the plain version."""
+    from kevlar_tpu_torch.ops import kmer_cuda
+    if codes.dtype != torch.uint8 or codes.dim() != 2 or \
+            not codes.is_contiguous():
+        raise ValueError('codes must be a contiguous 2-D uint8 tensor, got '
+                         '{} {}'.format(codes.dtype, tuple(codes.shape)))
+    L = codes.shape[1]
     if not 1 <= ksize <= min(MAX_KSIZE, L):
         raise ValueError('ksize {} outside [1, min({}, L={})]'.format(
             ksize, MAX_KSIZE, L))
-
-
-def kmer_hashes_packed(packed, badmask, L, ksize):
-    """(h1, h2, valid) for every k-window of a wire-format batch: [N, P]
-    int32 (uint32 bits), int32, uint8.  A CUDA batch launches the kernel,
-    a CPU batch runs the plain version."""
-    from kevlar_tpu_torch.ops import kmer_cuda
-    _check_wire(packed, badmask, L, ksize)
-    kind = packed.device.type
+    kind = codes.device.type
     if kind == 'cuda':
-        return kmer_cuda.kmer_hashes_cuda(packed, badmask, L, ksize)
+        if L > kmer_cuda.MAX_ROW_BASES:
+            raise ValueError('rows of {} bases exceed the kernel\'s {}'
+                             .format(L, kmer_cuda.MAX_ROW_BASES))
+        return kmer_cuda.kmer_hashes_cuda(codes, ksize)
     if kind == 'cpu':
-        return kmer_hashes_packed_plain(packed, badmask, L, ksize)
+        return kmer_hashes_plain(codes, ksize)
     raise ValueError('no k-mer hashing engine for device ' +
-                     str(packed.device))
+                     str(codes.device))

@@ -3,15 +3,16 @@
 ``csrc/kmer.cu`` holds three kernels for Hopper (nvcc, ``sm_90a``), bound
 with ``ctypes`` through plain C entry points:
 
-- **K1** :func:`kmer_hashes_cuda` — canonical k-mer hashing straight from
-  the 2-bit wire format; replaces the XLA program of
-  ``kevlar_tpu/ops/hashing.py`` (``unpack_bases``, ``kmer_codes``,
+- **K1** :func:`kmer_hashes_cuda` — canonical k-mer hashing of the reader's
+  base codes (one byte a base), a rolling update per window; replaces the
+  XLA program of ``kevlar_tpu/ops/hashing.py`` (``kmer_codes``,
   ``hash_pair``).  Plain version:
-  :func:`kevlar_tpu_torch.ops.hashing.kmer_hashes_packed_plain`.
-- **K2** :func:`gather_counts_cuda` — the min over the tables of a
-  Count-Min sketch at 1, 4 or 8 bits per counter; replaces
-  ``kevlar_tpu/ops/sketch_ops.py::gather_counts``.  Plain version:
-  :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_plain`.
+  :func:`kevlar_tpu_torch.ops.hashing.kmer_hashes_plain`.
+- **K2** :func:`gather_counts_cuda` — the min over the tables of up to
+  :data:`MAX_SAMPLES` Count-Min sketches in one launch, at 1, 4 or 8 bits
+  per counter; replaces ``kevlar_tpu/ops/sketch_ops.py::gather_counts``
+  and ``gather_counts_multi``.  Plain version:
+  :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_multi_plain`.
 - **K3** :func:`scatter_add_cuda` — the per-table bincount into a resident
   int32 accumulator; replaces ``tools/scatter_probe.py::pallas_scatter_add``
   (the ``pl.pallas_call`` at ``:76``, B10).  Plain version:
@@ -24,11 +25,13 @@ at first use; a failed build raises.
 """
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from kevlar_tpu_torch import native
+from kevlar_tpu_torch.dna import POLY_M1, POLY_M2
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc', 'kmer.cu')
@@ -37,7 +40,48 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 # through the kernels.
 launches = {'kmer_hashes': 0, 'gather_counts': 0, 'scatter_add': 0}
 
+# Sketches one K2 launch serves (``kMaxSamples`` in the source).
+MAX_SAMPLES = 8
+# Longest row K1 takes: a block keeps one whole row in shared memory.
+MAX_ROW_BASES = 200_000
+
 _lib = None
+
+
+class _GatherSample(ctypes.Structure):
+    _fields_ = [('tables', ctypes.c_void_p), ('width', ctypes.c_int64),
+                ('tablesize', ctypes.c_uint32), ('magic', ctypes.c_uint32),
+                ('ntables', ctypes.c_int32), ('bits', ctypes.c_int32)]
+
+
+class _GatherArgs(ctypes.Structure):
+    _fields_ = [('s', _GatherSample * MAX_SAMPLES)]
+
+
+def mod_magic(tablesize):
+    """The reciprocal K2 reduces with: ``floor(2^32 / tablesize)``, capped
+    at ``2^32 - 1`` (tablesize 1).  With it, ``r = x - umulhi(x, magic) *
+    tablesize`` lies in ``[0, 2 * tablesize)`` for every uint32 ``x``, and
+    ``r - tablesize`` where ``r >= tablesize`` is ``x mod tablesize``."""
+    if not 1 <= tablesize < (1 << 31):
+        raise ValueError('tablesize must be in [1, 2^31)')
+    return min((1 << 32) // tablesize, (1 << 32) - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def roll_constants(ksize):
+    """The 8 uint32 constants of K1's rolling update (``RollConstants`` in
+    the source): the weights of the digits leaving the high and low
+    forward halves for k <= 32 (0 where the weight is 4^16 = 2^32), then
+    ``M^k``, ``M^(k-1)`` and ``M^-1`` mod 2^32 of both polynomial
+    multipliers for k > 32."""
+    lo_len = min(ksize, 16)
+    hi_len = ksize - lo_len
+    mod = 1 << 32
+    return (pow(4, hi_len, mod), pow(4, lo_len, mod),
+            pow(POLY_M1, ksize, mod), pow(POLY_M2, ksize, mod),
+            pow(POLY_M1, ksize - 1, mod), pow(POLY_M2, ksize - 1, mod),
+            pow(POLY_M1, -1, mod), pow(POLY_M2, -1, mod))
 
 
 def build(force=False):
@@ -56,11 +100,9 @@ def _load():
         lib = ctypes.CDLL(build())
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.kt_kmer_hashes.restype = ci
-        lib.kt_kmer_hashes.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp, vp,
-                                       vp, vp]
+        lib.kt_kmer_hashes.argtypes = [vp, cl, ci, ci, vp, vp, vp, vp, vp]
         lib.kt_gather_counts.restype = ci
-        lib.kt_gather_counts.argtypes = [vp, ci, cl, cl, ci, vp, vp, cl, vp,
-                                         vp]
+        lib.kt_gather_counts.argtypes = [vp, ci, vp, vp, cl, vp, vp]
         lib.kt_scatter_add.restype = ci
         lib.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
         lib.kt_kmer_error_string.restype = ctypes.c_char_p
@@ -75,40 +117,53 @@ def _raise_on(lib, name, err):
             name, err, lib.kt_kmer_error_string(err).decode()))
 
 
-def kmer_hashes_cuda(packed, badmask, L, ksize):
-    """K1 on a checked wire-format batch (see
-    :func:`kevlar_tpu_torch.ops.hashing.kmer_hashes_packed`): returns [N, P]
+def kmer_hashes_cuda(codes, ksize):
+    """K1 on a checked batch of base codes (see
+    :func:`kevlar_tpu_torch.ops.hashing.kmer_hashes_codes`): returns [N, P]
     int32 h1, int32 h2 (uint32 bits) and uint8 valid."""
     lib = _load()
-    dev = packed.device
-    N = packed.shape[0]
+    dev = codes.device
+    N, L = codes.shape
     P = L - ksize + 1
     h1 = torch.empty((N, P), dtype=torch.int32, device=dev)
     h2 = torch.empty((N, P), dtype=torch.int32, device=dev)
     valid = torch.empty((N, P), dtype=torch.uint8, device=dev)
+    consts = (ctypes.c_uint32 * 8)(*roll_constants(ksize))
     with torch.cuda.device(dev):
         err = lib.kt_kmer_hashes(
-            packed.data_ptr(), badmask.data_ptr(), N, packed.shape[1],
-            badmask.shape[1], P, ksize, h1.data_ptr(), h2.data_ptr(),
-            valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            codes.data_ptr(), N, L, ksize, consts, h1.data_ptr(),
+            h2.data_ptr(), valid.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, 'kt_kmer_hashes', err)
     launches['kmer_hashes'] += 1
     return h1, h2, valid
 
 
-def gather_counts_cuda(tables, h1, h2, counter_bits, tablesize):
+def gather_counts_cuda(samples, h1, h2):
     """K2 on checked tensors (see
-    :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts`): uint8 [N]."""
+    :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_multi`): uint8
+    [S, N], one launch per :data:`MAX_SAMPLES` sketches."""
     lib = _load()
-    dev = tables.device
-    out = torch.empty(h1.shape, dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kt_gather_counts(
-            tables.data_ptr(), tables.shape[0], tables.shape[1], tablesize,
-            counter_bits, h1.data_ptr(), h2.data_ptr(), h1.numel(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, 'kt_gather_counts', err)
-    launches['gather_counts'] += 1
+    dev = h1.device
+    n = h1.numel()
+    out = torch.empty((len(samples), n), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for lo in range(0, len(samples), MAX_SAMPLES):
+        chunk = samples[lo:lo + MAX_SAMPLES]
+        args = _GatherArgs()
+        for slot, (tables, bits, tablesize) in zip(args.s, chunk):
+            slot.tables = tables.data_ptr()
+            slot.width = tables.shape[1]
+            slot.tablesize = tablesize
+            slot.magic = mod_magic(tablesize)
+            slot.ntables = tables.shape[0]
+            slot.bits = bits
+        with torch.cuda.device(dev):
+            err = lib.kt_gather_counts(
+                ctypes.byref(args), len(chunk), h1.data_ptr(), h2.data_ptr(),
+                n, out[lo:].data_ptr(), stream)
+        _raise_on(lib, 'kt_gather_counts', err)
+        launches['gather_counts'] += 1
     return out
 
 

@@ -1,8 +1,8 @@
 """The novel-k-mer screen over device tensors.
 
 Counterpart of ``kevlar_tpu/ops/novel_ops.py::novel_screen_compact`` (B5):
-hash every window of a wire-format read batch once (K1), gather each
-sample's min-of-tables count (K2), evaluate the casemin/ctrlmax predicate,
+hash every window of a read batch's base codes once (K1), gather every
+sample's min-of-tables count in one launch (K2), evaluate the casemin/ctrlmax predicate,
 and compact the hits.  The predicates and the compaction are plain torch,
 shared by both devices; the compaction is ``torch.nonzero``, ascending like
 ``jnp.nonzero``, with no cap on the number of hits.
@@ -13,14 +13,14 @@ import torch
 from kevlar_tpu_torch.ops import hashing, sketch_ops
 
 
-def novel_screen(samples, ncase, packed, badmask, lengths, L, ksize, casemin,
-                 ctrlmax, screen=None, numbands=None, band=None):
-    """Screen a wire-format read batch for novel (interesting) k-mers.
+def novel_screen(samples, ncase, codes, lengths, ksize, casemin, ctrlmax,
+                 screen=None, numbands=None, band=None):
+    """Screen a read batch for novel (interesting) k-mers.
 
     ``samples`` are the case sketches then the control sketches, as
     ``(tables, counter_bits, tablesize)`` on the batch's device (``ncase``
-    of them cases); ``packed``/``badmask`` [B, ceil(L/4)] / [B, ceil(L/8)]
-    uint8 and ``lengths`` [B] int32 (0 for padding rows).
+    of them cases); ``codes`` [B, L] uint8 base codes (>= 4 invalid) and
+    ``lengths`` [B] int32 (0 for padding rows).
 
     Returns ``(hits, hit_abunds, discard)``:
 
@@ -34,22 +34,20 @@ def novel_screen(samples, ncase, packed, badmask, lengths, L, ksize, casemin,
       abundance (in case order) falls below ``screen`` at some valid
       window, as the reference's short-circuit discards them.
     """
-    B = packed.shape[0]
-    h1, h2, valid = hashing.kmer_hashes_packed(packed, badmask, L, ksize)
+    B, L = codes.shape
+    h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
     valid = valid != 0
     P = h1.shape[1]
     if numbands:
         valid = valid & ((hashing.to_u32(h1) & (numbands - 1)) == band)
 
     lengths = lengths.to(torch.int64)
-    within = torch.arange(L, device=packed.device)[None, :] < lengths[:, None]
-    skip = ((hashing.unpack_badmask(badmask, L) & within).any(dim=1)
-            | (lengths < ksize))
+    within = torch.arange(L, device=codes.device)[None, :] < lengths[:, None]
+    skip = ((codes >= 4) & within).any(dim=1) | (lengths < ksize)
 
-    h1f, h2f = h1.reshape(-1), h2.reshape(-1)
-    counts = torch.stack([
-        sketch_ops.gather_counts(tables, h1f, h2f, bits, tablesize)
-        for tables, bits, tablesize in samples]).reshape(len(samples), B, P)
+    counts = sketch_ops.gather_counts_multi(
+        list(samples), h1.reshape(-1), h2.reshape(-1)).reshape(
+            len(samples), B, P)
     case_counts = counts[:ncase]
     ctrl_counts = counts[ncase:]
 
@@ -61,7 +59,7 @@ def novel_screen(samples, ncase, packed, badmask, lengths, L, ksize, casemin,
         discard_kmer = valid & any_below & (fail_abund < screen)
         discard = discard_kmer.any(dim=1) & ~skip
     else:
-        discard = torch.zeros(B, dtype=torch.bool, device=packed.device)
+        discard = torch.zeros(B, dtype=torch.bool, device=codes.device)
 
     interesting = valid & ~any_below & ~skip[:, None]
     if ctrl_counts.shape[0]:

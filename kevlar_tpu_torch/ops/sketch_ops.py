@@ -8,7 +8,7 @@ bit-packed LSB-first in bucket order (bucket i in bits ``[bits*(i % cpb),
 ...)`` of byte ``i // cpb``), the layout ``kevlar_tpu`` saves.  Counters
 saturate at 1, 15 or 255.
 
-A consume (:func:`consume_packed`) hashes a wire-format batch (K1), drops
+A consume (:func:`consume_codes`) hashes a batch of base codes (K1), drops
 k-mers outside the band and, with a mask, those the mask screens out (the
 mask's counts come from K2), computes each table's bucket index in int64,
 and scatter-adds 1 per (table, k-mer) into an int32 accumulator (K3),
@@ -20,8 +20,8 @@ saturated and packed back at its end.  Saturating once at the end gives
 the same counts as saturating per increment, because the adds are
 monotone.
 
-Dispatch: on CUDA tensors :func:`gather_counts` and :func:`scatter_add`
-launch their kernels; on CPU tensors they run the plain versions beside
+Dispatch: on CUDA tensors :func:`gather_counts_multi` and
+:func:`scatter_add` launch their kernels; on CPU tensors they run the plain versions beside
 them.  No path falls back from one to the other.
 """
 
@@ -84,33 +84,49 @@ def _check_tables(tables, counter_bits, tablesize):
                                        counter_bits))
 
 
-def gather_counts(tables, h1, h2, counter_bits, tablesize):
-    """Min-over-tables count of each (h1, h2) pair: uint8 [N].
+def gather_counts_multi(samples, h1, h2):
+    """Min-over-tables count of each (h1, h2) pair in each sketch: uint8
+    [S, N].
 
-    ``tables`` [T, W] uint8 in the persistent layout; ``h1``/``h2`` [N]
-    int32 holding uint32 bits, on the tables' device.  A CUDA tensor
-    launches K2, a CPU tensor runs :func:`gather_counts_plain`."""
-    _check_tables(tables, counter_bits, tablesize)
+    ``samples`` are ``(tables, counter_bits, tablesize)`` triples, tables
+    [T, W] uint8 in the persistent layout; ``h1``/``h2`` [N] int32 holding
+    uint32 bits, on the tables' device.  CUDA tensors launch K2 once for
+    all sketches, CPU tensors run :func:`gather_counts_multi_plain`."""
+    if not samples:
+        raise ValueError('no sketch to gather from')
     for name, x in (('h1', h1), ('h2', h2)):
         if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
             raise ValueError('{} must be a contiguous 1-D int32 tensor'
                              .format(name))
-        if x.device != tables.device:
-            raise ValueError('{} is on {}, tables on {}'.format(
-                name, x.device, tables.device))
-    if h1.shape != h2.shape:
-        raise ValueError('h1 and h2 differ in shape')
-    kind = tables.device.type
+    if h1.shape != h2.shape or h1.device != h2.device:
+        raise ValueError('h1 and h2 differ in shape or device')
+    for tables, counter_bits, tablesize in samples:
+        _check_tables(tables, counter_bits, tablesize)
+        if tables.device != h1.device:
+            raise ValueError('h1 is on {}, tables on {}'.format(
+                h1.device, tables.device))
+    kind = h1.device.type
     if kind == 'cuda':
-        return kmer_cuda.gather_counts_cuda(tables, h1, h2, counter_bits,
-                                            tablesize)
+        return kmer_cuda.gather_counts_cuda(samples, h1, h2)
     if kind == 'cpu':
-        return gather_counts_plain(tables, h1, h2, counter_bits, tablesize)
-    raise ValueError('no gather engine for device ' + str(tables.device))
+        return gather_counts_multi_plain(samples, h1, h2)
+    raise ValueError('no gather engine for device ' + str(h1.device))
+
+
+def gather_counts(tables, h1, h2, counter_bits, tablesize):
+    """:func:`gather_counts_multi` of one sketch: uint8 [N]."""
+    return gather_counts_multi([(tables, counter_bits, tablesize)], h1,
+                               h2)[0]
+
+
+def gather_counts_multi_plain(samples, h1, h2):
+    """Plain PyTorch version of the K2 kernel, on any device."""
+    return torch.stack([gather_counts_plain(tables, h1, h2, bits, tablesize)
+                        for tables, bits, tablesize in samples])
 
 
 def gather_counts_plain(tables, h1, h2, counter_bits, tablesize):
-    """Plain PyTorch version of the K2 kernel, on any device."""
+    """One sketch of :func:`gather_counts_multi_plain`: uint8 [N]."""
     a = hashing.to_u32(h1)
     b = hashing.to_u32(h2)
     counts = None
@@ -190,9 +206,10 @@ class Accumulator:
         return pack_rows(sat, self.counter_bits)
 
 
-def consume_packed(accumulator, packed, badmask, L, ksize, numbands=None, band=None, mask=None, mask_threshold=0,
-                   consume_masked=False):
-    """Count every k-mer of a wire-format batch into ``accumulator``.
+def consume_codes(accumulator, codes, ksize, numbands=None, band=None,
+                  mask=None, mask_threshold=0, consume_masked=False):
+    """Count every k-mer of a batch of base codes (uint8 [N, L], >= 4
+    invalid) into ``accumulator``.
 
     Banding keeps k-mers whose primary hash falls in the band, ``h1 &
     (numbands-1) == band`` (0-based band).  ``mask`` is ``(tables,
@@ -200,7 +217,7 @@ def consume_packed(accumulator, packed, badmask, L, ksize, numbands=None, band=N
     whose mask count is ``<= mask_threshold`` are kept, or ``>=`` with
     ``consume_masked``.
     """
-    h1, h2, valid = hashing.kmer_hashes_packed(packed, badmask, L, ksize)
+    h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
     h1, h2, valid = h1.reshape(-1), h2.reshape(-1), valid.reshape(-1) != 0
     a = hashing.to_u32(h1)
     b = hashing.to_u32(h2)

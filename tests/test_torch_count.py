@@ -212,3 +212,37 @@ def test_fpr_bailout_raises(inputs, tmp_path):
         sketch.load_sketchfiles([path], maxfpr=1e-9, device='cpu')
     with pytest.raises(sketch.KevlarSketchTypeError):
         sketch.load(str(tmp_path / 'full.txt'), device='cpu')
+
+
+@pytest.mark.parametrize('batch_size', [5, 16])
+def test_native_base_batches_match_jax(tmp_path, batch_size):
+    """The count's reader path (one reused parse buffer, no names, batches
+    written into the caller's arrays) yields the batches of
+    ``kevlar_tpu.batch.native_base_batches``: reads that shorten and
+    lengthen from batch to batch, N bases, a record chunked with overlap,
+    a ragged last batch."""
+    from kevlar_tpu import batch as jax_batch
+    from kevlar_tpu_torch import batch
+    rng = random.Random(batch_size)
+    lens = [rng.choice([40, 150, 151, 200, 90]) for _ in range(37)] + [2500]
+    path = str(tmp_path / 'reads.fa')
+    with open(path, 'w') as fh:
+        for i, n in enumerate(lens):
+            fh.write('>r{}\n{}\n'.format(i, ''.join(
+                rng.choice('ACGTN') for _ in range(n))))
+    handed = []
+
+    def alloc(shape):
+        handed.append(np.zeros(shape, np.uint8))
+        return handed[-1]
+
+    mine = list(batch.native_base_batches(path, batch_size, overlap=30,
+                                          alloc=alloc))
+    plain = list(batch.native_base_batches(path, batch_size, overlap=30))
+    want = list(jax_batch.native_base_batches(path, batch_size, overlap=30))
+    assert len(mine) == len(plain) == len(want) >= 3
+    for k, ((b1, l1), (b2, l2), (b3, l3)) in enumerate(zip(mine, plain,
+                                                           want)):
+        assert b1 is handed[k]
+        assert np.array_equal(b1, b3) and np.array_equal(b2, b3)
+        assert np.array_equal(l1, l3) and np.array_equal(l2, l3)

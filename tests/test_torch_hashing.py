@@ -44,13 +44,16 @@ def _wire(bases, device='cpu'):
 
 @pytest.mark.parametrize('ksize', KSIZES)
 def test_kmer_hashes_packed_matches_jax(ksize):
+    """The wire format of ``kevlar_tpu`` unpacked by the port, then the
+    codes entry, against JAX's unpack and hashing."""
     from kevlar_tpu import dna as jax_dna
     from kevlar_tpu.ops import hashing as jax_hashing
     rng = np.random.default_rng(ksize)
     L = 157                              # not a multiple of 4 or 8
     bases = _bases(rng, 9, L)
     packed, badmask = _wire(bases)
-    h1, h2, valid = hashing.kmer_hashes_packed(packed, badmask, L, ksize)
+    h1, h2, valid = hashing.kmer_hashes_codes(
+        hashing.unpack_bases(packed, badmask, L), ksize)
     assert h1.dtype == h2.dtype == torch.int32 and valid.dtype == torch.uint8
     assert h1.shape == (9, L - ksize + 1)
     j1, j2, jv = jax_hashing.kmer_hashes(
@@ -63,6 +66,123 @@ def test_kmer_hashes_packed_matches_jax(ksize):
     assert np.array_equal(valid.numpy().astype(bool), np.asarray(jv))
     assert np.array_equal(valid.numpy().astype(bool), dv)
     assert 0 < int(valid.sum()) < valid.numel()
+
+
+CODE_CASES = [(k, L) for k in (21, 31, 32, 33, 51)
+              for L in (31, 37, 150, 1024) if L >= k]
+
+
+@pytest.mark.parametrize('ksize,L', CODE_CASES)
+def test_kmer_hashes_codes_matches_jax(ksize, L):
+    """The codes entry on the reader's base codes (N bases as code 4, a
+    short read, an all-padding row) against JAX, at every window."""
+    from kevlar_tpu.ops import hashing as jax_hashing
+    rng = np.random.default_rng(1000 * ksize + L)
+    bases = _bases(rng, 7, L, nfrac=0.02)
+    bases[3] = 4                         # a padding row
+    bases[4, 0] = 4                      # N inside the first window
+    bases[5, -1] = 4                     # N in the last window only
+    h1, h2, valid = hashing.kmer_hashes_codes(torch.from_numpy(bases), ksize)
+    assert h1.dtype == h2.dtype == torch.int32 and valid.dtype == torch.uint8
+    assert h1.shape == h2.shape == valid.shape == (7, L - ksize + 1)
+    j1, j2, jv = jax_hashing.kmer_hashes(bases, ksize)
+    assert np.array_equal(h1.numpy().view(np.uint32), np.asarray(j1))
+    assert np.array_equal(h2.numpy().view(np.uint32), np.asarray(j2))
+    assert np.array_equal(valid.numpy().astype(bool), np.asarray(jv))
+    assert not valid[3].any() and not valid[4, 0] and not valid[5, -1]
+
+
+def _rolled(row, ksize):
+    """K1's algorithm in Python integers: the first window of ``row``
+    built base by base, every later one rolled from its predecessor with
+    :func:`kmer_cuda.roll_constants`; (c_hi, c_lo, valid) per window."""
+    M = 1 << 32
+    out_hi, out_lo, m1k, m2k, m1km1, m2km1, m1inv, m2inv = \
+        kmer_cuda.roll_constants(ksize)
+    m1, m2 = dna.POLY_M1, dna.POLY_M2
+    hi_len = max(0, ksize - 16)
+    poly = ksize > 32
+    w = [int(x) for x in row]
+    c = [3 - min(x, 3) for x in w]
+    f_lo = f_hi = r_lo = r_hi = r = 0
+    last_bad = -1
+    for i in range(ksize):
+        if w[i] >= 4:
+            last_bad = i
+        if poly:
+            f_lo = (f_lo * m1 + w[i]) % M
+            f_hi = (f_hi * m2 + w[i]) % M
+            r_lo = (r_lo + c[i] * pow(m1, i, M)) % M
+            r_hi = (r_hi + c[i] * pow(m2, i, M)) % M
+        else:
+            if i < hi_len:
+                f_hi = (f_hi * 4 + w[i]) % M
+            else:
+                f_lo = (f_lo * 4 + w[i]) % M
+            r |= c[i] << (2 * i)
+    out = []
+    for j in range(len(w) - ksize + 1):
+        if j:
+            w_out, w_in = w[j - 1], w[j + ksize - 1]
+            if w_in >= 4:
+                last_bad = j + ksize - 1
+            if poly:
+                f_lo = (f_lo * m1 + w_in - w_out * m1k) % M
+                f_hi = (f_hi * m2 + w_in - w_out * m2k) % M
+                r_lo = ((r_lo - c[j - 1]) * m1inv +
+                        c[j + ksize - 1] * m1km1) % M
+                r_hi = ((r_hi - c[j - 1]) * m2inv +
+                        c[j + ksize - 1] * m2km1) % M
+            else:
+                w_mid = w[j - 1 + hi_len]
+                f_hi = (f_hi * 4 + w_mid - w_out * out_hi) % M
+                f_lo = (f_lo * 4 + w_in - w_mid * out_lo) % M
+                r = (r >> 2) | (c[j + ksize - 1] << (2 * (ksize - 1)))
+        rl, rh = (r_lo, r_hi) if poly else (r % M, r >> 32)
+        use_f = (f_hi, f_lo) <= (rh, rl)
+        out.append((f_hi, f_lo, last_bad < j) if use_f else
+                   (rh, rl, last_bad < j))
+    return out
+
+
+@pytest.mark.parametrize('ksize', [1, 5, 15, 16, 17, 21, 31, 32, 33, 51, 64])
+def test_rolling_update_matches_kmer_codes(ksize):
+    """The rolling update the kernel runs (Horner sums mod 2^32 with the
+    wrapper's constants) gives the codes of the window-by-window definition
+    at every window: bad bases (code 4, spilling into the next digit) and
+    padding included."""
+    rng = np.random.default_rng(ksize)
+    bases = _bases(rng, 3, ksize + 40, nfrac=0.05)
+    c_hi, c_lo, valid = hashing.kmer_codes(torch.from_numpy(bases), ksize)
+    for n in range(3):
+        want = list(zip(c_hi[n].tolist(), c_lo[n].tolist(),
+                        valid[n].tolist()))
+        assert _rolled(bases[n], ksize) == want
+
+
+@pytest.mark.parametrize('tablesize', [
+    1, 2, 3, 7, 1 << 16, 999_983, 124_999_999, 1 << 30, (1 << 30) + 1,
+    (1 << 31) - 2, (1 << 31) - 1])
+def test_mod_magic_reduces_like_modulo(tablesize):
+    """K2's division-free ``x mod tablesize`` (multiply-high by the
+    wrapper's reciprocal, multiply, subtract, one conditional subtract) in
+    Python integers against ``%``, at the edges and at random."""
+    magic = kmer_cuda.mod_magic(tablesize)
+    assert 0 < magic < 1 << 32
+    rng = np.random.default_rng(tablesize % 1000)
+    xs = [0, 1, tablesize - 1, tablesize, tablesize + 1, 2 * tablesize - 1,
+          2 * tablesize, (1 << 31) - 1, 1 << 31, (1 << 32) - 2,
+          (1 << 32) - 1]
+    xs += [(1 << 32) - 1 - (1 << 32) % tablesize]     # largest multiple - 1
+    xs += rng.integers(0, 1 << 32, 20000, dtype=np.uint64).tolist()
+    for x in xs:
+        x = int(x) % (1 << 32)
+        r = x - ((x * magic) >> 32) * tablesize
+        assert 0 <= r < 2 * tablesize and r < 1 << 32
+        assert (r - tablesize if r >= tablesize else r) == x % tablesize
+    for bad in (0, 1 << 31):
+        with pytest.raises(ValueError):
+            kmer_cuda.mod_magic(bad)
 
 
 def test_wire_format_matches_jax():
@@ -154,6 +274,65 @@ def test_gather_counts_matches_jax(bits, tablesize):
     assert len(np.unique(got.numpy())) > 1
 
 
+def _mixed_samples(rng, nsamples, device='cpu'):
+    """Sketches of mixed counter widths and odd, differing table sizes."""
+    specs = [(8, 10_003), (1, 20_011), (4, 9_999)][:nsamples]
+    return [(torch.from_numpy(rng.integers(
+        0, 256, (4, sketch_ops.packed_width(size, bits)),
+        dtype=np.uint8)).to(device), bits, size) for bits, size in specs]
+
+
+@pytest.mark.parametrize('nsamples', [1, 2, 3])
+def test_gather_counts_multi_matches_jax(nsamples):
+    import jax.numpy as jnp
+    from kevlar_tpu.ops import sketch_ops as jax_sketch_ops
+    rng = np.random.default_rng(40 + nsamples)
+    samples = _mixed_samples(rng, nsamples)
+    h1 = rng.integers(0, 2**32, 5000, dtype=np.uint64).astype(np.uint32)
+    h2 = rng.integers(0, 2**32, 5000, dtype=np.uint64).astype(np.uint32)
+    h1[:4] = [0, 1, 2**32 - 1, 2**31]
+    got = sketch_ops.gather_counts_multi(
+        samples, torch.from_numpy(h1.view(np.int32)),
+        torch.from_numpy(h2.view(np.int32)))
+    assert got.dtype == torch.uint8 and got.shape == (nsamples, 5000)
+    for s, (tables, bits, tablesize) in enumerate(samples):
+        want = jax_sketch_ops.gather_counts(
+            jnp.asarray(tables.numpy()), jnp.asarray(h1), jnp.asarray(h2),
+            counter_bits=bits, tablesize=tablesize)
+        assert np.array_equal(got[s].numpy(), np.asarray(want))
+
+
+def test_gather_counts_multi_checks_inputs():
+    rng = np.random.default_rng(2)
+    samples = _mixed_samples(rng, 2)
+    h = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        sketch_ops.gather_counts_multi([], h, h)
+    with pytest.raises(ValueError):
+        sketch_ops.gather_counts_multi(samples, h, h[:3])
+    with pytest.raises(ValueError):
+        sketch_ops.gather_counts_multi(samples, h.long(), h.long())
+    with pytest.raises(ValueError):
+        sketch_ops.gather_counts_multi(
+            samples + [(samples[0][0], 8, 10_005)], h, h)
+    with pytest.raises(ValueError):
+        sketch_ops.gather_counts_multi(
+            [(samples[0][0].to('meta'), 8, 10_003)], h, h)
+
+
+def test_code_stager_on_cpu_hands_out_fresh_shared_buffers():
+    stager = batch.CodeStager('cpu')
+    first = stager.buffer((3, 5))
+    first[:] = 2
+    shipped = stager.ship()
+    assert shipped.dtype == torch.uint8 and shipped.shape == (3, 5)
+    assert shipped.numpy().base is not None and int(shipped.sum()) == 30
+    second = stager.buffer((3, 5))
+    second[:] = 1
+    assert int(shipped.sum()) == 30      # the shipped batch is not reused
+    assert int(stager.ship().sum()) == 15
+
+
 @pytest.mark.parametrize('bits', [1, 4, 8])
 def test_pack_rows_matches_jax_layout(bits):
     from kevlar_tpu import sketch as jax_sketch
@@ -220,18 +399,21 @@ def test_scatter_add_skips_out_of_range_and_checks_inputs():
 
 def test_dispatch_runs_plain_on_cpu_and_refuses_other_devices():
     rng = np.random.default_rng(7)
-    packed, badmask = _wire(_bases(rng, 3, 40))
+    codes = torch.from_numpy(_bases(rng, 3, 40))
     before = dict(kmer_cuda.launches)
-    h1, h2, _ = hashing.kmer_hashes_packed(packed, badmask, 40, 21)
+    h1, h2, _ = hashing.kmer_hashes_codes(codes, 21)
     tables = torch.zeros((4, 7), dtype=torch.uint8)
     sketch_ops.gather_counts(tables, h1[0].contiguous(), h2[0].contiguous(),
                              8, 7)
     assert kmer_cuda.launches == before      # CPU tensors: plain versions
     with pytest.raises(ValueError):
-        hashing.kmer_hashes_packed(packed.to('meta'), badmask.to('meta'),
-                                   40, 21)
+        hashing.kmer_hashes_codes(codes.to('meta'), 21)
     with pytest.raises(ValueError):
-        hashing.kmer_hashes_packed(packed, badmask, 41, 21)
+        hashing.kmer_hashes_codes(codes, 41)
+    with pytest.raises(ValueError):
+        hashing.kmer_hashes_codes(codes.long(), 21)
+    with pytest.raises(ValueError):
+        hashing.kmer_hashes_codes(codes[:, ::2], 21)
     with pytest.raises(ValueError):
         sketch_ops.gather_counts(tables, h1[0].contiguous(),
                                  h2[0].contiguous(), 4, 7)
@@ -245,13 +427,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('ksize', KSIZES)
-def test_kmer_kernel_matches_plain_on_card(cuda_device, ksize):
-    rng = np.random.default_rng(ksize)
-    L = 253
-    packed, badmask = _wire(_bases(rng, 513, L), cuda_device)
-    got = kmer_cuda.kmer_hashes_cuda(packed, badmask, L, ksize)
-    want = hashing.kmer_hashes_packed_plain(packed, badmask, L, ksize)
+@pytest.mark.parametrize('ksize', [15, 21, 31, 32, 33, 51])
+@pytest.mark.parametrize('L', [61, 253, 1024])
+def test_kmer_kernel_matches_plain_on_card(cuda_device, ksize, L):
+    rng = np.random.default_rng(ksize + L)
+    bases = _bases(rng, 513, L)
+    bases[7] = 4
+    # a view whose rows do not start on 16-byte boundaries
+    codes = torch.from_numpy(np.concatenate(
+        [np.zeros((1, L), np.uint8), bases])).to(cuda_device)[1:]
+    got = kmer_cuda.kmer_hashes_cuda(codes, ksize)
+    want = hashing.kmer_hashes_plain(codes, ksize)
     for mine, ref in zip(got, want):
         assert torch.equal(mine, ref)
 
@@ -267,9 +453,27 @@ def test_gather_kernel_matches_plain_on_card(cuda_device, bits, tablesize):
     h = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 70_001),
                                       dtype=np.int64).astype(np.int32))
     h = h.to(cuda_device)
-    got = kmer_cuda.gather_counts_cuda(tables, h[0], h[1], bits, tablesize)
+    got = kmer_cuda.gather_counts_cuda([(tables, bits, tablesize)], h[0],
+                                       h[1])
     want = sketch_ops.gather_counts_plain(tables, h[0], h[1], bits,
                                           tablesize)
+    assert torch.equal(got[0], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nsamples', [2, 3, 5, 9])
+def test_gather_kernel_multi_matches_plain_on_card(cuda_device, nsamples):
+    """Mixed counter widths, more samples than one launch takes, and a
+    sketch of three tables (the kernel's general instance)."""
+    rng = np.random.default_rng(nsamples)
+    samples = (_mixed_samples(rng, 3, cuda_device) * 3)[:nsamples]
+    if nsamples == 5:
+        samples[1] = (samples[1][0][:3].contiguous(),) + samples[1][1:]
+    h = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 70_001),
+                                      dtype=np.int64).astype(np.int32))
+    h = h.to(cuda_device)
+    got = kmer_cuda.gather_counts_cuda(samples, h[0], h[1])
+    want = sketch_ops.gather_counts_multi_plain(samples, h[0], h[1])
     assert torch.equal(got, want)
 
 
