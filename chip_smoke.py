@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        # needs one CUDA GPU; about 10 minutes
     python3 chip_smoke.py --compare-parent DIR
-                                 # K1/K2 and a helium sample count of this
-                                 # tree against an older checkout in DIR
+                                 # the aligner, the consume step and a
+                                 # helium sample count of this tree against
+                                 # an older checkout in DIR
     python3 chip_smoke.py --profile-workflow
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
@@ -18,17 +19,20 @@ Phases (any failure raises, and the script exits non-zero):
    print the seconds each took;
 3. kernel: the ksw_extz kernel against its plain PyTorch version on the
    card, on seeded pairs at the call stage's shapes (targets 100-2,000 bp,
-   queries 100-1,000 bp, a few 10,000 bp targets, one pair whose wavefront
-   state needs global memory, N bases, tandem-repeat ties) under gap
-   penalties (5,0), (5,2) and (3,1): scores, op streams and exit cells must
-   be identical (tolerance 0: the DP is integer arithmetic);
+   queries 100-1,000 bp, a few 10,000 bp targets, queries of every strip
+   width and wider than one pass of the kernel, one pair whose pass edges
+   need global memory, N bases, tandem-repeat ties) under gap penalties
+   (5,0), (5,2) and (3,1) and under scores wider than a byte: scores, op
+   streams and exit cells must be identical (tolerance 0: the DP is
+   integer arithmetic); the DP and the traceback kernels are timed apart;
 4. alac slice: :func:`make_alac_case` writes a bigsim-scale input (80 Mb
    reference, 1,500 de novo loci in the bigsim class mix, 150 bp reads at
    15x from the alt haplotype, one ``kvcc=`` partition per locus); the seed
    index is built apart (timed), then ``kevlar_tpu_torch.cli.main(['alac',
    ..., '--device', 'cuda'])`` runs the slice.  Every pair the run aligned
    is aligned again with the plain version on the card (results must be
-   identical, and both are timed), the kernel's launch count over the run
+   identical, and both are timed, the kernel's DP and traceback apart),
+   the kernel's launch count over the run
    must be positive, and the VCF is scored against the truth: recall below
    0.90 fails;
 5. count kernels: K1 (k-mer hashing of base codes) at k = 15, 21, 31, 32,
@@ -36,18 +40,23 @@ Phases (any failure raises, and the script exits non-zero):
    multiple of 4, 8 or 16, rows of 1,024 bases and rows that start off a
    16-byte boundary; K2 (count gather) with 1, 3 and 9 sketches in a call,
    at 1, 4 and 8 bits, uniform and mixed, at odd and edge table sizes (1,
-   2, 2^31 - 1) and with a three-table sketch; and K3 (scatter-add) with
-   heavy duplicates and negative indices; each against its plain PyTorch
-   version on the card (tolerance 0: integer arithmetic), then timed
-   against it at the helium run's shapes;
+   2, 2^31 - 1) and with a three-table sketch; and K3 (scatter-add), from
+   indices with heavy duplicates and negative indices, and from hashes
+   (the consume) with a band, a mask in both senses, duplicates, odd and
+   edge table sizes, three tables, unaligned views and the 2 GB
+   accumulator of a sample count; each against its plain PyTorch version
+   on the card (tolerance 0: integer arithmetic), then timed against it at
+   the helium run's shapes;
 6. count -> novel slice: :func:`make_trio_case` writes the helium trio
    (the reference's quick-start: 25 Mb genome, 30x trio of 150 bp reads
    with 0.5% errors, 20 inherited and 5 de novo variants), and the trio
    workflow's first steps run through ``kevlar_tpu_torch.cli.main`` with
    ``--device cuda``: the reference mask (1-bit, 50M), the reference count
    (4-bit, 50M), the masked 8-bit counts of the three samples (500M each)
-   and the novel screen (``--case-min 5 --ctrl-max 1``).  Every count
-   kernel's launch count over that run must be positive; the mask, refr and
+   and the novel screen (``--case-min 5 --ctrl-max 1``).  K1, K2 and K3's
+   consume must each launch during that run (K3's entry from indices is
+   driven apart, through a device sketch's ``consume_hashes``, and held to
+   the consume kernel's tables); the mask, refr and
    proband tables and the novel text must equal those of the same commands
    run with the plain versions on the card; and each de novo locus must
    have a novel read whose annotated k-mer spans it.  Stage walls, reads
@@ -67,14 +76,16 @@ Phases (any failure raises, and the script exits non-zero):
 9. the trio workflow: ``kevlar_tpu_torch.workflow.run_mark1`` on phase 6's
    helium trio with the helium configuration of
    tools/sim_trio_bench.py (seed index built beforehand, timed apart).  K1,
-   K2, K3 and B1 must each launch during the run, every checkpoint must
+   K2, K3's consume and B1 must each launch during the run, every
+   checkpoint must
    exist, the four de novo SNVs must be PASS calls at their positions, and
    no PASS call may lie more than 10 bp from a de novo locus.  Whether the
    300 bp insertion was called, the stage walls, the peak RSS and the read
    and call counts of each stage are printed.
 
-The last two lines of standard output are the kernels record (JSON: B1
-and K1-K4, each with its launches on its slice's run, max_abs_err, ms,
+The last two lines of standard output are the kernels record (JSON: B1,
+K1, K2, K3's two entries and K4, each with its launches on its path's run,
+max_abs_err, ms,
 plain_ms, its bound on this run's inputs (``bound_ms``, ``bound_by``: the
 larger of bytes over ``HBM_BYTES_PER_S`` and operations over
 ``OPS_PER_S``) and ``library_ms``, the time of one PyTorch call computing
@@ -579,6 +590,39 @@ def _timed(fn, *args, reps=1, spin=False, **kw):
     return out, start.elapsed_time(stop) / reps
 
 
+def _align_times(fn, batches, reps):
+    """[whole call (host clock, synchronised), DP kernel, traceback kernel]
+    ms of the ksw_extz wrapper ``fn`` summed over ``batches`` of (encoded
+    batch, scoring arguments), one entry per repetition; the kernels by
+    the CUDA events the wrapper records around each."""
+    import torch
+    times = []
+    for _ in range(reps):
+        marks = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for batch, args in batches:
+            marks.append([torch.cuda.Event(enable_timing=True)
+                          for _ in range(3)])
+            fn(*batch, events=marks[-1], **args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+        times.append((wall,
+                      sum(e[0].elapsed_time(e[1]) for e in marks),
+                      sum(e[1].elapsed_time(e[2]) for e in marks)))
+    return times
+
+
+def _timed_align(batch, reps=3, **kw):
+    """(result, ms, dp_ms, traceback_ms) of the ksw_extz kernel wrapper on
+    an encoded batch: means of ``reps`` calls after one warm-up call."""
+    from kevlar_tpu_torch.ops import align_cuda
+    out = align_cuda.ksw_extz_cuda(*batch, **kw)
+    times = _align_times(align_cuda.ksw_extz_cuda, [(batch, kw)], reps)
+    return (out,) + tuple(float(np.mean([t[k] for t in times]))
+                          for k in range(3))
+
+
 def _bound(nbytes, nops):
     """(bound_ms, bound_by): the least time the card could take to move
     ``nbytes`` and do ``nops`` operations."""
@@ -622,32 +666,53 @@ def phase_kernel(device):
     batch = _encode(pairs, device)
     for gapopen, gapextend in ((5, 0), (5, 2), (3, 1)):
         kw = dict(gapopen=gapopen, gapextend=gapextend)
-        got, ms = _timed(align_cuda.ksw_extz_cuda, *batch, reps=5, **kw)
+        got, ms, dp_ms, tb_ms = _timed_align(batch, reps=5, **kw)
         t0 = time.time()
         ref = align_cuda.ksw_extz_plain(*batch, **kw)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.time() - t0)
         err = max(err, _compare(got, ref, 'pairs gap {}'.format(kw)))
         print('[smoke] kernel vs plain: {} pairs (T<={}, Q<={}) gap {}: '
-              'identical; kernel {:.3f} ms, plain {:.1f} ms'.format(
+              'identical; kernel {:.3f} ms (DP {:.3f} ms, traceback {:.3f} '
+              'ms), plain {:.1f} ms'.format(
                   len(pairs), batch[0].shape[1], batch[2].shape[1], kw, ms,
-                  plain_ms), flush=True)
+                  dp_ms, tb_ms, plain_ms), flush=True)
+    # scores too wide for the kernel's byte lookup: its comparing cell
+    wide_scores = dict(match=3, mismatch=300, gapopen=260, gapextend=1)
+    got = align_cuda.ksw_extz_cuda(*batch, **wide_scores)
+    ref = align_cuda.ksw_extz_plain(*batch, **wide_scores)
+    err = max(err, _compare(got, ref, 'pairs, scores {}'.format(wide_scores)))
     long_batch = _encode(_long_pairs(rng), device)
     for kw in (dict(gapopen=5, gapextend=0), dict(gapopen=3, gapextend=1)):
         got = align_cuda.ksw_extz_cuda(*long_batch, **kw)
         ref = align_cuda.ksw_extz_plain(*long_batch, **kw)
         err = max(err, _compare(got, ref, 'long pairs gap {}'.format(kw)))
-    # wavefront state beyond shared memory: the global-scratch path
+    # queries wider than one pass of the kernel, the pass's right edge
+    # parked in shared memory; and strips of every width (qlen 3 .. 1,070)
     t = _BASES[rng.integers(0, 4, 12000)].tobytes().decode()
+    wide = [(t[:1500], t[:700] + t[9000:11000] + t[700:1500]),
+            (t[2000:2600], t[3000:5600])]
+    wide += [(t[q:q + 300], t[q + 20:q + 20 + q]) for q in range(3, 1100, 97)]
+    wide = _encode(wide, device)
+    if wide[2].shape[1] <= align_cuda.PASS_COLUMNS or \
+            8 * wide[0].shape[1] > align_cuda.SMEM_LIMIT_BYTES:
+        raise AssertionError('the wide pairs do not take the shared-memory '
+                             'edge path')
+    for kw in (dict(gapopen=5, gapextend=0), dict(gapopen=5, gapextend=2)):
+        got = align_cuda.ksw_extz_cuda(*wide, **kw)
+        ref = align_cuda.ksw_extz_plain(*wide, **kw)
+        err = max(err, _compare(got, ref, 'wide pairs gap {}'.format(kw)))
+    # the same beyond shared memory: the global-scratch path
     big = _encode([(t, t[500:6000] + t[6100:9600])], device)
-    if 4 * (3 * (big[0].shape[1] + big[2].shape[1]) - 1) <= \
-            align_cuda.SMEM_LIMIT_BYTES:
+    if big[2].shape[1] <= align_cuda.PASS_COLUMNS or \
+            8 * big[0].shape[1] <= align_cuda.SMEM_LIMIT_BYTES:
         raise AssertionError('global-scratch case fits shared memory')
     got = align_cuda.ksw_extz_cuda(*big, gapopen=5, gapextend=2)
     ref = align_cuda.ksw_extz_plain(*big, gapopen=5, gapextend=2)
     err = max(err, _compare(got, ref, 'global-scratch pair'))
-    print('[smoke] kernel vs plain: 10,000 bp targets in shared memory, a '
-          '12,000 x 9,000 pair in global memory: identical', flush=True)
+    print('[smoke] kernel vs plain: 10,000 bp targets, queries of 3 to 2,800 '
+          'bp (every strip width; passes parked in shared memory), a 12,000 '
+          'x 9,000 pair parked in global memory: identical', flush=True)
     # truncated random pairs, and tie pairs cut around their repeat
     small = [(t[:120], q[:100]) for t, q in pairs[:4]] + \
         [(t[130:200], q[130:195]) for t, q in pairs[-4:]]
@@ -848,43 +913,134 @@ def phase_kmer_kernels(device):
                                for r in idx])
         err = max(err, _max_diff(got.cpu(), torch.from_numpy(ref.astype(
             np.int32)), 'K3 C={} vs bincount'.format(C)))
+    # K3 from hashes (the count path's entry): a band, a mask in both
+    # senses, a k-mer repeated 50,000 times, odd and edge tablesizes, three
+    # tables, a count of k-mers that is no multiple of 4, views that start
+    # off the 16-byte grid
+    cerr = 0
+    n = 1_000_003
+    h1, h2 = _random_hashes(rng, n + 1, device)
+    h1[5000:55_000] = h1[5000]
+    h2[5000:55_000] = h2[5000]
+    valid = torch.from_numpy((rng.random(n + 1) < 0.9).astype(np.uint8)).to(
+        device)
+    mcnt = torch.from_numpy(rng.integers(0, 3, n + 1).astype(np.uint8)).to(
+        device)
+    cases = [('all', 4, 999_999, {}),
+             ('band 3/8', 4, 999_999, dict(numbands=8, band=3)),
+             ('mask <= 0', 4, 1001, dict(mcnt=mcnt, mask_threshold=0)),
+             ('mask >= 1', 4, 124_999, dict(mcnt=mcnt, mask_threshold=1,
+                                            consume_masked=True)),
+             ('band and mask', 4, 2, dict(mcnt=mcnt, mask_threshold=1,
+                                          numbands=2, band=1)),
+             ('three tables', 3, 77_777, {}), ('tablesize 1', 4, 1, {})]
+    for label, T, C, kw in cases:
+        for lo in (0, 1):                # lo = 1: unaligned views
+            args = [x[lo:lo + n] for x in (h1, h2, valid)]
+            if 'mcnt' in kw:
+                kw = dict(kw, mcnt=mcnt[lo:lo + n])
+            acc0 = torch.from_numpy(rng.integers(0, 100, (T, C)).astype(
+                np.int32)).to(device)
+            got = kmer_cuda.consume_cuda(acc0.clone(), *args, **kw)
+            want = sketch_ops.consume_hashes_plain(acc0.clone(), *args, **kw)
+            cerr = max(cerr, _max_diff(got, want, 'K3 consume ' + label))
+    del h1, h2, valid, mcnt, cases
+
     # the proband count's launch: 2 GB accumulator, 32,768 reads x 130
     # windows, 15% of them kept by the mask
     C = 124_999_999
     acc = torch.zeros((4, C), dtype=torch.int32, device=device)
     n = 32768 * 130
-    idx = rng.integers(0, C, (4, n)).astype(np.int32)
-    idx[:, rng.random(n) >= 0.15] = -1
-    idx = torch.from_numpy(idx).to(device)
+    h1, h2 = _random_hashes(rng, n, device)
+    valid = torch.from_numpy((rng.random(n) < 0.995).astype(np.uint8)).to(
+        device)
+    mcnt = torch.from_numpy((rng.random(n) >= 0.15).astype(np.uint8)).to(
+        device)
+    mask_kw = dict(mcnt=mcnt, mask_threshold=0)
+    got = kmer_cuda.consume_cuda(acc.clone(), h1, h2, valid, **mask_kw)
+    want = sketch_ops.consume_hashes_plain(acc.clone(), h1, h2, valid,
+                                           **mask_kw)
+    cerr = max(cerr, _max_diff(got, want, 'K3 consume, 2 GB accumulator'))
+    nkept = int(got.sum()) // 4
+    del got, want
+    _, cms = _timed(kmer_cuda.consume_cuda, acc, h1, h2, valid, reps=20,
+                    spin=True, **mask_kw)
+    _, cplain_ms = _timed(sketch_ops.consume_hashes_plain, acc, h1, h2,
+                          valid, reps=5, **mask_kw)
+    # h1, h2, valid and the mask count read once; a kept k-mer's update in
+    # each table reads and writes its sector
+    cbound_ms, cbound_by = _bound(n * 10 + nkept * 4 * 2 * SECTOR,
+                                  n * 6 + nkept * 4 * K2_OPS_PER_PROBE)
+    out['K3 consume'] = dict(
+        err=cerr, ms=cms, plain_ms=cplain_ms, bound_ms=cbound_ms,
+        bound_by=cbound_by, library_ms=None,
+        shape='4,259,840 hashed k-mers (15% kept), 4 x 124,999,999 int32')
+    print('[smoke] K3 consume (from hashes): identical to plain (band, mask '
+          '<= and >=, 50,000 duplicates, tablesizes 1, 2, 1,001, 999,999, '
+          'three tables, unaligned views, 2 GB accumulator); {}: kernel '
+          '{:.4f} ms ({:.1f} G updates/s), plain (index glue + index_add_ '
+          'per table) {:.3f} ms, bound {:.4f} ms by {}'.format(
+              out['K3 consume']['shape'], cms, 4 * nkept / cms / 1e6,
+              cplain_ms, cbound_ms, cbound_by), flush=True)
+
+    # K3 from indices at the same shape: the indices the consume computes
+    a, b = hashing.to_u32(h1), hashing.to_u32(h2)
+    idx = torch.stack([hashing.table_index(a, b, t, C) for t in range(4)])
+    idx = torch.where((valid != 0) & (mcnt <= 0), idx, -1).to(torch.int32)
+    del a, b, h1, h2, valid, mcnt
     _, ms = _timed(kmer_cuda.scatter_add_cuda, acc, idx, reps=20, spin=True)
     _, plain_ms = _timed(sketch_ops.scatter_add_plain, acc, idx, reps=5)
     # one library call for the same function: index_add_ on the flat
     # accumulator, its kept flat indices prepared outside the timing
     kept = idx >= 0
-    nkept = int(kept.sum())
+    if int(kept.sum()) != 4 * nkept:
+        raise AssertionError('the two K3 entries were given different work')
     flat = (idx.long() + torch.arange(4, device=device)[:, None] * C)[kept]
     ones = torch.ones_like(flat, dtype=torch.int32)
     _, library_ms = _timed(acc.view(-1).index_add_, 0, flat, ones, reps=5,
                            spin=True)
     del flat, ones, kept
     # every index read once; a kept update reads and writes its sector
-    bound_ms, bound_by = _bound(idx.numel() * 4 + nkept * 2 * SECTOR, nkept)
+    bound_ms, bound_by = _bound(idx.numel() * 4 + 4 * nkept * 2 * SECTOR,
+                                4 * nkept)
     out['K3'] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms,
                      shape='4 x 4,259,840 indices (15% kept), 4 x '
                      '124,999,999 int32')
-    print('[smoke] K3 scatter_add: identical to plain and bincount '
-          '(duplicates, negative indices); {} kernel {:.3f} ms, plain '
-          '{:.3f} ms, one index_add_ {:.3f} ms, bound {:.4f} ms by {}'
+    print('[smoke] K3 scatter_add (from indices): identical to plain and '
+          'bincount (duplicates, negative indices); {} kernel {:.4f} ms, '
+          'plain {:.3f} ms, one index_add_ {:.4f} ms, bound {:.4f} ms by {}'
           .format(out['K3']['shape'], ms, plain_ms, library_ms, bound_ms,
                   bound_by), flush=True)
+    print('[smoke] random read-modify-write yardstick: {:,} updates of a 2 '
+          'GB accumulator: index_add_ {:.1f} G/s, kt_scatter_add {:.1f} G/s, '
+          'kt_consume {:.1f} G/s'.format(
+              4 * nkept, 4 * nkept / library_ms / 1e6,
+              4 * nkept / ms / 1e6, 4 * nkept / cms / 1e6), flush=True)
     return out
 
 
-# integer operations per DP cell in csrc/align.cu's inner loop: indices 3,
-# the diagonal's source 3, E and F 3 each, the substitution score 5, the
-# maxima and direction code 5, the continuation bits 7, the stores' address 1
+# integer operations per DP cell in csrc/align.cu's inner loop: the query
+# code 1, the substitution score 5, the diagonal 1, E and F 1 each, the
+# maxima and direction code 6, H - gapoe, E - gape and F - gape 3, the
+# continuation bits 6, packing the code 2, a cell's share of the step's
+# shuffles, loads, stores and loop 4
 B1_OPS_PER_CELL = 30
+
+
+def _alac_batches(seen, device):
+    """Every chunk the recorded ``align_batch`` calls of an alac run were
+    dispatched in: (row indices, encoded batch on ``device``, scoring
+    arguments, the call's results)."""
+    from kevlar_tpu_torch.ops import align_cuda
+    for targets, queries, kw, out in seen:
+        tl = np.array([len(s) for s in targets])
+        ql = np.array([len(s) for s in queries])
+        args = dict(match=kw['match'], mismatch=kw['mismatch'],
+                    gapopen=kw['gapopen'], gapextend=kw['gapextend'])
+        for idx in align_cuda._chunks(tl, ql, align_cuda.ZDIAG_BUDGET_BYTES):
+            batch = _encode([(targets[k], queries[k]) for k in idx], device)
+            yield idx, batch, args, out
 
 
 def phase_slice(device, workdir):
@@ -940,7 +1096,7 @@ def phase_slice(device, workdir):
               alac_s, walls[-1], npairs, npairs // 2, launches), flush=True)
 
     # every pair again: kernel and plain version, chunk by chunk
-    err, ms, plain_ms = 0, 0.0, 0.0
+    err, ms, dp_ms, tb_ms, plain_ms = 0, 0.0, 0.0, 0.0, 0.0
     cells = moved = 0
     for targets, queries, kw, out in seen:
         tl = np.array([len(s) for s in targets])
@@ -949,31 +1105,29 @@ def phase_slice(device, workdir):
         # out a score, two exit cells and tlen + qlen ops per pair
         cells += int((tl * ql).sum())
         moved += int((tl * ql).sum() + 2 * (tl + ql).sum() + 12 * len(tl))
-        for idx in align_cuda._chunks(tl, ql,
-                                      align_cuda.ZDIAG_BUDGET_BYTES):
-            batch = _encode([(targets[k], queries[k]) for k in idx], device)
-            args = dict(match=kw['match'], mismatch=kw['mismatch'],
-                        gapopen=kw['gapopen'], gapextend=kw['gapextend'])
-            got, kms = _timed(align_cuda.ksw_extz_cuda, *batch, reps=3,
-                              **args)
-            torch.cuda.synchronize()
-            t1 = time.time()
-            ref = align_cuda.ksw_extz_plain(*batch, **args)
-            torch.cuda.synchronize()
-            plain_ms += 1e3 * (time.time() - t1)
-            ms += kms
-            err = max(err, _compare(got, ref, 'alac chunk'))
-            scores, ops_rev, exit_i, exit_j = (x.cpu().numpy() for x in ref)
-            cigars = align_cuda._cigars_from_ops_batch(ops_rev, exit_i,
-                                                       exit_j)
-            for k, cigar, score in zip(idx, cigars, scores.tolist()):
-                if out[k] != (cigar, score):
-                    raise AssertionError(
-                        'alac row {}: kernel gave {}, plain version '
-                        '{}'.format(k, out[k], (cigar, score)))
+    for idx, batch, args, out in _alac_batches(seen, device):
+        got, kms, kdp, ktb = _timed_align(batch, reps=3, **args)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ref = align_cuda.ksw_extz_plain(*batch, **args)
+        torch.cuda.synchronize()
+        plain_ms += 1e3 * (time.time() - t1)
+        ms, dp_ms, tb_ms = ms + kms, dp_ms + kdp, tb_ms + ktb
+        err = max(err, _compare(got, ref, 'alac chunk'))
+        scores, ops_rev, exit_i, exit_j = (x.cpu().numpy() for x in ref)
+        cigars = align_cuda._cigars_from_ops_batch(ops_rev, exit_i, exit_j)
+        for k, cigar, score in zip(idx, cigars, scores.tolist()):
+            if out[k] != (cigar, score):
+                raise AssertionError(
+                    'alac row {}: kernel gave {}, plain version {}'.format(
+                        k, out[k], (cigar, score)))
     print('[smoke] plain re-alignment of all {} rows: identical; kernel '
-          '{:.2f} ms, plain {:.1f} ms ({:.0f} rows/s by the kernel)'.format(
-              npairs, ms, plain_ms, npairs / (ms / 1e3)), flush=True)
+          '{:.3f} ms by the host clock (DP kernel {:.3f} ms, traceback '
+          'kernel {:.3f} ms; the rest is the wrapper laying out and '
+          'allocating the direction buffer), plain {:.1f} ms ({:.0f} rows/s '
+          'by the kernel)'.format(
+              npairs, ms, dp_ms, tb_ms, plain_ms, npairs / (ms / 1e3)),
+          flush=True)
 
     from kevlar_tpu_torch import seqio
     genome = seqio.parse_seq_dict(kevlar_tpu_torch.open(refr, 'r'))['chr1']
@@ -995,8 +1149,9 @@ def phase_slice(device, workdir):
           '(bases, a direction byte per cell, ops out): {:.4f} ms by {}'
           .format(cells, B1_OPS_PER_CELL, moved, bound_ms, bound_by),
           flush=True)
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, reads=reads)
+    return dict(launches=launches, err=err, ms=ms, dp_ms=dp_ms, tb_ms=tb_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                reads=reads, rows=seen)
 
 
 def _run_cli(argv, logpath):
@@ -1088,6 +1243,50 @@ def _producer_split(fastq, device):
     return parse_s, time.time() - t0
 
 
+# the kernels of csrc/kmer.cu that count -> novel must launch; K3's entry
+# from indices is on the path of a device sketch's consume_hashes instead
+COUNT_PATH_KERNELS = ('kmer_hashes', 'gather_counts', 'consume')
+
+
+def _recount_path(device, workdir, reads):
+    """The path of K3's entry from indices: the hashes of the proband's
+    first 32,768 reads (host arrays, as the filter's recount holds them)
+    counted into a device sketch of the samples' size through
+    ``Sketch.consume_hashes``.  The tables must equal those of the same
+    reads' codes counted through the consume kernel.  Returns the launches
+    of ``scatter_add`` over the path, which must be positive."""
+    import torch
+    from kevlar_tpu_torch import dna, sketch
+    from kevlar_tpu_torch.batch import native_base_batches
+    from kevlar_tpu_torch.ops import kmer_cuda, sketch_ops
+    bases, _ = next(native_base_batches(reads['proband'], 32768,
+                                        overlap=KSIZE - 1))
+    h1, h2, valid = dna.kmer_hashes(bases, KSIZE)
+    tablesize = 124_999_999
+    counts = sketch.Sketch(KSIZE, tablesize, 4, device=device)
+    kmer_cuda.launches['scatter_add'] = 0
+    t0 = time.time()
+    counted = counts.consume_hashes(h1, h2, valid)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = kmer_cuda.launches['scatter_add']
+    if launches <= 0:
+        raise AssertionError('the device recount launched no scatter_add '
+                             'kernel')
+    acc = sketch_ops.Accumulator(
+        torch.zeros_like(counts.tables), 8, tablesize)
+    sketch_ops.consume_codes(acc, torch.from_numpy(np.ascontiguousarray(
+        bases)).to(device), KSIZE)
+    if not torch.equal(counts.tables, acc.tables()):
+        raise AssertionError('device recount: tables differ from the '
+                             'consume kernel\'s')
+    print('[smoke] device recount (Sketch.consume_hashes, K3 from indices): '
+          '{:,} of {:,} windows counted into 4 x {:,} buckets in {:.2f} s, '
+          '{} launch; tables == those of the consume kernel'.format(
+              counted, valid.size, tablesize, wall, launches), flush=True)
+    return launches
+
+
 def phase_trio(device, workdir):
     """Phase 6: count and novel on the helium trio through the CLI, with
     the kernels and then with their plain versions on the card."""
@@ -1123,17 +1322,17 @@ def phase_trio(device, workdir):
     walls = _trio_stages(device, workdir, refr, reads, '')
     novelpath, walls['novel'] = novel_stage('')
     launches = dict(kmer_cuda.launches)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in COUNT_PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError('the helium run launched no {} kernel'
                                  .format(name))
 
     # the same commands with the plain versions, on the card
     kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
-               kmer_cuda.scatter_add_cuda)
+               kmer_cuda.consume_cuda)
     kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
     kmer_cuda.gather_counts_cuda = sketch_ops.gather_counts_multi_plain
-    kmer_cuda.scatter_add_cuda = sketch_ops.scatter_add_plain
+    kmer_cuda.consume_cuda = sketch_ops.consume_hashes_plain
     try:
         plain_walls = _trio_stages(
             device, workdir, refr, reads, 'plain_', samples=('proband',),
@@ -1141,9 +1340,10 @@ def phase_trio(device, workdir):
         plainpath, plain_walls['novel'] = novel_stage('plain_')
     finally:
         (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
-         kmer_cuda.scatter_add_cuda) = kernels
+         kmer_cuda.consume_cuda) = kernels
     if dict(kmer_cuda.launches) != launches:
         raise AssertionError('the plain run launched a kernel')
+    launches['scatter_add'] = _recount_path(device, workdir, reads)
     for name in ('mask.nt', 'refr.sct', 'proband.ct'):
         with np.load(os.path.join(workdir, name)) as got, \
                 np.load(os.path.join(workdir, 'plain_' + name)) as want:
@@ -1412,8 +1612,7 @@ def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
         _print_busy('profiled workflow', prof, wall)
     launches = dict(kmer_cuda.launches, ksw_extz=align_cuda.launches,
                     cc_labels=cc_cuda.launches['cc_labels'])
-    missing = [name for name in ('kmer_hashes', 'gather_counts',
-                                 'scatter_add', 'ksw_extz')
+    missing = [name for name in COUNT_PATH_KERNELS + ('ksw_extz',)
                if launches[name] <= 0]
     if missing:
         raise AssertionError('the workflow launched no {} kernel'.format(
@@ -1485,97 +1684,249 @@ def _spread(times):
         float(np.median(times)), min(times), max(times))
 
 
-def _parent_kmer_lib(parent, builddir):
-    """The older tree's ``csrc/kmer.cu`` built apart and bound with the
-    signatures it had: K1 over the 2-bit wire format, K2 one sketch a
-    launch."""
+# Appended to the older tree's align.cu, inside its translation unit, so
+# that its two kernels can be launched and timed apart.
+_PARENT_ALIGN_SHIM = r'''
+extern "C" int kt_parent_dp(const void* targets, const void* tlens, int T,
+                            const void* queries, const void* qlens, int Q,
+                            int B, const void* zoff, void* z, void* scores,
+                            void* gscratch, int smem_bytes, int match,
+                            int mismatch, int gapopen, int gapextend,
+                            void* stream)
+{
+    const int b = mismatch < 0 ? mismatch : -mismatch;
+    const int shared = gscratch ? 0 : smem_bytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        ksw_extz_dp, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+    ksw_extz_dp<<<B, kDpThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(targets),
+        static_cast<const int32_t*>(tlens), T,
+        static_cast<const uint8_t*>(queries),
+        static_cast<const int32_t*>(qlens), Q,
+        static_cast<const int64_t*>(zoff), static_cast<uint8_t*>(z),
+        static_cast<int32_t*>(scores), static_cast<int32_t*>(gscratch),
+        match, b, gapopen + gapextend, gapextend);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int kt_parent_traceback(const void* tlens, const void* qlens,
+                                   int B, const void* zoff, const void* z,
+                                   void* ops_rev, int S, void* exit_i,
+                                   void* exit_j, void* stream)
+{
+    ksw_extz_traceback<<<(B + kTbThreads - 1) / kTbThreads, kTbThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(tlens),
+        static_cast<const int32_t*>(qlens),
+        static_cast<const int64_t*>(zoff), static_cast<const uint8_t*>(z),
+        B, S, static_cast<uint8_t*>(ops_rev),
+        static_cast<int32_t*>(exit_i), static_cast<int32_t*>(exit_j));
+    return (int)cudaGetLastError();
+}
+'''
+
+
+def _parent_libs(parent, builddir):
+    """The older tree's ``csrc/align.cu`` and ``csrc/kmer.cu`` built apart
+    and bound with the signatures they had: a block per pair with the
+    wavefront in shared memory and one direction byte per cell in row-major
+    order (its DP and traceback kernels reached through a shim appended to
+    the source), and ``kt_scatter_add`` over given indices."""
     import ctypes
     from kevlar_tpu_torch import native
-    lib = os.path.join(builddir, 'libkevlar_kmer_parent.so')
-    subprocess.run(
-        [native.nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-         '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o', lib,
-         os.path.join(parent, 'kevlar_tpu_torch', 'csrc', 'kmer.cu')],
-        check=True)
-    lib = ctypes.CDLL(lib)
+    csrc = os.path.join(parent, 'kevlar_tpu_torch', 'csrc')
+    shimmed = os.path.join(builddir, 'align_parent.cu')
+    with open(os.path.join(csrc, 'align.cu')) as fh, \
+            open(shimmed, 'w') as out:
+        out.write(fh.read() + _PARENT_ALIGN_SHIM)
+    libs = []
+    for name, source in (('align', shimmed),
+                         ('kmer', os.path.join(csrc, 'kmer.cu'))):
+        lib = os.path.join(builddir, 'libkevlar_{}_parent.so'.format(name))
+        subprocess.run(
+            [native.nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+             '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o',
+             lib, source], check=True)
+        libs.append(ctypes.CDLL(lib))
+    align, kmer = libs
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.kt_kmer_hashes.restype = ci
-    lib.kt_kmer_hashes.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp, vp, vp, vp]
-    lib.kt_gather_counts.restype = ci
-    lib.kt_gather_counts.argtypes = [vp, ci, cl, cl, ci, vp, vp, cl, vp, vp]
-    return lib
+    align.kt_parent_dp.restype = ci
+    align.kt_parent_dp.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
+                                   vp, ci, ci, ci, ci, ci, vp]
+    align.kt_parent_traceback.restype = ci
+    align.kt_parent_traceback.argtypes = [vp, vp, ci, vp, vp, vp, ci, vp, vp,
+                                          vp]
+    kmer.kt_scatter_add.restype = ci
+    kmer.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
+    return align, kmer
 
 
-def compare_kernels(parent, device, workdir, reps=30):
-    """K1 and K2 of the older tree and of this one at the helium run's
-    shapes, in turns (old, new, new, old) on the same inputs: results must
-    be identical; prints the median and range of ``2 x reps`` launches."""
+def _parent_ksw_extz(lib, targets, tlens, queries, qlens, events=None,
+                     match=1, mismatch=2, gapopen=5, gapextend=0):
+    """The older tree's ``ksw_extz_cuda``: row-major direction bytes,
+    wavefront state in dynamic shared memory (global scratch beyond 227
+    KB)."""
     import torch
-    from kevlar_tpu_torch.batch import pack_bases
-    from kevlar_tpu_torch.ops import kmer_cuda
-    old = _parent_kmer_lib(parent, workdir)
-    rng = np.random.default_rng(SEED + 11)
+    dev = targets.device
+    B, T = targets.shape
+    Q = queries.shape[1]
+    S = T + Q
+    zlen = tlens.to(torch.int64) * qlens.to(torch.int64)
+    zoff = torch.cumsum(zlen, 0) - zlen
+    z = torch.empty(max(int(zlen.sum()), 1), dtype=torch.uint8, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    ops_rev = torch.empty((B, S), dtype=torch.uint8, device=dev)
+    exit_i = torch.empty(B, dtype=torch.int32, device=dev)
+    exit_j = torch.empty(B, dtype=torch.int32, device=dev)
+    state_words = 3 * (T + Q) - 1
+    smem_bytes = 4 * state_words
+    gscratch = None
+    if smem_bytes > 232448:
+        gscratch = torch.empty(B * state_words, dtype=torch.int32,
+                               device=dev)
+        smem_bytes = 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if events is not None:
+        events[0].record()
+    err = lib.kt_parent_dp(
+        targets.data_ptr(), tlens.data_ptr(), T, queries.data_ptr(),
+        qlens.data_ptr(), Q, B, zoff.data_ptr(), z.data_ptr(),
+        scores.data_ptr(), None if gscratch is None else gscratch.data_ptr(),
+        smem_bytes, match, mismatch, gapopen, gapextend, stream)
+    if events is not None:
+        events[1].record()
+    err = err or lib.kt_parent_traceback(
+        tlens.data_ptr(), qlens.data_ptr(), B, zoff.data_ptr(), z.data_ptr(),
+        ops_rev.data_ptr(), S, exit_i.data_ptr(), exit_j.data_ptr(), stream)
+    if events is not None:
+        events[2].record()
+    if err:
+        raise RuntimeError('parent ksw_extz: CUDA error {}'.format(err))
+    return scores, ops_rev, exit_i, exit_j
+
+
+def compare_align(old, device, workdir, reps=5):
+    """B1 of the older tree and of this one on every alignment row of the
+    bigsim alac run (phase 4's input, through the CLI), in turns (old, new,
+    new, old): results must be identical; prints the median and range of
+    ``2 x reps`` runs of the whole wrapper call, the DP kernel and the
+    traceback kernel."""
+    import functools
+    from kevlar_tpu_torch.ops import align_cuda
+    run = phase_slice(device, workdir)
+    batches = [(batch, args)
+               for _, batch, args, _ in _alac_batches(run['rows'], device)]
+    old_fn = functools.partial(_parent_ksw_extz, old)
+    for batch, args in batches:
+        _compare(align_cuda.ksw_extz_cuda(*batch, **args),
+                 old_fn(*batch, **args), 'B1 new vs old')
+    times = [_align_times(fn, batches, reps)
+             for fn in (old_fn, align_cuda.ksw_extz_cuda,
+                        align_cuda.ksw_extz_cuda, old_fn)]
+    nrows = sum(b[0].shape[0] for b, _ in batches)
+    for k, part in enumerate(('wrapper call (host clock, synchronised)',
+                              'DP kernel', 'traceback kernel')):
+        print('[compare] B1 {:,} alac rows in {} chunks, {}: old {}; new {}; '
+              'bound {:.4f} ms by {}'.format(
+                  nrows, len(batches), part,
+                  _spread([t[k] for t in times[0] + times[3]]),
+                  _spread([t[k] for t in times[1] + times[2]]),
+                  run['bound_ms'], run['bound_by']), flush=True)
+
+
+def _parent_consume_step(old, acc, h1, h2, valid, mcnt, mask_threshold):
+    """The older tree's consume after K1 and K2: its torch glue (two
+    widenings to int64, the predicates, four bucket indices, a stack, a
+    where and a cast to the int32 index tensor), then its
+    ``kt_scatter_add``."""
+    import torch
+    from kevlar_tpu_torch.ops import hashing
+    keep = valid != 0
+    a = hashing.to_u32(h1)
+    b = hashing.to_u32(h2)
+    keep = keep & (mcnt <= mask_threshold)
+    tablesize = acc.shape[1]
+    idx = torch.stack([hashing.table_index(a, b, t, tablesize)
+                       for t in range(acc.shape[0])])
+    idx = torch.where(keep, idx, -1).to(torch.int32)
+    err = old.kt_scatter_add(acc.data_ptr(), tablesize, idx.data_ptr(),
+                             idx.shape[0], idx.shape[1],
+                             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError('parent kt_scatter_add: CUDA error {}'.format(err))
+    return acc
+
+
+def compare_consume(old, device, reps=30):
+    """The consume step (K1's and K2's outputs to the updated 2 GB
+    accumulator) of the older tree and of this one at the proband count's
+    shape, and the two trees' ``kt_scatter_add`` over the same indices, in
+    turns (old, new, new, old): results must be identical; prints the
+    median and range of ``2 x reps`` runs."""
+    import torch
+    from kevlar_tpu_torch.ops import hashing, kmer_cuda
+    rng = np.random.default_rng(SEED + 13)
+    C = 124_999_999
+    n = 32768 * 130
+    h1, h2 = _random_hashes(rng, n, device)
+    valid = torch.from_numpy((rng.random(n) < 0.995).astype(np.uint8)).to(
+        device)
+    mcnt = torch.from_numpy((rng.random(n) >= 0.15).astype(np.uint8)).to(
+        device)
+    acc = torch.zeros((4, C), dtype=torch.int32, device=device)
+
+    def old_step():
+        return _parent_consume_step(old, acc, h1, h2, valid, mcnt, 0)
+
+    def new_step():
+        return kmer_cuda.consume_cuda(acc, h1, h2, valid, mcnt=mcnt,
+                                      mask_threshold=0)
+
+    want = old_step().clone()
+    acc.zero_()
+    _max_diff(new_step(), want, 'consume step new vs old')
+    nkept = int(want.sum()) // 4
+    del want
+    times = [_launch_times(fn, reps)
+             for fn in (old_step, new_step, new_step, old_step)]
+    print('[compare] consume step, {:,} hashed k-mers ({:,} kept) into 4 x '
+          '{:,} int32: old (torch glue + kt_scatter_add) {}; new (kt_consume) '
+          '{}; bound {:.4f} ms'.format(
+              n, nkept, C, _spread(times[0] + times[3]),
+              _spread(times[1] + times[2]),
+              _bound(n * 10 + nkept * 4 * 2 * SECTOR, 0)[0]), flush=True)
+
+    a, b = hashing.to_u32(h1), hashing.to_u32(h2)
+    idx = torch.stack([hashing.table_index(a, b, t, C) for t in range(4)])
+    idx = torch.where((valid != 0) & (mcnt <= 0), idx, -1).to(torch.int32)
+    del a, b
     stream = torch.cuda.current_stream().cuda_stream
 
-    for nrows in (32768, DEFAULT_SCREEN_READS):
-        bases = _read_bases(rng, nrows, 160, 150)
-        codes = torch.from_numpy(bases).to(device)
-        packed, badmask = (torch.from_numpy(x).to(device)
-                           for x in pack_bases(bases))
-        P = 160 - KSIZE + 1
-        outs = [torch.empty((nrows, P), dtype=dt, device=device)
-                for dt in (torch.int32, torch.int32, torch.uint8)]
+    def old_scatter():
+        if old.kt_scatter_add(acc.data_ptr(), C, idx.data_ptr(), 4, n,
+                              stream):
+            raise RuntimeError('parent kt_scatter_add failed')
 
-        def old_k1():
-            err = old.kt_kmer_hashes(
-                packed.data_ptr(), badmask.data_ptr(), nrows,
-                packed.shape[1], badmask.shape[1], P, KSIZE,
-                *(x.data_ptr() for x in outs), stream)
-            if err:
-                raise RuntimeError('parent kt_kmer_hashes: CUDA error {}'
-                                   .format(err))
+    def new_scatter():
+        return kmer_cuda.scatter_add_cuda(acc, idx)
 
-        def new_k1():
-            return kmer_cuda.kmer_hashes_cuda(codes, KSIZE)
+    flat = (idx.long() + torch.arange(4, device=device)[:, None] * C)[
+        idx >= 0]
+    ones = torch.ones_like(flat, dtype=torch.int32)
 
-        old_k1()
-        for got, want in zip(new_k1(), outs):
-            _max_diff(got, want, 'K1 new vs old')
-        times = [_launch_times(fn, reps)
-                 for fn in (old_k1, new_k1, new_k1, old_k1)]
-        print('[compare] K1 {:,} x 160, k=31: old {}; new {}; bound {:.4f} '
-              'ms'.format(nrows, _spread(times[0] + times[3]),
-                          _spread(times[1] + times[2]),
-                          _k1_bound(nrows, 160, KSIZE)[0]), flush=True)
+    def library():
+        return acc.view(-1).index_add_(0, flat, ones)
 
-    samples = [_random_sketch(rng, 8, 124_999_999, device) for _ in range(3)]
-    for n in (DEFAULT_SCREEN_READS * 130, 32768 * 130):
-        h1, h2 = _random_hashes(rng, n, device)
-        out = torch.empty((3, n), dtype=torch.uint8, device=device)
-        for S in (1, 3):
-            def old_k2():
-                for s, (tables, bits, tablesize) in enumerate(samples[:S]):
-                    err = old.kt_gather_counts(
-                        tables.data_ptr(), 4, tables.shape[1], tablesize,
-                        bits, h1.data_ptr(), h2.data_ptr(), n,
-                        out[s].data_ptr(), stream)
-                    if err:
-                        raise RuntimeError('parent kt_gather_counts: CUDA '
-                                           'error {}'.format(err))
-
-            def new_k2():
-                return kmer_cuda.gather_counts_cuda(samples[:S], h1, h2)
-
-            old_k2()
-            _max_diff(new_k2(), out[:S], 'K2 new vs old')
-            times = [_launch_times(fn, reps)
-                     for fn in (old_k2, new_k2, new_k2, old_k2)]
-            print('[compare] K2 {:,} k-mers x {} sketches of 4 x 124,999,999 '
-                  '8-bit: old ({} launches) {}; new (1 launch) {}; bound '
-                  '{:.4f} ms'.format(n, S, S, _spread(times[0] + times[3]),
-                                     _spread(times[1] + times[2]),
-                                     _k2_bound(samples[:S], n)[0]),
-                  flush=True)
+    times = [_launch_times(fn, reps)
+             for fn in (old_scatter, new_scatter, library, library,
+                        new_scatter, old_scatter)]
+    print('[compare] kt_scatter_add, 4 x {:,} indices ({:,} kept): old {}; '
+          'new {}; one index_add_ {}; bound {:.4f} ms'.format(
+              n, nkept, _spread(times[0] + times[5]),
+              _spread(times[1] + times[4]), _spread(times[2] + times[3]),
+              _bound(idx.numel() * 4 + 4 * nkept * 2 * SECTOR, 0)[0]),
+          flush=True)
 
 
 def _cli_count(tree, argv, logpath):
@@ -1595,9 +1946,6 @@ def compare_counts(parent, device, workdir):
     """The helium proband's masked count through the CLI of the older tree
     and of this one, each run a process of its own, in the order parent,
     change, change, parent; then the producer's share in both."""
-    import torch
-    from kevlar_tpu_torch.batch import native_base_batches, pack_bases
-    from kevlar_tpu_torch.count import COUNT_BATCH_READS
     here = os.path.dirname(os.path.abspath(__file__))
     refr, reads, _ = make_trio_case(workdir)
     base = ['-k', str(KSIZE), '--device', device]
@@ -1630,17 +1978,9 @@ def compare_counts(parent, device, workdir):
         raise AssertionError('the trees\' proband tables differ')
     print('[compare] the four runs\' tables are identical', flush=True)
 
-    parse_s, staged_s = _producer_split(reads['proband'], device)
-    t0 = time.time()
-    for bases, _ in native_base_batches(reads['proband'], COUNT_BATCH_READS,
-                                        overlap=KSIZE - 1):
-        for x in pack_bases(bases):
-            torch.from_numpy(x).to(device)
-    torch.cuda.synchronize()
     print('[compare] producer alone over the proband: reader {:.2f} s; '
-          'change (reader into pinned memory + copies) {:.2f} s; parent '
-          '(reader + 2-bit packing + copies) {:.2f} s'.format(
-              parse_s, staged_s, time.time() - t0), flush=True)
+          'reader into pinned memory + copies {:.2f} s'.format(
+              *_producer_split(reads['proband'], device)), flush=True)
 
 
 def profile_workflow():
@@ -1665,7 +2005,10 @@ def compare_parent(parent):
     print(_nvidia_smi(), flush=True)
     build_all()
     with tempfile.TemporaryDirectory() as workdir:
-        compare_kernels(parent, 'cuda', workdir)
+        old_align, old_kmer = _parent_libs(parent, workdir)
+        compare_consume(old_kmer, 'cuda')
+        compare_align(old_align, 'cuda', workdir)
+    with tempfile.TemporaryDirectory() as workdir:
         compare_counts(parent, 'cuda', workdir)
     return 0
 
@@ -1731,7 +2074,8 @@ def main():
         'source': 'kevlar_tpu_torch/csrc/align.cu',
         'replaces': 'kevlar_tpu/ops/align_pallas.py:204',
         'launches': run['launches'], 'max_abs_err': max(err, run['err']),
-        'ms': run['ms'], 'plain_ms': run['plain_ms'],
+        'ms': run['ms'], 'dp_ms': run['dp_ms'],
+        'traceback_ms': run['tb_ms'], 'plain_ms': run['plain_ms'],
         'bound_ms': run['bound_ms'], 'bound_by': run['bound_by'],
         'library_ms': None}]
     for key, name, counter, replaces in (
@@ -1739,8 +2083,11 @@ def main():
              'kmer_hashes', 'kevlar_tpu/ops/hashing.py:82'),
             ('K2', 'gather_counts (Count-Min min over tables, all samples)',
              'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60'),
-            ('K3', 'scatter_add (per-table int32 bincount)', 'scatter_add',
-             'tools/scatter_probe.py:76')):
+            ('K3 consume', 'consume (Count-Min scatter-add from hashes: '
+             'predicates, bucket indices, atomic adds)', 'consume',
+             'tools/scatter_probe.py:76'),
+            ('K3', 'scatter_add (per-table int32 bincount from indices)',
+             'scatter_add', 'tools/scatter_probe.py:76')):
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'kevlar_tpu_torch/csrc/kmer.cu', 'replaces': replaces,

@@ -1,5 +1,6 @@
 // Count-Min sketch kernels for Hopper (sm_90a): k-mer hashing (K1), the
-// min-over-tables count gather (K2) and the per-table scatter-add (K3).
+// min-over-tables count gather (K2) and the scatter-add into the consume's
+// accumulator (K3: kt_consume from hashes, kt_scatter_add from indices).
 //
 // K1 kt_kmer_hashes replaces the XLA program of
 //   kevlar_tpu/ops/hashing.py :: kmer_codes + hash_pair
@@ -24,15 +25,27 @@
 //   through the read-only path without allocating in L1, and only then
 //   takes the minima.  Bound by bytes: a random byte of a table far larger
 //   than L2 costs its 32-byte DRAM sector.
-// K3 kt_scatter_add replaces
+// K3 kt_consume and kt_scatter_add replace
 //   tools/scatter_probe.py :: pallas_scatter_add (B10, the pl.pallas_call at
-//   :76), the core of sketch_ops._scatter_hashes_i32.
-//   acc[t, idx[t, n]] += 1 for every idx >= 0 (and < C), one thread per
-//   (t, n), as a global 32-bit atomicAdd.  The TPU kernel walked the index
-//   stream sequentially against a VMEM-resident table; here every update is
-//   an independent atomic, and integer adds commute, so the result is exact
-//   in any order.  Bound by random 4-byte atomics into an accumulator
-//   (2 GB for a 500 MB sketch) that L2 cannot hold.
+//   :76), the core of sketch_ops._scatter_hashes_i32, and kt_consume also
+//   the XLA glue around it in sketch_ops.consume_batch_stack (validity, band
+//   and mask predicates, the per-table bucket indices).
+//   The TPU kernel walked the index stream sequentially against a
+//   VMEM-resident table; here every update is an independent 32-bit atomic
+//   add, and integer adds commute, so the result is exact in any order.
+//   What bounds it: the accumulator (2 GB for a 500 MB sketch) is far
+//   beyond L2, so each kept update is a read-modify-write of a random
+//   32-byte sector, and the card's rate of those is the wall; a bound by
+//   bytes (a sector in, a sector out at the streaming rate) is ~3x below
+//   what random sectors cost.  What the design does about it: nothing is
+//   spent around the atomics.  kt_consume reads K1's h1, h2 and valid (and
+//   K2's mask counts) four k-mers a thread with 16-byte loads, decides
+//   keep in registers (valid, band, mask), reduces with mod_by (no
+//   division) and sends all of a kept k-mer's adds back to back as
+//   fire-and-forget reductions (RED, no return value), so that they are
+//   in flight together: no index tensor, no 64-bit arithmetic, one launch.
+//   kt_scatter_add takes given indices (what B10 computes): a 2-D grid
+//   gives the table from blockIdx.y, without a division.
 //
 // Plain C entry points (bound with ctypes): each launches on the given
 // stream and returns the cudaError_t of the launch (0 = success); no entry
@@ -353,15 +366,102 @@ __global__ void gather_counts_any_kernel(
 
 // ------------------------------------------------------------------- K3
 
+// acc[t, idx[t, n]] += 1 where 0 <= idx < C; the table is blockIdx.y.
 __global__ void scatter_add_kernel(int32_t *__restrict__ acc, int64_t C,
                                    const int32_t *__restrict__ idx,
-                                   int64_t ntables, int64_t n) {
+                                   int64_t n) {
     int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= ntables * n) return;
-    int32_t j = idx[g];
+    if (g >= n) return;
+    int64_t t = blockIdx.y;
+    int32_t j = idx[t * n + g];
     if (j < 0 || j >= C) return;
-    int64_t t = g / n;
-    atomicAdd(acc + t * C + j, 1);
+    atomicAdd(acc + t * C + j, 1);       // result unused: a RED
+}
+
+struct ConsumeArgs {
+    int32_t *acc;             // [ntables, tablesize]
+    const int32_t *h1, *h2;   // [n], uint32 bits
+    const uint8_t *valid;     // [n]
+    const uint8_t *mcnt;      // [n] mask counts, or null
+    int64_t n;
+    uint32_t tablesize, magic;
+    int32_t ntables;
+    uint32_t bandmask, band;  // keep where (h1 & bandmask) == band
+    int32_t threshold;        // mask: keep mcnt <= threshold,
+    int32_t masked;           //       or mcnt >= threshold when masked
+};
+
+__device__ __forceinline__ bool consume_keeps(const ConsumeArgs &a,
+                                              uint32_t h1, uint32_t valid,
+                                              uint32_t mcnt) {
+    bool keep = valid != 0 && (h1 & a.bandmask) == a.band;
+    if (a.mcnt) {
+        keep = keep && (a.masked ? (int)mcnt >= a.threshold
+                                 : (int)mcnt <= a.threshold);
+    }
+    return keep;
+}
+
+// All of one k-mer's adds, indices first: T > 0 unrolls, T == 0 loops over
+// a.ntables.
+template <int T>
+__device__ __forceinline__ void consume_one(const ConsumeArgs &a,
+                                            uint32_t h1, uint32_t h2) {
+    if constexpr (T > 0) {
+        uint32_t idx[T];
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+            idx[t] = mod_by(h1 + (uint32_t)t * h2, a.tablesize, a.magic);
+        }
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+            atomicAdd(a.acc + (int64_t)t * a.tablesize + idx[t], 1);
+        }
+    } else {
+        for (int t = 0; t < a.ntables; ++t) {
+            uint32_t idx = mod_by(h1 + (uint32_t)t * h2, a.tablesize,
+                                  a.magic);
+            atomicAdd(a.acc + (int64_t)t * a.tablesize + idx, 1);
+        }
+    }
+}
+
+// A thread takes four consecutive k-mers.  VEC: h1/h2 are 16-byte aligned
+// and valid/mcnt 4-byte aligned, so a thread's inputs are four loads.
+template <int T, bool VEC>
+__global__ void consume_kernel(const __grid_constant__ ConsumeArgs a) {
+    int64_t g = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    if (g >= a.n) return;
+    uint32_t h1[4], h2[4], valid[4], mcnt[4] = {0, 0, 0, 0};
+    if (VEC && g + 4 <= a.n) {
+        uint4 x = __ldg(reinterpret_cast<const uint4 *>(a.h1 + g));
+        uint4 y = __ldg(reinterpret_cast<const uint4 *>(a.h2 + g));
+        uint32_t v = __ldg(reinterpret_cast<const uint32_t *>(a.valid + g));
+        uint32_t m = a.mcnt
+            ? __ldg(reinterpret_cast<const uint32_t *>(a.mcnt + g)) : 0u;
+        h1[0] = x.x; h1[1] = x.y; h1[2] = x.z; h1[3] = x.w;
+        h2[0] = y.x; h2[1] = y.y; h2[2] = y.z; h2[3] = y.w;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            valid[k] = (v >> (8 * k)) & 0xffu;
+            mcnt[k] = (m >> (8 * k)) & 0xffu;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            bool in = g + k < a.n;
+            h1[k] = in ? (uint32_t)a.h1[g + k] : 0u;
+            h2[k] = in ? (uint32_t)a.h2[g + k] : 0u;
+            valid[k] = in ? a.valid[g + k] : 0u;
+            mcnt[k] = (in && a.mcnt) ? a.mcnt[g + k] : 0u;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if (consume_keeps(a, h1[k], valid[k], mcnt[k])) {
+            consume_one<T>(a, h1[k], h2[k]);
+        }
+    }
 }
 
 inline unsigned blocks_for(int64_t total) {
@@ -467,13 +567,55 @@ int kt_gather_counts(const void *args, int nsamples, const void *h1,
     }
 }
 
+// acc [ntables, C] int32 += 1 at idx [ntables, n] int32 (indices outside
+// [0, C) are skipped).
 int kt_scatter_add(void *acc, int64_t C, const void *idx, int64_t ntables,
                    int64_t n, void *stream) {
-    int64_t total = ntables * n;
-    if (total == 0) return 0;
-    scatter_add_kernel<<<blocks_for(total), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (int32_t *)acc, C, (const int32_t *)idx, ntables, n);
+    if (ntables * n == 0) return 0;
+    if (ntables > 65535) return (int)cudaErrorInvalidValue;
+    dim3 grid(blocks_for(n), (unsigned)ntables);
+    scatter_add_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (int32_t *)acc, C, (const int32_t *)idx, n);
+    return (int)cudaGetLastError();
+}
+
+// The consume of n hashed k-mers into acc [ntables, tablesize] int32:
+// every k-mer with valid != 0, (h1 & bandmask) == band and, where mcnt is
+// not null, mcnt <= threshold (or >= threshold with `masked`) adds 1 at
+// (h1 + t * h2) mod 2^32 mod tablesize of every table t.  `magic` is
+// floor(2^32 / tablesize) as for kt_gather_counts.
+int kt_consume(void *acc, int64_t tablesize, uint32_t magic, int ntables,
+               const void *h1, const void *h2, const void *valid,
+               const void *mcnt, int64_t n, uint32_t bandmask, uint32_t band,
+               int threshold, int masked, void *stream) {
+    if (n == 0 || ntables == 0) return 0;
+    if (tablesize < 1 || tablesize >= (int64_t)1 << 31)
+        return (int)cudaErrorInvalidValue;
+    ConsumeArgs a;
+    a.acc = (int32_t *)acc;
+    a.h1 = (const int32_t *)h1;
+    a.h2 = (const int32_t *)h2;
+    a.valid = (const uint8_t *)valid;
+    a.mcnt = (const uint8_t *)mcnt;
+    a.n = n;
+    a.tablesize = (uint32_t)tablesize;
+    a.magic = magic;
+    a.ntables = ntables;
+    a.bandmask = bandmask;
+    a.band = band;
+    a.threshold = threshold;
+    a.masked = masked;
+    bool vec = (((uintptr_t)h1 | (uintptr_t)h2) & 15) == 0 &&
+               (((uintptr_t)valid | (uintptr_t)mcnt) & 3) == 0;
+    unsigned blocks = blocks_for((n + 3) / 4);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (ntables == 4) {
+        if (vec) consume_kernel<4, true><<<blocks, kThreads, 0, st>>>(a);
+        else consume_kernel<4, false><<<blocks, kThreads, 0, st>>>(a);
+    } else {
+        if (vec) consume_kernel<0, true><<<blocks, kThreads, 0, st>>>(a);
+        else consume_kernel<0, false><<<blocks, kThreads, 0, st>>>(a);
+    }
     return (int)cudaGetLastError();
 }
 

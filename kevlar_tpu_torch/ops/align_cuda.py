@@ -1,5 +1,5 @@
-"""Batched ksw2 ``ksw_extz`` alignment: a Hopper CUDA kernel and its plain
-PyTorch version.
+"""Batched ksw2 ``ksw_extz`` alignment: a Hopper CUDA kernel pair (DP and
+traceback) and their plain PyTorch version.
 
 Counterpart of ``kevlar_tpu/ops/align_pallas.py`` (the Pallas kernel) and
 ``kevlar_tpu/ops/align_ops.py`` (its XLA twin).  Three layers:
@@ -42,12 +42,20 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 # 4 GiB on an 80 GB card, where the JAX twin kept 512 MB of TPU HBM.
 ZDIAG_BUDGET_BYTES = 4 << 30
 
-# Dynamic shared memory a Hopper block may opt into (227 KB); a chunk whose
-# wavefront state is larger keeps it in global memory instead.
-SMEM_LIMIT_BYTES = 232448
+# Shared memory a block takes without opting in (48 KB).  The kernel parks
+# two int32 per target row between the passes of a query wider than
+# ``PASS_COLUMNS``; a chunk whose longest target needs more than this keeps
+# them in global memory instead.
+SMEM_LIMIT_BYTES = 49152
 
-# Kernel launches (one per ksw_extz_cuda call), for runs that must show the
-# main path went through the kernel.
+# The kernel's schedule: a warp per pair, lane l on a strip of
+# ``strip_width(qlen)`` query columns, ``LANES`` strips a pass.
+LANES = 32
+MAX_STRIP = 32
+PASS_COLUMNS = LANES * MAX_STRIP
+
+# Kernel launches (one per ksw_extz_cuda call: the DP and its traceback),
+# for runs that must show the main path went through the kernel.
 launches = 0
 
 _lib = None
@@ -67,10 +75,13 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.kt_ksw_extz.restype = ci
-        lib.kt_ksw_extz.argtypes = [
-            vp, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, ci,
-            ci, ci, ci, ci, vp]
+        lib.kt_ksw_dp.restype = ci
+        lib.kt_ksw_dp.argtypes = [
+            vp, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+            vp]
+        lib.kt_ksw_traceback.restype = ci
+        lib.kt_ksw_traceback.argtypes = [
+            vp, vp, ci, vp, vp, vp, ci, vp, vp, vp]
         lib.kt_cuda_error_string.restype = ctypes.c_char_p
         lib.kt_cuda_error_string.argtypes = [ci]
         _lib = lib
@@ -124,46 +135,102 @@ def ksw_extz(targets, tlens, queries, qlens, match=1, mismatch=2, gapopen=5,
                           gapopen, gapextend)
 
 
+def strip_width(qlen):
+    """Query columns a lane's strip holds in the kernel: the least multiple
+    of 4 with which ``LANES`` strips cover ``qlen``, at most ``MAX_STRIP``
+    (a wider query takes passes of ``PASS_COLUMNS`` columns).  ``qlen`` is
+    an int, or an integer numpy array for a whole batch."""
+    return np.clip(4 * ((qlen + 127) // 128), 4, MAX_STRIP)
+
+
+def z_bytes(tlen, qlen):
+    """Bytes of direction codes the kernel keeps for a pair (ints or a
+    batch's int64 numpy arrays): ``tlen + 31`` steps a pass, ``LANES``
+    strips of ``strip_width(qlen)`` bytes a step; 0 for an empty pair."""
+    C = strip_width(qlen)
+    npass = (qlen + LANES * C - 1) // (LANES * C)
+    nbytes = npass * (tlen + LANES - 1) * LANES * C
+    return np.where((tlen > 0) & (qlen > 0), nbytes, 0)
+
+
+def z_word_index(tlen, qlen, i, j):
+    """Where the kernel keeps the direction code of cell (i, j): ``(index
+    of the 32-bit word in the pair's region, byte within the word)``.
+
+    Column j lies in pass ``p = j // (LANES * C)``, in the strip of lane
+    ``l``, at offset ``c`` of it; the lane computes row i at step ``s = i +
+    l`` of the pass.  A pass is ``tlen + 31`` steps of ``C/4`` planes of
+    ``LANES`` words: at a step, lane l's codes of columns ``4w .. 4w+3`` of
+    its strip are word ``(s * C/4 + w) * LANES + l``, so that the warp's
+    store of one plane is 128 consecutive bytes."""
+    C = int(strip_width(qlen))
+    W = C // 4
+    p, jj = divmod(j, LANES * C)
+    lane, c = divmod(jj, C)
+    s = i + lane
+    word = (p * (tlen + LANES - 1) + s) * W * LANES + (c // 4) * LANES + lane
+    return word, c % 4
+
+
 def ksw_extz_cuda(targets, tlens, queries, qlens, match=1, mismatch=2,
-                  gapopen=5, gapextend=0):
-    """Launch ``csrc/align.cu`` on the current stream; raises on a CUDA
-    error.  Arguments as :func:`ksw_extz`, already checked."""
+                  gapopen=5, gapextend=0, events=None):
+    """Launch ``csrc/align.cu`` on the current stream: the DP kernel, then
+    the traceback kernel; raises on a CUDA error.  Arguments as
+    :func:`ksw_extz`, already checked.  ``events`` are three CUDA events to
+    record before the DP kernel, between the two kernels and after the
+    traceback kernel, for a caller that times them apart."""
     global launches
     lib = _load()
     dev = targets.device
     B, T = targets.shape
     Q = queries.shape[1]
     S = T + Q
-    zlen = tlens.to(torch.int64) * qlens.to(torch.int64)
-    zoff = torch.cumsum(zlen, 0) - zlen
-    z = torch.empty(max(int(zlen.sum()), 1), dtype=torch.uint8, device=dev)
+    # the pairs' regions of the direction buffer, laid out on the host:
+    # one small copy each way instead of a dozen launches and a sync
+    lens = torch.stack([tlens, qlens]).cpu().numpy().astype(np.int64)
+    zlen = z_bytes(lens[0], lens[1])
+    zoff = torch.from_numpy(np.cumsum(zlen) - zlen).to(dev)
+    z = torch.empty(max(int(zlen.sum()), 4), dtype=torch.uint8, device=dev)
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     ops_rev = torch.empty((B, S), dtype=torch.uint8, device=dev)
     exit_i = torch.empty(B, dtype=torch.int32, device=dev)
     exit_j = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return scores, ops_rev, exit_i, exit_j
-    state_words = 3 * (T + Q) - 1
-    smem_bytes = 4 * state_words
+    # edge state between passes, only where a query takes a second pass
+    smem_bytes = 8 * T if Q > PASS_COLUMNS else 0
     gscratch = None
     if smem_bytes > SMEM_LIMIT_BYTES:
-        gscratch = torch.empty(B * state_words, dtype=torch.int32,
-                               device=dev)
+        gscratch = torch.empty(B * 2 * T, dtype=torch.int32, device=dev)
         smem_bytes = 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.kt_ksw_extz(
+        if events is not None:
+            events[0].record()
+        err = lib.kt_ksw_dp(
             targets.data_ptr(), tlens.data_ptr(), T, queries.data_ptr(),
             qlens.data_ptr(), Q, B, zoff.data_ptr(), z.data_ptr(),
-            scores.data_ptr(), ops_rev.data_ptr(), S, exit_i.data_ptr(),
-            exit_j.data_ptr(),
+            scores.data_ptr(),
             None if gscratch is None else gscratch.data_ptr(), smem_bytes,
-            int(match), int(mismatch), int(gapopen), int(gapextend),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError('kt_ksw_extz: CUDA error {}: {}'.format(
-            err, lib.kt_cuda_error_string(err).decode()))
+            int(match), int(mismatch), int(gapopen), int(gapextend), stream)
+        _raise_on(lib, 'kt_ksw_dp', err)
+        if events is not None:
+            events[1].record()
+        err = lib.kt_ksw_traceback(
+            tlens.data_ptr(), qlens.data_ptr(), B, zoff.data_ptr(),
+            z.data_ptr(), ops_rev.data_ptr(), S, exit_i.data_ptr(),
+            exit_j.data_ptr(), stream)
+        _raise_on(lib, 'kt_ksw_traceback', err)
+        if events is not None:
+            events[2].record()
     launches += 1
     return scores, ops_rev, exit_i, exit_j
+
+
+def _raise_on(lib, name, err):
+    if err:
+        raise RuntimeError('{}: CUDA error {}: {}'.format(
+            name, err, lib.kt_cuda_error_string(err).decode()))
 
 
 def ksw_extz_plain(targets, tlens, queries, qlens, match=1, mismatch=2,
@@ -307,16 +374,18 @@ def _cigars_from_ops_batch(ops_np, exit_i_np, exit_j_np):
 def _chunks(tlens, qlens, budget):
     """Index lists that split a batch for dispatch: pairs sorted by target
     length (longest first), a new chunk whenever the target length halves
-    (so short pairs do not pay a long pair's padding and shared memory) or
-    the padded direction tensor [B, T+Q-1, T] would outgrow ``budget``."""
+    (so short pairs do not pay a long pair's padding) or the direction
+    codes would outgrow ``budget``: the plain version's padded [B, T+Q-1,
+    T] tensor, or the kernel's :func:`z_bytes` a pair, whichever is
+    larger."""
     chunk = []
     tmax = qmax = 0
     for k in np.argsort(-tlens, kind='stable'):
         t = max(int(tlens[k]), 1)
         q = max(int(qlens[k]), 1)
         nq = max(qmax, q)
-        if chunk and (2 * t < tmax or
-                      (len(chunk) + 1) * (tmax + nq - 1) * tmax > budget):
+        if chunk and (2 * t < tmax or (len(chunk) + 1) * max(
+                (tmax + nq - 1) * tmax, int(z_bytes(tmax, nq))) > budget):
             yield chunk
             chunk, tmax, nq = [], 0, q
         chunk.append(int(k))

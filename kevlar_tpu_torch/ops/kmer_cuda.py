@@ -1,7 +1,7 @@
 """The count and screen stages' CUDA kernels: build, load and launch.
 
-``csrc/kmer.cu`` holds three kernels for Hopper (nvcc, ``sm_90a``), bound
-with ``ctypes`` through plain C entry points:
+``csrc/kmer.cu`` holds the kernels of the Count-Min sketch for Hopper (nvcc,
+``sm_90a``), bound with ``ctypes`` through plain C entry points:
 
 - **K1** :func:`kmer_hashes_cuda` — canonical k-mer hashing of the reader's
   base codes (one byte a base), a rolling update per window; replaces the
@@ -13,9 +13,14 @@ with ``ctypes`` through plain C entry points:
   per counter; replaces ``kevlar_tpu/ops/sketch_ops.py::gather_counts``
   and ``gather_counts_multi``.  Plain version:
   :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_multi_plain`.
-- **K3** :func:`scatter_add_cuda` — the per-table bincount into a resident
-  int32 accumulator; replaces ``tools/scatter_probe.py::pallas_scatter_add``
-  (the ``pl.pallas_call`` at ``:76``, B10).  Plain version:
+- **K3**, two entries over the same atomic add into a resident int32
+  accumulator; both replace ``tools/scatter_probe.py::pallas_scatter_add``
+  (the ``pl.pallas_call`` at ``:76``, B10).  :func:`consume_cuda` is the
+  count path's kernel: it takes K1's hashes and validity (and K2's mask
+  counts), applies the band and mask predicates and computes the bucket
+  indices itself; plain version
+  :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes_plain`.
+  :func:`scatter_add_cuda` takes given indices, as B10 does; plain version
   :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_plain`.
 
 Each launch function takes tensors its dispatcher has checked, launches on
@@ -38,7 +43,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 
 # Kernel launches by kernel, for runs that must show the main path went
 # through the kernels.
-launches = {'kmer_hashes': 0, 'gather_counts': 0, 'scatter_add': 0}
+launches = {'kmer_hashes': 0, 'gather_counts': 0, 'consume': 0,
+            'scatter_add': 0}
 
 # Sketches one K2 launch serves (``kMaxSamples`` in the source).
 MAX_SAMPLES = 8
@@ -105,6 +111,10 @@ def _load():
         lib.kt_gather_counts.argtypes = [vp, ci, vp, vp, cl, vp, vp]
         lib.kt_scatter_add.restype = ci
         lib.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
+        lib.kt_consume.restype = ci
+        lib.kt_consume.argtypes = [vp, cl, ctypes.c_uint32, ci, vp, vp, vp,
+                                   vp, cl, ctypes.c_uint32, ctypes.c_uint32,
+                                   ci, ci, vp]
         lib.kt_kmer_error_string.restype = ctypes.c_char_p
         lib.kt_kmer_error_string.argtypes = [ci]
         _lib = lib
@@ -179,4 +189,25 @@ def scatter_add_cuda(acc, idx):
             idx.shape[1], torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, 'kt_scatter_add', err)
     launches['scatter_add'] += 1
+    return acc
+
+
+def consume_cuda(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
+                 consume_masked=False, numbands=None, band=None):
+    """K3 from hashes, on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes`): adds in place
+    and returns ``acc``."""
+    lib = _load()
+    dev = acc.device
+    tablesize = acc.shape[1]
+    with torch.cuda.device(dev):
+        err = lib.kt_consume(
+            acc.data_ptr(), tablesize, mod_magic(tablesize), acc.shape[0],
+            h1.data_ptr(), h2.data_ptr(), valid.data_ptr(),
+            None if mcnt is None else mcnt.data_ptr(), h1.numel(),
+            numbands - 1 if numbands else 0, band if numbands else 0,
+            int(mask_threshold), int(bool(consume_masked)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, 'kt_consume', err)
+    launches['consume'] += 1
     return acc

@@ -8,11 +8,15 @@ bit-packed LSB-first in bucket order (bucket i in bits ``[bits*(i % cpb),
 ...)`` of byte ``i // cpb``), the layout ``kevlar_tpu`` saves.  Counters
 saturate at 1, 15 or 255.
 
-A consume (:func:`consume_codes`) hashes a batch of base codes (K1), drops
-k-mers outside the band and, with a mask, those the mask screens out (the
-mask's counts come from K2), computes each table's bucket index in int64,
-and scatter-adds 1 per (table, k-mer) into an int32 accumulator (K3),
-where index -1 means skip.  The :class:`Accumulator` is bucket-ordered
+A consume (:func:`consume_codes`) hashes a batch of base codes (K1), gets
+the mask's counts where there is a mask (K2), and hands hashes, validity
+and mask counts to :func:`consume_hashes` (K3), which drops k-mers outside
+the band and those the mask screens out, computes each table's bucket index
+and adds 1 per (table, kept k-mer) into an int32 accumulator: one kernel on
+a card, :func:`consume_hashes_plain` (int64 index arithmetic, then
+:func:`scatter_add_plain`) on the CPU.  :func:`scatter_add` is K3's other
+entry, from given indices, where -1 means skip.  The :class:`Accumulator` is
+bucket-ordered
 (``[ntables, tablesize]``): the planar layout of the JAX package exists
 for the TPU's tiling and is not carried over.  It lives for one
 ``consume_seqfile`` call, unpacked from the tables at its start and
@@ -20,9 +24,10 @@ saturated and packed back at its end.  Saturating once at the end gives
 the same counts as saturating per increment, because the adds are
 monotone.
 
-Dispatch: on CUDA tensors :func:`gather_counts_multi` and
-:func:`scatter_add` launch their kernels; on CPU tensors they run the plain versions beside
-them.  No path falls back from one to the other.
+Dispatch: on CUDA tensors :func:`gather_counts_multi`,
+:func:`consume_hashes` and :func:`scatter_add` launch their kernels; on CPU
+tensors they run the plain versions beside them.  No path falls back from
+one to the other.
 """
 
 import torch
@@ -178,6 +183,66 @@ def scatter_add_plain(acc, idx):
     return acc
 
 
+def consume_hashes(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
+                   consume_masked=False, numbands=None, band=None):
+    """Count hashed k-mers into ``acc`` [T, tablesize] int32, in place:
+    every k-mer n with ``valid[n] != 0``, inside the band (``h1 &
+    (numbands-1) == band``, where ``numbands`` is given) and passing the
+    mask (``mcnt[n] <= mask_threshold``, or ``>=`` with ``consume_masked``,
+    where ``mcnt`` is given) adds 1 at bucket ``(h1 + t*h2) mod 2^32 mod
+    tablesize`` of every table t.
+
+    ``h1``/``h2`` [N] int32 holding uint32 bits, ``valid`` and ``mcnt`` [N]
+    uint8, all on ``acc``'s device.  CUDA tensors launch K3
+    (``kt_consume``), CPU tensors run :func:`consume_hashes_plain`."""
+    if acc.dtype != torch.int32 or acc.dim() != 2 or \
+            not acc.is_contiguous():
+        raise ValueError('acc must be a contiguous 2-D int32 tensor')
+    if not 1 <= acc.shape[1] < (1 << 31):
+        raise ValueError('tablesize must be in [1, 2^31)')
+    for name, x, dtype in (('h1', h1, torch.int32), ('h2', h2, torch.int32),
+                           ('valid', valid, torch.uint8),
+                           ('mcnt', mcnt, torch.uint8)):
+        if x is None and name == 'mcnt':
+            continue
+        if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError('{} must be a contiguous 1-D {} tensor'.format(
+                name, dtype))
+        if x.shape != h1.shape or x.device != acc.device:
+            raise ValueError('{} differs from h1 in shape, or from acc in '
+                             'device'.format(name))
+    kind = acc.device.type
+    args = (acc, h1, h2, valid, mcnt, mask_threshold, consume_masked,
+            numbands, band)
+    if kind == 'cuda':
+        return kmer_cuda.consume_cuda(*args)
+    if kind == 'cpu':
+        return consume_hashes_plain(*args)
+    raise ValueError('no consume engine for device ' + str(acc.device))
+
+
+def consume_hashes_plain(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
+                         consume_masked=False, numbands=None, band=None):
+    """Plain PyTorch version of K3's consume entry, on any device: the
+    predicates and the bucket indices in int64 tensors holding uint32
+    values, then :func:`scatter_add_plain`."""
+    keep = valid != 0
+    a = hashing.to_u32(h1)
+    b = hashing.to_u32(h2)
+    if numbands:
+        keep = keep & ((a & (numbands - 1)) == band)
+    if mcnt is not None:
+        if consume_masked:
+            keep = keep & (mcnt >= mask_threshold)
+        else:
+            keep = keep & (mcnt <= mask_threshold)
+    tablesize = acc.shape[1]
+    idx = torch.stack([hashing.table_index(a, b, t, tablesize)
+                       for t in range(acc.shape[0])])
+    idx = torch.where(keep, idx, -1).to(torch.int32)
+    return scatter_add_plain(acc, idx)
+
+
 class Accumulator:
     """The int32 accumulator of one consume: the tables' counters unpacked
     to ``[T, tablesize]`` bucket order, with the count of windows
@@ -191,12 +256,23 @@ class Accumulator:
             torch.int32)
         self._since_saturation = 0
 
-    def add(self, idx):
-        if self._since_saturation + idx.shape[1] > _I32_HEADROOM:
+    def _make_room(self, n):
+        """Saturate first if ``n`` more windows could wrap a counter."""
+        if self._since_saturation + n > _I32_HEADROOM:
             self.acc.clamp_(max=MAXCOUNT[self.counter_bits])
             self._since_saturation = 0
+        self._since_saturation += n
+
+    def add(self, h1, h2, valid, **predicates):
+        """:func:`consume_hashes` of N hashed windows into the accumulator
+        (``predicates``: its mask and band arguments)."""
+        self._make_room(h1.numel())
+        consume_hashes(self.acc, h1, h2, valid, **predicates)
+
+    def add_indices(self, idx):
+        """:func:`scatter_add` of given bucket indices [T, N] (-1 skips)."""
+        self._make_room(idx.shape[1])
         scatter_add(self.acc, idx)
-        self._since_saturation += idx.shape[1]
 
     def tables(self):
         """Close the consume: saturate at the counter width's maximum and
@@ -218,22 +294,13 @@ def consume_codes(accumulator, codes, ksize, numbands=None, band=None,
     ``consume_masked``.
     """
     h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
-    h1, h2, valid = h1.reshape(-1), h2.reshape(-1), valid.reshape(-1) != 0
-    a = hashing.to_u32(h1)
-    b = hashing.to_u32(h2)
-    if numbands:
-        valid = valid & ((a & (numbands - 1)) == band)
+    h1, h2, valid = h1.reshape(-1), h2.reshape(-1), valid.reshape(-1)
+    mcnt = None
     if mask is not None:
         mcnt = gather_counts(mask[0], h1, h2, mask[1], mask[2])
-        if consume_masked:
-            valid = valid & (mcnt >= mask_threshold)
-        else:
-            valid = valid & (mcnt <= mask_threshold)
-    tablesize = accumulator.tablesize
-    idx = torch.stack([hashing.table_index(a, b, t, tablesize)
-                       for t in range(accumulator.acc.shape[0])])
-    idx = torch.where(valid, idx, -1).to(torch.int32)
-    accumulator.add(idx)
+    accumulator.add(h1, h2, valid, mcnt=mcnt, mask_threshold=mask_threshold,
+                    consume_masked=consume_masked, numbands=numbands,
+                    band=band)
 
 
 def occupancy(tables, counter_bits, tablesize):

@@ -205,8 +205,9 @@ class Sketch:
     # -- mutation ---------------------------------------------------------
     def consume_hashes(self, h1, h2, valid=None):
         """Count pre-hashed k-mers (uint32 arrays); returns the number
-        counted.  A device sketch scatters them with the consume's
-        accumulator (K3 on a GPU)."""
+        counted.  A device sketch computes their bucket indices and
+        scatters them into the consume's accumulator (K3's entry from
+        indices on a GPU)."""
         if self.backend == 'host':
             return self._host_consume_hashes(h1, h2, valid)
         h1 = np.asarray(h1, dtype=np.uint32).ravel()
@@ -220,7 +221,7 @@ class Sketch:
                                      self.tablesize)
         idx = torch.stack([hashing.table_index(a, b, t, self.tablesize)
                            for t in range(self.ntables)])
-        acc.add(torch.where(ok, idx, -1).to(torch.int32))
+        acc.add_indices(torch.where(ok, idx, -1).to(torch.int32))
         self.tables = acc.tables()
         self._invalidate()
         return int(keep.sum())

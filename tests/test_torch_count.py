@@ -134,12 +134,89 @@ def test_accumulator_saturates_before_int32_wraps(monkeypatch):
     monkeypatch.setattr(sketch_ops, '_I32_HEADROOM', 5)
     acc = sketch_ops.Accumulator(torch.zeros((1, 3), dtype=torch.uint8), 8,
                                  3)
-    idx = torch.zeros((1, 4), dtype=torch.int32)
+    # four windows that all land in bucket 0: h1 = 0, 3, 6, 9 and even h2
+    h1 = torch.tensor([0, 3, 6, 9], dtype=torch.int32)
+    h2 = torch.tensor([0, 6, 12, 300], dtype=torch.int32)
+    valid = torch.ones(4, dtype=torch.uint8)
     acc.acc[0, 0] = 1000           # stands in for a counter near the limit
-    acc.add(idx)
-    acc.add(idx)                   # 8 windows > 5: saturate first
+    acc.add(h1, h2, valid)
+    acc.add(h1, h2, valid)         # 8 windows > 5: saturate first
+    assert acc.acc.tolist() == [[259, 0, 0]]
+    acc.add_indices(torch.zeros((1, 4), dtype=torch.int32))   # and again
     assert acc.acc.tolist() == [[259, 0, 0]]
     assert acc.tables().tolist() == [[255, 0, 0]]
+
+
+CONSUME_MODES = {
+    'all': {},
+    'band': dict(numbands=4, band=1),
+    'mask<=': dict(mask_threshold=0, consume_masked=False),
+    'mask>=': dict(mask_threshold=1, consume_masked=True),
+}
+
+
+@pytest.mark.parametrize('mode', sorted(CONSUME_MODES))
+@pytest.mark.parametrize('bits', [1, 4, 8])
+def test_consume_hashes_plain_matches_jax(bits, mode):
+    """K3's plain version (hashes, validity and mask counts in, accumulator
+    updated) against ``kevlar_tpu``'s consume of the same base codes: with
+    a band, with a mask in both senses, with N bases, and with a k-mer
+    repeated 560 times so that every counter width saturates."""
+    import jax.numpy as jnp
+    from kevlar_tpu_torch.ops import hashing
+    rng = np.random.default_rng(bits)
+    L = 300
+    bases = rng.integers(0, 4, (12, L), dtype=np.uint8)
+    bases[rng.random(bases.shape) < 0.01] = 4
+    bases[3:5] = 0                               # poly-A: 2 x 280 windows
+    bases[7, 100:] = 4                           # a short read
+    kw = dict(CONSUME_MODES[mode])
+    masked = mode.startswith('mask')
+    jmask = pmask = None
+    if masked:
+        jmask = jax_sketch.Sketch(KSIZE, 4_999, 4, counter_bits=1)
+        jmask.consume_batch(jnp.asarray(bases[:6]))
+        pmask = torch.from_numpy(np.array(jmask.tables))
+        assert pmask.shape == (4, sketch_ops.packed_width(4_999, 1))
+    jsk = jax_sketch.Sketch(KSIZE, TABLESIZE, 4, counter_bits=bits)
+    jsk.consume_batch(jnp.asarray(bases), mask=jmask, **kw)
+    want = np.asarray(jsk._host())
+
+    h1, h2, valid = (x.reshape(-1) for x in hashing.kmer_hashes_codes(
+        torch.from_numpy(bases), KSIZE))
+    mcnt = sketch_ops.gather_counts(pmask, h1, h2, 1, 4_999) \
+        if masked else None
+    acc = torch.zeros((4, TABLESIZE), dtype=torch.int32)
+    out = sketch_ops.consume_hashes(acc, h1, h2, valid, mcnt=mcnt, **kw)
+    assert out is acc
+    got = acc.clamp(max=sketch_ops.MAXCOUNT[bits]).numpy()
+    assert np.array_equal(got, want)
+    if mode in ('all', 'mask>='):            # the poly-A k-mer is kept
+        assert got.max() == sketch_ops.MAXCOUNT[bits]
+    assert 0 < got.sum()
+    # the accumulator itself is not saturated: the repeated k-mer counts on
+    if mode == 'all':
+        assert int(acc.max()) >= 560
+
+
+def test_consume_hashes_checks_inputs():
+    acc = torch.zeros((4, 11), dtype=torch.int32)
+    h = torch.zeros(5, dtype=torch.int32)
+    v = torch.ones(5, dtype=torch.uint8)
+    sketch_ops.consume_hashes(acc, h, h, v, mcnt=v, mask_threshold=1)
+    assert acc[:, 0].tolist() == [5] * 4 and int(acc.sum()) == 20
+    for bad in (lambda: sketch_ops.consume_hashes(acc.long(), h, h, v),
+                lambda: sketch_ops.consume_hashes(acc, h.long(), h, v),
+                lambda: sketch_ops.consume_hashes(acc, h, h[:3], v),
+                lambda: sketch_ops.consume_hashes(acc, h, h, v.bool()),
+                lambda: sketch_ops.consume_hashes(acc, h, h, v, mcnt=v[:2]),
+                lambda: sketch_ops.consume_hashes(acc, h[::2], h[::2],
+                                                  v[::2]),
+                lambda: sketch_ops.consume_hashes(
+                    acc.to('meta'), h.to('meta'), h.to('meta'),
+                    v.to('meta'))):
+        with pytest.raises(ValueError):
+            bad()
 
 
 @pytest.mark.parametrize('bits,ext', [(1, '.nt'), (4, '.sct'), (8, '.ct')])

@@ -487,3 +487,40 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device):
     got = kmer_cuda.scatter_add_cuda(acc.clone(), idx)
     want = sketch_ops.scatter_add_plain(acc.clone(), idx)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['all', 'band', 'mask<=', 'mask>=',
+                                  'three tables', 'unaligned'])
+def test_consume_kernel_matches_plain_on_card(cuda_device, mode):
+    """K3 from hashes: duplicates, invalid windows, a band, a mask in both
+    senses, an odd tablesize, a count of k-mers that is no multiple of 4,
+    a sketch of three tables and inputs off the 16-byte grid."""
+    rng = np.random.default_rng(len(mode))
+    n = 300_003
+    h = rng.integers(-2**31, 2**31, (2, n + 1), dtype=np.int64).astype(
+        np.int32)
+    h[:, 1000:60_000] = h[:, 1000:1001]              # one k-mer 59,000 times
+    valid = (rng.random(n + 1) < 0.8).astype(np.uint8)
+    mcnt = rng.integers(0, 3, n + 1).astype(np.uint8)
+    h, valid, mcnt = (torch.from_numpy(x).to(cuda_device)
+                      for x in (h, valid, mcnt))
+    lo = 1 if mode == 'unaligned' else 0
+    h1, h2 = h[0, lo:lo + n].contiguous(), h[1, lo:lo + n].contiguous()
+    valid, mcnt = valid[lo:lo + n], mcnt[lo:lo + n]
+    if mode == 'unaligned':
+        h1, h2 = h[0, 1:], h[1, 1:]                  # views, 4 bytes off
+    kw = {'band': dict(numbands=8, band=5),
+          'mask<=': dict(mcnt=mcnt, mask_threshold=1),
+          'mask>=': dict(mcnt=mcnt, mask_threshold=2, consume_masked=True),
+          'unaligned': dict(mcnt=mcnt, mask_threshold=1)}.get(mode, {})
+    T = 3 if mode == 'three tables' else 4
+    acc = torch.from_numpy(rng.integers(0, 9, (T, 100_003)).astype(
+        np.int32)).to(cuda_device)
+    before = kmer_cuda.launches['consume']
+    got = sketch_ops.consume_hashes(acc.clone(), h1, h2, valid, **kw)
+    torch.cuda.synchronize()
+    assert kmer_cuda.launches['consume'] == before + 1
+    want = sketch_ops.consume_hashes_plain(acc.clone(), h1, h2, valid, **kw)
+    assert torch.equal(got, want)
+    assert int((got - acc).sum()) > 0
