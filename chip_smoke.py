@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about 10 minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 12 minutes
     python3 chip_smoke.py --compare-parent DIR
                                  # the aligner, the consume step and a
                                  # helium sample count of this tree against
                                  # an older checkout in DIR
+    python3 chip_smoke.py --compare-k4 DIR
+                                 # K4 of an older checkout in DIR against
+                                 # this tree's, each through its own wrapper
     python3 chip_smoke.py --profile-workflow
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
@@ -34,7 +37,10 @@ Phases (any failure raises, and the script exits non-zero):
    identical, and both are timed, the kernel's DP and traceback apart),
    the kernel's launch count over the run
    must be positive, and the VCF is scored against the truth: recall below
-   0.90 fails;
+   0.90 fails.  Then the ``call`` path from files, on the same reads:
+   ``split`` into two shards, ``assemble``, ``localize`` and ``call
+   --device cuda`` each; B1 must launch, and the shards' records together
+   must be the alac run's;
 5. count kernels: K1 (k-mer hashing of base codes) at k = 15, 21, 31, 32,
    33 and 51 with N bases, padding rows, row lengths that are not a
    multiple of 4, 8 or 16, rows of 1,024 bases and rows that start off a
@@ -44,7 +50,9 @@ Phases (any failure raises, and the script exits non-zero):
    indices with heavy duplicates and negative indices, and from hashes
    (the consume) with a band, a mask in both senses, duplicates, odd and
    edge table sizes, three tables, unaligned views and the 2 GB
-   accumulator of a sample count; each against its plain PyTorch version
+   accumulator of a sample count, and the consume's two other modes
+   (counting what it kept; marking an 8-bit presence table) on the same
+   inputs; each against its plain PyTorch version
    on the card (tolerance 0: integer arithmetic), then timed against it at
    the helium run's shapes;
 6. count -> novel slice: :func:`make_trio_case` writes the helium trio
@@ -61,11 +69,13 @@ Phases (any failure raises, and the script exits non-zero):
    run with the plain versions on the card; and each de novo locus must
    have a novel read whose annotated k-mer spans it.  Stage walls, reads
    per second and the novel output's size are printed;
-7. K4 (read-graph label propagation) against its plain PyTorch version on
-   the card: seeded random incidences, a chain of 5,000 reads (diameter in
-   the thousands), isolated reads, single-read k-mers and duplicate pairs,
-   E = 0 and E = 1 (labels identical: tolerance 0), then both timed on
-   phase 8's incidence (so phase 7 runs after phase 8);
+7. K4 (read-graph components, a one-pass union-find) against its plain
+   PyTorch version, min-label propagation, on the card: seeded random
+   incidences, a chain of 5,000 reads (diameter in the thousands),
+   isolated reads, single-read k-mers and duplicate pairs, E = 0 and E = 1
+   (labels identical: tolerance 0; each graph's kernel time printed beside
+   its bound), then both timed on phase 8's incidence (so phase 7 runs
+   after phase 8);
 8. partition at bigsim scale: phase 4's reads with their ``kvcc=`` labels
    stripped go through ``cli.main(['partition', ..., '--device',
    'cuda'])``.  The read-k-mer pair count must reach
@@ -81,7 +91,14 @@ Phases (any failure raises, and the script exits non-zero):
    exist, the four de novo SNVs must be PASS calls at their positions, and
    no PASS call may lie more than 10 bp from a de novo locus.  Whether the
    300 bp insertion was called, the stage walls, the peak RSS and the read
-   and call counts of each stage are printed.
+   and call counts of each stage are printed;
+10. dist: ``cli.main(['dist', ..., '--device', 'cuda'])`` with the trio's
+   1-bit reference mask over the proband's FASTQ (``-M 500M``).  K1, K2
+   and K3's consume must each launch, mu must lie in ``DIST_MU_BAND``
+   around ``DIST_MU``, and on the first 200,000 reads ``--device cuda``
+   and ``--device cpu`` must print the same JSON and write the same TSV.
+   Then ``Sketch.query_batch`` of one batch of reads against the proband's
+   table on the card must equal the host mirror's counts.
 
 The last two lines of standard output are the kernels record (JSON: B1,
 K1, K2, K3's two entries and K4, each with its launches on its path's run,
@@ -944,6 +961,21 @@ def phase_kmer_kernels(device):
             got = kmer_cuda.consume_cuda(acc0.clone(), *args, **kw)
             want = sketch_ops.consume_hashes_plain(acc0.clone(), *args, **kw)
             cerr = max(cerr, _max_diff(got, want, 'K3 consume ' + label))
+            # the same launch counting what it kept, into a counter that
+            # holds a number already
+            nkept = torch.full((2, 1), 7, dtype=torch.int64, device=device)
+            got = kmer_cuda.consume_cuda(acc0.clone(), *args, nkept=nkept[0],
+                                         **kw)
+            sketch_ops.consume_hashes_plain(acc0.clone(), *args,
+                                            nkept=nkept[1], **kw)
+            cerr = max(cerr, _max_diff(got, want, 'K3 consume, counting, '
+                                       + label),
+                       _max_diff(nkept[0], nkept[1], 'K3 kept count ' + label))
+            # mark mode: 1 at the kept k-mers' buckets of 8-bit tables
+            marks0 = (acc0 % 3 == 0).to(torch.uint8)
+            got = kmer_cuda.mark_cuda(marks0.clone(), *args, **kw)
+            want = sketch_ops.mark_hashes_plain(marks0.clone(), *args, **kw)
+            cerr = max(cerr, _max_diff(got, want, 'K3 mark ' + label))
     del h1, h2, valid, mcnt, cases
 
     # the proband count's launch: 2 GB accumulator, 32,768 reads x 130
@@ -967,6 +999,21 @@ def phase_kmer_kernels(device):
                     spin=True, **mask_kw)
     _, cplain_ms = _timed(sketch_ops.consume_hashes_plain, acc, h1, h2,
                           valid, reps=5, **mask_kw)
+    # its other two modes at the same shape: counting, and marking a
+    # presence table of 4 x 124,999,999 bytes
+    counter = torch.zeros(1, dtype=torch.int64, device=device)
+    _, count_ms = _timed(kmer_cuda.consume_cuda, acc, h1, h2, valid, reps=20,
+                         spin=True, nkept=counter, **mask_kw)
+    if int(counter) != 21 * nkept:
+        raise AssertionError('K3 counted {} kept k-mers in 21 launches of {}'
+                             .format(int(counter), nkept))
+    marks = torch.zeros((4, C), dtype=torch.uint8, device=device)
+    want = sketch_ops.mark_hashes_plain(marks.clone(), h1, h2, valid,
+                                        **mask_kw)
+    got, mark_ms = _timed(kmer_cuda.mark_cuda, marks, h1, h2, valid, reps=20,
+                          spin=True, **mask_kw)
+    cerr = max(cerr, _max_diff(got, want, 'K3 mark, 500 MB table'))
+    del marks, got, want
     # h1, h2, valid and the mask count read once; a kept k-mer's update in
     # each table reads and writes its sector
     cbound_ms, cbound_by = _bound(n * 10 + nkept * 4 * 2 * SECTOR,
@@ -977,11 +1024,14 @@ def phase_kmer_kernels(device):
         shape='4,259,840 hashed k-mers (15% kept), 4 x 124,999,999 int32')
     print('[smoke] K3 consume (from hashes): identical to plain (band, mask '
           '<= and >=, 50,000 duplicates, tablesizes 1, 2, 1,001, 999,999, '
-          'three tables, unaligned views, 2 GB accumulator); {}: kernel '
+          'three tables, unaligned views, 2 GB accumulator; also counting '
+          'what it kept, and in mark mode); {}: kernel '
           '{:.4f} ms ({:.1f} G updates/s), plain (index glue + index_add_ '
-          'per table) {:.3f} ms, bound {:.4f} ms by {}'.format(
+          'per table) {:.3f} ms, bound {:.4f} ms by {}; counting the kept '
+          '{:.4f} ms; marking 4 x 124,999,999 bytes {:.4f} ms'.format(
               out['K3 consume']['shape'], cms, 4 * nkept / cms / 1e6,
-              cplain_ms, cbound_ms, cbound_by), flush=True)
+              cplain_ms, cbound_ms, cbound_by, count_ms, mark_ms),
+          flush=True)
 
     # K3 from indices at the same shape: the indices the consume computes
     a, b = hashing.to_u32(h1), hashing.to_u32(h2)
@@ -1151,7 +1201,7 @@ def phase_slice(device, workdir):
           flush=True)
     return dict(launches=launches, err=err, ms=ms, dp_ms=dp_ms, tb_ms=tb_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                reads=reads, rows=seen)
+                reads=reads, refr=refr, vcf=vcfpath, rows=seen)
 
 
 def _run_cli(argv, logpath):
@@ -1169,6 +1219,185 @@ def _run_cli(argv, logpath):
         kevlar_tpu_torch.logstream = None
     torch.cuda.synchronize()
     return time.time() - t0
+
+
+def _vcf_records(path):
+    """A VCF's records, sorted, without the CONTIG attribute (contigs are
+    numbered from 1 in every file that is assembled apart)."""
+    with open(path) as fh:
+        return sorted(';'.join(f for f in line.rstrip('\n').split(';')
+                               if not f.startswith('CONTIG='))
+                      for line in fh if line[0] != '#')
+
+
+def phase_call(device, workdir, refr, reads, alac_vcf, shards=2):
+    """The ``call`` path, from files, on phase 4's reads: ``split`` the
+    partitioned reads into ``shards`` files, then ``assemble``,
+    ``localize`` and ``call --device`` each.  B1 must launch (``call``
+    aligns all of a file's partitions as one batch), and the shards'
+    records together must be the records of phase 4's ``alac`` run (both
+    sorted: alac sorts by position, a shard keeps partition order; the
+    CONTIG attribute is left out, since contig numbers restart in each
+    shard)."""
+    from kevlar_tpu_torch.ops import align_cuda
+    base = os.path.join(workdir, 'shard')
+    walls = {'split': _run_cli(['split', reads, str(shards), base],
+                               os.path.join(workdir, 'split.log'))}
+    align_cuda.launches = 0
+    records = []
+    for i in range(shards):
+        def path(name):
+            return os.path.join(workdir, 'shard{}.{}'.format(i, name))
+        for stage, argv in (
+                ('assemble', ['assemble', '-o', path('contigs.augfasta'),
+                              '{}.{}.augfastx'.format(base, i)]),
+                ('localize', ['localize', '-o', path('cutouts.fa'), refr,
+                              path('contigs.augfasta')]),
+                ('call', ['call', '-k', str(KSIZE), '--refr', refr,
+                          '--device', device, '-o', path('calls.vcf'),
+                          path('contigs.augfasta'), path('cutouts.fa')])):
+            walls[stage] = walls.get(stage, 0.0) + _run_cli(
+                argv, path(stage + '.log'))
+        records += _vcf_records(path('calls.vcf'))
+    launches = align_cuda.launches
+    if launches <= 0:
+        raise AssertionError('the call run launched no ksw_extz kernel')
+    want = _vcf_records(alac_vcf)
+    if sorted(records) != want:
+        diff = set(records) ^ set(want)
+        raise AssertionError(
+            'split + call gave {} records, alac {}; {} differ, e.g. {}'
+            .format(len(records), len(want), len(diff), sorted(diff)[:2]))
+    print('[smoke] call path (all {} loci, {} shards): {}; total {:.1f} s; '
+          'B1 {} launches; {} records == those of the alac run (sorted, '
+          'CONTIG left out)'.format(
+              NLOCI, shards, ', '.join('{} {:.1f} s'.format(k, v)
+                                       for k, v in walls.items()),
+              sum(walls.values()), launches, len(records)), flush=True)
+    return dict(launches=launches, walls=walls)
+
+
+# mu of ``dist`` on the helium proband: 30x of 150 bp reads at k = 31 cover
+# a k-mer 30 * (150 - 31 + 1) / 150 = 24 times, and a window is free of
+# errors with probability 0.995^31 = 0.856: 20.55.  The few k-mers that
+# the mask lets in by a false positive pull it down a little.
+DIST_MU = HELIUM_COVERAGE * (READLEN - KSIZE + 1) / READLEN * \
+    (1 - HELIUM_ERROR) ** KSIZE
+DIST_MU_BAND = (19.0, 22.0)
+DIST_HEAD_READS = 200_000
+
+
+def _dist_cli(device, workdir, name, memory, mask, fastq):
+    """``dist`` through the command line; returns (the JSON line it
+    printed, its TSV's text, the wall)."""
+    import contextlib
+    import io
+    tsv = os.path.join(workdir, name + '.tsv')
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        wall = _run_cli(['dist', '-k', str(KSIZE), '-M', memory, '--device',
+                         device, '--tsv', tsv, mask, fastq],
+                        os.path.join(workdir, name + '.log'))
+    with open(tsv) as fh:
+        return out.getvalue().strip(), fh.read(), wall
+
+
+def phase_dist(device, workdir, reads, memory='500M', head_memory='40M'):
+    """The ``dist`` path on phase 6's helium files: the abundance
+    distribution of the proband's k-mers inside the trio's 1-bit reference
+    mask, both passes on the card, then ``query_batch`` on the proband's
+    table."""
+    import torch
+    from kevlar_tpu_torch import dist, dna, sketch
+    from kevlar_tpu_torch.batch import native_base_batches
+    from kevlar_tpu_torch.ops import kmer_cuda
+    mask = os.path.join(workdir, 'mask.nt')
+
+    pass_walls = {}
+
+    def timed(name, fn):
+        def run(*args):
+            t0 = time.time()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            pass_walls[name] = time.time() - t0
+            return out
+        return run
+
+    passes = dist.count_first_pass, dist.count_second_pass
+    dist.count_first_pass = timed('first pass', passes[0])
+    dist.count_second_pass = timed('second pass', passes[1])
+    for name in kmer_cuda.launches:
+        kmer_cuda.launches[name] = 0
+    try:
+        line, tsv, wall = _dist_cli(device, workdir, 'dist', memory, mask,
+                                    reads['proband'])
+    finally:
+        dist.count_first_pass, dist.count_second_pass = passes
+    launches = dict(kmer_cuda.launches)
+    for name in COUNT_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError('the dist run launched no {} kernel'
+                                 .format(name))
+    stats = json.loads(line)
+    if not DIST_MU_BAND[0] <= stats['mu'] <= DIST_MU_BAND[1]:
+        raise AssertionError('dist: mu {} outside {} (expected {:.2f})'
+                             .format(stats['mu'], DIST_MU_BAND, DIST_MU))
+    print('[smoke] dist (helium proband, 1-bit 50M mask, -M {}): mu {} '
+          'sigma {} (expected mu {:.2f}, band {}; the workflow of phase 9 '
+          'is given mu {} sigma {}); {:.1f} s wall, first pass {:.1f} s, '
+          'second pass {:.1f} s; {} abundance rows; launches {}'.format(
+              memory, stats['mu'], stats['sigma'], DIST_MU, DIST_MU_BAND,
+              HELIUM_COVERAGE, HELIUM_COVERAGE * 0.3, wall,
+              pass_walls['first pass'], pass_walls['second pass'],
+              tsv.count('\n') - 1, launches), flush=True)
+
+    # the card against the CPU (the kernels' plain versions) on the head
+    head = os.path.join(workdir, 'head.fq')
+    with open(reads['proband'], 'rb') as src, open(head, 'wb') as dst:
+        for _ in range(4 * DIST_HEAD_READS):
+            dst.write(src.readline())
+    got = _dist_cli(device, workdir, 'head_card', head_memory, mask, head)
+    want = _dist_cli('cpu', workdir, 'head_cpu', head_memory, mask, head)
+    if got[:2] != want[:2]:
+        raise AssertionError('dist on the first {:,} reads: the card '
+                             'printed {}, the CPU {}; TSVs {}'.format(
+                                 DIST_HEAD_READS, got[0], want[0],
+                                 'equal' if got[1] == want[1] else 'differ'))
+    print('[smoke] dist on the first {:,} reads (-M {}): --device cuda == '
+          '--device cpu, JSON {} and TSV ({} rows); {:.1f} s on the card, '
+          '{:.1f} s on the CPU'.format(
+              DIST_HEAD_READS, head_memory, got[0], got[1].count('\n') - 1,
+              got[2],
+              want[2]), flush=True)
+
+    # query_batch: one batch of reads against the proband's table
+    table = sketch.load(os.path.join(workdir, 'proband.ct'), device=device)
+    bases, lengths = next(native_base_batches(
+        reads['proband'], DEFAULT_SCREEN_READS, overlap=KSIZE - 1))
+    before = dict(kmer_cuda.launches)
+    counts, valid = table.query_batch(bases)
+    counts, valid = counts.cpu().numpy(), valid.cpu().numpy()
+    for name in ('kmer_hashes', 'gather_counts'):
+        if kmer_cuda.launches[name] <= before[name]:
+            raise AssertionError('query_batch launched no ' + name)
+    h1, h2, ok = dna.kmer_hashes(bases, KSIZE)
+    mirror = table._host_counts(h1.ravel(), h2.ravel(), ok.ravel())
+    if not np.array_equal(valid.astype(bool), ok) or \
+            not np.array_equal(counts.ravel(), mirror):
+        raise AssertionError('query_batch differs from the host mirror')
+    for row in range(0, len(lengths), 64):
+        seq = dna.decode(bases[row, :lengths[row]])
+        want_row = table.get_kmer_counts(seq)
+        if counts[row, :len(want_row)].tolist() != want_row:
+            raise AssertionError('query_batch row {} differs from '
+                                 'get_kmer_counts'.format(row))
+    print('[smoke] query_batch: {} reads x {} windows against the '
+          'proband\'s table == the host mirror\'s counts (and '
+          'get_kmer_counts on every 64th read); mean count {:.2f}'.format(
+              counts.shape[0], counts.shape[1],
+              float(counts[valid != 0].mean())), flush=True)
+    return dict(launches=launches, walls=pass_walls, stats=stats)
 
 
 def _trio_stages(device, workdir, refr, reads, prefix, samples=SAMPLES,
@@ -1442,9 +1671,18 @@ def _cc_graphs(rng):
             for name, r, k, nr, nk in graphs]
 
 
+def _cc_bound(E, n_reads, n_kmers):
+    """The least K4's function costs, whatever computes it: the pairs (two
+    int32 each) read once and a label written per node, and a handful of
+    integer operations a pair.  K4 is three launches in a row, which have a
+    floor of a few microseconds of their own beside this."""
+    return _bound(8 * E + 4 * (n_reads + n_kmers), 8 * E)
+
+
 def phase_cc_kernel(device, incidence):
-    """Phase 7: K4 against its plain version on seeded graphs, then both
-    timed on ``incidence`` (phase 8's read-k-mer pairs)."""
+    """Phase 7: K4 against its plain version on seeded graphs (each timed,
+    queued behind a spin kernel), then both timed on ``incidence`` (phase
+    8's read-k-mer pairs)."""
     import torch
     from kevlar_tpu_torch.ops import cc_cuda, cc_ops
     rng = np.random.default_rng(SEED + 7)
@@ -1452,30 +1690,31 @@ def phase_cc_kernel(device, incidence):
     for name, reads, kmers, n_reads, n_kmers in _cc_graphs(rng):
         r = torch.from_numpy(reads).to(device)
         k = torch.from_numpy(kmers).to(device)
-        got = cc_cuda.cc_labels_cuda(r, k, n_reads, n_kmers)
-        iters = cc_cuda.last_iterations
+        got, ms = _timed(cc_cuda.cc_labels_cuda, r, k, n_reads, n_kmers,
+                         reps=5, spin=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
         want = cc_ops.connected_components_plain(r, k, n_reads, n_kmers)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.time() - t0)
         err = max(err, _max_diff(got, want, 'K4 ' + name))
-        print('[smoke] K4 vs plain, {}: identical ({} components, {} '
-              'iterations)'.format(name, len(torch.unique(got)), iters),
-              flush=True)
+        print('[smoke] K4 vs plain, {}: identical ({} components); kernel '
+              '{:.4f} ms, plain {:.1f} ms, bound {:.5f} ms by {}'.format(
+                  name, len(torch.unique(got)), ms, plain_ms,
+                  *_cc_bound(len(reads), n_reads, n_kmers)), flush=True)
     r, k, n_reads, n_kmers = incidence
     got, ms = _timed(cc_cuda.cc_labels_cuda, r, k, n_reads, n_kmers,
-                     reps=5)
+                     reps=20, spin=True)
     want, plain_ms = _timed(cc_ops.connected_components_plain, r, k, n_reads,
                             n_kmers, reps=3)
     err = max(err, _max_diff(got, want, 'K4 bigsim partition'))
     shape = '{:,} pairs, {:,} reads, {:,} k-mers'.format(r.numel(), n_reads,
                                                          n_kmers)
-    # each iteration reads every pair (two int32) in both passes; the
-    # labels are read and written at least once
-    iters = cc_cuda.last_iterations
-    bound_ms, bound_by = _bound(
-        r.numel() * 8 * 2 * iters + 4 * 2 * (n_reads + n_kmers),
-        r.numel() * 2 * iters * 4)
-    print('[smoke] K4 cc_labels: {} kernel {:.3f} ms ({} iterations), '
-          'plain {:.3f} ms, bound {:.4f} ms by {}'.format(
-              shape, ms, iters, plain_ms, bound_ms, bound_by), flush=True)
+    bound_ms, bound_by = _cc_bound(r.numel(), n_reads, n_kmers)
+    print('[smoke] K4 cc_labels: {} kernel {:.4f} ms (one pass, three '
+          'launches, queued behind a spin kernel), plain {:.3f} ms, bound '
+          '{:.4f} ms by {} (pairs read once, labels written once)'.format(
+              shape, ms, plain_ms, bound_ms, bound_by), flush=True)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, shape=shape)
 
@@ -1502,8 +1741,7 @@ def phase_partition(device, workdir, reads):
 
     def recording(read_ids, kmer_ids, n_reads, n_kmers):
         out = components(read_ids, kmer_ids, n_reads, n_kmers)
-        seen.append((read_ids, kmer_ids, n_reads, n_kmers, out,
-                     cc_cuda.last_iterations))
+        seen.append((read_ids, kmer_ids, n_reads, n_kmers, out))
         return out
 
     outpath = os.path.join(workdir, 'repartitioned.augfastq')
@@ -1518,7 +1756,7 @@ def phase_partition(device, workdir, reads):
     if launches <= 0 or len(seen) != 1:
         raise AssertionError('the partition run launched K4 {} times over '
                              '{} graphs'.format(launches, len(seen)))
-    r, k, n_reads, n_kmers, labels, iters = seen[0]
+    r, k, n_reads, n_kmers, labels = seen[0]
     if r.numel() < cc_ops.HOST_CC_THRESHOLD:
         raise AssertionError('{} pairs: below the threshold'.format(
             r.numel()))
@@ -1538,9 +1776,9 @@ def phase_partition(device, workdir, reads):
     loci = set().union(*members.values())
     print('[smoke] partition (bigsim reads, kvcc labels stripped): {:.1f} s '
           'wall; {:,} read-k-mer pairs over {:,} reads and {:,} k-mers; K4 '
-          '{} launch, {} iterations; labels == plain; {:,} partitions, each '
+          '{} launch, one pass; labels == plain; {:,} partitions, each '
           'one locus, covering {} of the loci'.format(
-              wall, r.numel(), n_reads, n_kmers, launches, iters,
+              wall, r.numel(), n_reads, n_kmers, launches,
               len(members), len(loci)), flush=True)
     torch.cuda.synchronize()
     return dict(launches=launches, wall=wall,
@@ -1983,6 +2221,70 @@ def compare_counts(parent, device, workdir):
               *_producer_split(reads['proband'], device)), flush=True)
 
 
+# What ``--compare-k4`` runs in a process of its own from the root of each
+# tree: that tree's K4 through its own wrapper, on the graphs of the npz
+# file named first, held to the tree's plain version; prints {graph: [ms of
+# each call, by the host clock around a synchronised call]}.
+_K4_TIMER = '''
+import json, sys, time
+import numpy as np
+import torch
+from kevlar_tpu_torch.ops import cc_cuda, cc_ops
+graphs, reps, out = np.load(sys.argv[1]), int(sys.argv[2]), {}
+for i, (name, n_reads, n_kmers) in enumerate(json.loads(str(graphs['meta']))):
+    r = torch.from_numpy(graphs['r%d' % i]).cuda()
+    k = torch.from_numpy(graphs['k%d' % i]).cuda()
+    want = cc_ops.connected_components_plain(r, k, n_reads, n_kmers)
+    times = []
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = cc_cuda.cc_labels_cuda(r, k, n_reads, n_kmers)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.time() - t0))
+    if not torch.equal(got.to(want.dtype), want):
+        raise SystemExit('K4 differs from the plain version on ' + name)
+    out[name] = times[1:]
+print(json.dumps(out))
+'''
+
+
+def compare_cc(parent, reps=10):
+    """``--compare-k4 DIR``: K4 of the checkout in ``DIR`` against this
+    tree's on the smoke's graphs, each tree through its own wrapper in a
+    process of its own (so whatever the older kernel's C interface was), in
+    turns old, new, new, old."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    print(_nvidia_smi(), flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    graphs = [g for g in _cc_graphs(np.random.default_rng(SEED + 7))
+              if len(g[1]) > 1]
+    times = {'old': {}, 'new': {}}
+    with tempfile.TemporaryDirectory() as workdir:
+        path = os.path.join(workdir, 'graphs.npz')
+        arrays = {'meta': json.dumps([(g[0], g[3], g[4]) for g in graphs])}
+        for i, g in enumerate(graphs):
+            arrays['r%d' % i], arrays['k%d' % i] = g[1], g[2]
+        np.savez(path, **arrays)
+        for side in ('old', 'new', 'new', 'old'):
+            tree = os.path.abspath(parent) if side == 'old' else here
+            done = subprocess.run(
+                [sys.executable, '-c', _K4_TIMER, path, str(reps)], cwd=tree,
+                check=True, stdout=subprocess.PIPE, text=True)
+            for name, ms in json.loads(
+                    done.stdout.strip().splitlines()[-1]).items():
+                times[side].setdefault(name, []).extend(ms)
+    for name, reads, _, n_reads, n_kmers in graphs:
+        print('[compare] K4 {}: old {}, new {}; bound {:.5f} ms by {}; both '
+              '== their plain versions'.format(
+                  name, _spread(times['old'][name]),
+                  _spread(times['new'][name]),
+                  *_cc_bound(len(reads), n_reads, n_kmers)), flush=True)
+    return 0
+
+
 def profile_workflow():
     """``--profile-workflow``: the helium trio through run_mark1 under
     torch.profiler, for the card's busy share of the trio wall."""
@@ -2042,6 +2344,8 @@ def main():
         return compare_parent(sys.argv[2])
     if sys.argv[1:2] == ['--profile-workflow']:
         return profile_workflow()
+    if sys.argv[1:2] == ['--compare-k4']:
+        return compare_cc(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -2059,6 +2363,7 @@ def main():
     err = phase_kernel(device)
     with tempfile.TemporaryDirectory() as workdir:
         run = phase_slice(device, workdir)
+        phase_call(device, workdir, run['refr'], run['reads'], run['vcf'])
         part = phase_partition(device, workdir, run['reads'])
         cc = phase_cc_kernel(device, part.pop('incidence'))
     kmer = phase_kmer_kernels(device)
@@ -2066,6 +2371,7 @@ def main():
         trio = phase_trio(device, workdir)
         phase_workflow(device, workdir, trio['refr'], trio['denovo'],
                        trio['reads'])
+        phase_dist(device, workdir, trio['reads'])
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
           flush=True)
 
@@ -2098,7 +2404,7 @@ def main():
             'bound_by': kmer[key]['bound_by'],
             'library_ms': kmer[key]['library_ms']})
     kernels.append({
-        'name': 'cc_labels (read-graph min-label propagation)',
+        'name': 'cc_labels (read-graph components, one-pass union-find)',
         'route': 'cuda', 'source': 'kevlar_tpu_torch/csrc/cc.cu',
         'replaces': 'kevlar_tpu/ops/cc_ops.py:16',
         'launches': part['launches'], 'max_abs_err': cc['err'],

@@ -2,10 +2,12 @@
 
 The port runs the trio workflow (:mod:`kevlar_tpu_torch.workflow`) on one
 NVIDIA GPU: ``count``, ``novel``, ``filter``, ``partition``, ``alac`` —
-assemble, localize, align and call — ``varfilter`` and ``simlike``.  Their
+assemble, localize, align and call — ``varfilter`` and ``simlike``; and
+the other subcommands of ``kevlar_tpu``'s command line
+(:mod:`kevlar_tpu_torch.cli`), ``dist`` among them on the GPU.  Their
 device work goes through CUDA kernels written for Hopper: k-mer hashing,
 the Count-Min gather and scatter (:mod:`kevlar_tpu_torch.ops.kmer_cuda`),
-the read-graph label propagation (:mod:`kevlar_tpu_torch.ops.cc_cuda`) and
+the read-graph components (:mod:`kevlar_tpu_torch.ops.cc_cuda`) and
 the contig x cutout ksw2 alignments
 (:mod:`kevlar_tpu_torch.ops.align_cuda`); the rest is torch and host code
 copied from ``kevlar_tpu`` with its imports rewritten.  It imports
@@ -84,6 +86,7 @@ _STAGE_MODULES = (
     'assemble', 'augment', 'localize', 'reference', 'call', 'varmap',
     'cigar', 'alac', 'varfilter', 'simlike', 'vcf', 'readgraph', 'readpair',
     'intervalforest', 'oxli', 'workflow', 'cli', 'ops', 'native',
+    'split', 'unband', 'mutate', 'gentrio', 'mutsim', 'evaluate', 'dist',
 )
 
 
@@ -94,3 +97,25 @@ def __getattr__(name):
         globals()[name] = module
         return module
     raise AttributeError('module kevlar_tpu_torch has no attribute ' + name)
+
+
+def multi_file_iter(filenames):
+    from kevlar_tpu_torch.seqio import multi_file_iter as mfi
+    return mfi(filenames)
+
+
+def vcf_header(outstream, version='4.2', source='kevlar', infoheader=False):
+    print('##fileformat=VCFv', version, sep='', file=outstream)
+    print('##source=', source, sep='', file=outstream)
+    if infoheader:
+        print('##INFO=<GT,Number=3,Type=String,Description="Genotypes of each '
+              'individual in the trio (proband, mother, father)">',
+              file=outstream)
+    print('##INFO=<VW,Number=1,Type=String,Description="Genomic interval '
+          'bounding all k-mers that contain the alternate allele">',
+          file=outstream)
+    print('##INFO=<RW,Number=1,Type=String,Description="Genomic interval '
+          'bounding all k-mers that contain the reference allele">',
+          file=outstream)
+    print('#CHROM', 'POS', 'ID', 'REF', 'ALT', 'QUAL', 'FILTER', 'INFO',
+          sep='\t', file=outstream)

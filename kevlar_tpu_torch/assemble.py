@@ -170,3 +170,16 @@ def assemble(partstream, maxreads=10000, threads=1):
     kevlar_tpu_torch.plog('[kevlar::assemble] processed {} partitions and '
                     'assembled {} contigs'.format(pn, n))
 
+
+def main(args):
+    from kevlar_tpu_torch import seqio
+    readstream = kevlar_tpu_torch.parse_augmented_fastx(
+        kevlar_tpu_torch.open(args.augfastq, 'r'))
+    if args.part_id:
+        pstream = seqio.parse_single_partition(readstream, args.part_id)
+    else:
+        pstream = seqio.parse_partitioned_reads(readstream)
+    outstream = kevlar_tpu_torch.open(args.out, 'w')
+    assembler = assemble(pstream, maxreads=args.max_reads)
+    for partid, contig in assembler:
+        kevlar_tpu_torch.print_augmented_fastx(contig, outstream)

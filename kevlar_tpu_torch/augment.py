@@ -43,3 +43,12 @@ def augment(augseqstream, nakedseqstream, upint=10000):
                     fresh.annotate(window, offset, abund)
         yield fresh
 
+
+def main(args):
+    annotated = kevlar_tpu_torch.parse_augmented_fastx(
+        kevlar_tpu_torch.open(args.augseqs, 'r'))
+    naked = kevlar_tpu_torch.parse_augmented_fastx(
+        kevlar_tpu_torch.open(args.seqs, 'r'))
+    outstream = kevlar_tpu_torch.open(args.out, 'w')
+    for record in augment(annotated, naked):
+        kevlar_tpu_torch.print_augmented_fastx(record, outstream)

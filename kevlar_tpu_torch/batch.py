@@ -96,6 +96,92 @@ def batches_from_records(recordstream, batch_size=DEFAULT_BATCH_SIZE):
             yield ReadBatch(pending[b], pad_to=b, pad_rows=batch_size)
 
 
+def sequence_blocks(filename, nreads=65536):
+    """The sequences of a FASTA/FASTQ file (plain or gzipped) as lists of
+    about ``nreads`` strings, in file order: those of the records
+    :func:`kevlar_tpu_torch.seqio.parse_fastx` yields, without a Record per
+    read.  FASTQ is read a block of lines at a time (blank lines dropped,
+    the second of every four lines kept); FASTA goes through the record
+    parser."""
+    import itertools
+    import kevlar_tpu_torch
+    from kevlar_tpu_torch import seqio
+    with kevlar_tpu_torch.open(filename, 'r') as fh:
+        head = next((line for line in fh if line.strip()), None)
+        if head is None:
+            return
+        if head[0] != '@':
+            records = seqio.parse_fastx(itertools.chain([head], fh))
+            while True:
+                block = [r.sequence for r in itertools.islice(records,
+                                                              nreads)]
+                if not block:
+                    return
+                yield block
+        carry = [head]
+        while True:
+            lines = fh.readlines(nreads * 512)
+            if not lines:
+                break
+            lines = carry + [line for line in lines if line.strip()]
+            whole = len(lines) - len(lines) % 4
+            carry = lines[whole:]
+            if whole:
+                yield [seq.strip() for seq in lines[1:whole:4]]
+        if carry:
+            raise ValueError('{}: the last FASTQ record is cut short'
+                             .format(filename))
+
+
+def _bucket_lengths(lengths):
+    """:func:`bucket_length` of every entry of an int array."""
+    table = np.asarray(LENGTH_BUCKETS)
+    idx = np.searchsorted(table, lengths, side='left')
+    out = table[np.minimum(idx, len(table) - 1)]
+    for i in np.flatnonzero(idx >= len(table)).tolist():
+        out[i] = bucket_length(int(lengths[i]))
+    return out
+
+
+def _encode_rows(seqs, pad, rows):
+    """``ReadBatch(...).bases`` of ``seqs``: a ``[max(rows, len(seqs)),
+    pad]`` code array, 4 where there is no base."""
+    out = np.full((max(rows, len(seqs)), pad), 4, dtype=np.uint8)
+    raw = ''.join([s.ljust(pad, 'N') for s in seqs]).encode('ascii')
+    out[:len(seqs)] = dna.BASE_TO_CODE[
+        np.frombuffer(raw, dtype=np.uint8)].reshape(len(seqs), pad)
+    return out
+
+
+def base_batches_from_files(filenames, batch_size=DEFAULT_BATCH_SIZE):
+    """The ``bases`` arrays of ``batches_from_records(seqio.multi_file_iter(
+    filenames), batch_size)``: the same rows in the same batches in the
+    same order (a bucket's batch when its last read arrives, the partial
+    batches at the end, shortest bucket first), built a block of reads at a
+    time instead of a Record at a time."""
+    pending = {}
+    for filename in filenames:
+        for block in sequence_blocks(filename):
+            lengths = np.fromiter(map(len, block), dtype=np.int64,
+                                  count=len(block))
+            buckets = _bucket_lengths(lengths)
+            full = []       # (block position of the read that fills it, b)
+            for b in np.unique(buckets).tolist():
+                where = np.flatnonzero(buckets == b)
+                have = pending.setdefault(b, [])
+                first = batch_size - len(have) - 1
+                have.extend(block if len(where) == len(block)
+                            else [block[i] for i in where.tolist()])
+                full += [(int(where[at]), b)
+                         for at in range(first, len(where), batch_size)]
+            for _, b in sorted(full):
+                yield _encode_rows(pending[b][:batch_size], b, batch_size)
+                pending[b] = pending[b][batch_size:]
+    for b in sorted(pending):
+        if pending[b]:
+            yield _encode_rows(pending[b], b, batch_size)
+
+
 class CodeStager:
     """Ships ``uint8`` base-code batches to a device.
 

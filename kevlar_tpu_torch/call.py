@@ -151,6 +151,16 @@ def call(*args, **kwargs):
     yield from merge_adjacent(dedup(prelim_call(*args, **kwargs)))
 
 
+def load_contigs(contigstream):
+    kevlar_tpu_torch.plog(
+        '[kevlar::call] Loading contigs into memory by partition')
+    by_partition = dict(contigstream)
+    ncontigs = sum(len(c) for c in by_partition.values())
+    kevlar_tpu_torch.plog('[kevlar::call] Loaded {} contigs from {} '
+                          'partitions'.format(ncontigs, len(by_partition)))
+    return by_partition
+
+
 def make_call_mask(calls, ksize, maskmem, maskmaxfpr=0.01, maskfile=None,
                    logprefix='[kevlar::call]'):
     """Build a Bloom mask of ALTWINDOW k-mers from a call set.
@@ -176,3 +186,47 @@ def make_call_mask(calls, ksize, maskmem, maskmaxfpr=0.01, maskfile=None,
     if maskfile:
         mask.save(maskfile)
     return mask
+
+
+def main(args):
+    from kevlar_tpu_torch import reference, seqio, vcf
+    writer = vcf.VCFWriter(kevlar_tpu_torch.open(args.out, 'w'),
+                           source='kevlar::call', refr=args.refr)
+    writer.write_header()
+
+    contigs_by_partition = load_contigs(seqio.parse_partitioned_reads(
+        kevlar_tpu_torch.parse_augmented_fastx(
+            kevlar_tpu_torch.open(args.queryseq, 'r'))))
+    gdnastream = seqio.parse_partitioned_reads(
+        reference.load_refr_cutouts(
+            kevlar_tpu_torch.open(args.targetseq, 'r')))
+    targets_by_partition = [
+        (partid, gdnas) for partid, gdnas in gdnastream
+        if partid in contigs_by_partition]
+    # one global alignment batch across every partition on the device, then
+    # per-partition interpretation
+    strandings = align_partitions(
+        {partid: partition_jobs(gdnas, contigs_by_partition[partid],
+                                args.max_target_length)[3]
+         for partid, gdnas in targets_by_partition},
+        match=args.match, mismatch=args.mismatch, gapopen=args.open,
+        gapextend=args.extend, device=args.device)
+    maskable = []
+    for partid, gdnas in targets_by_partition:
+        for varcall in call(gdnas, contigs_by_partition[partid], partid,
+                            match=args.match, mismatch=args.mismatch,
+                            gapopen=args.open, gapextend=args.extend,
+                            ksize=args.ksize, refrfile=args.refr,
+                            debug=args.debug, mindist=5,
+                            homopolyfilt=not args.no_homopoly_filter,
+                            maxtargetlen=args.max_target_length,
+                            strandings=strandings[partid],
+                            device=args.device):
+            if args.gen_mask:
+                maskable.append(varcall)
+            writer.write(varcall)
+    if args.gen_mask:
+        kevlar_tpu_torch.plog('[kevlar::call] generating mask of '
+                              'variant-spanning k-mers')
+        make_call_mask(maskable, args.ksize, args.mask_mem,
+                       args.mask_max_fpr, args.gen_mask)

@@ -1,13 +1,15 @@
-"""Command-line interface of the port: the ``count``, ``novel``,
-``filter``, ``partition``, ``alac``, ``varfilter`` and ``simlike``
-subcommands (the trio workflow itself is ``python -m
+"""Command-line interface of the port: the 16 subcommands of
+``kevlar_tpu.cli`` (the trio workflow itself is ``python -m
 kevlar_tpu_torch.workflow``).
 
 Flag names, defaults and semantics follow ``kevlar_tpu.cli`` (and the
 reference's kevlar/cli/*.py), plus ``--device`` where a stage touches a
 device: the torch device of its kernels (default ``cuda``; ``cpu`` runs
-their plain PyTorch versions).  ``--shards``, ``--sketch-format`` and
-``--profile`` are not ported yet, nor are the other subcommands.
+their plain PyTorch versions).  ``--profile DIR`` writes a
+``torch.profiler`` chrome trace of the run.  ``--shards`` (sketches and
+alignment batches spread over several devices) is refused by name, and
+``warm`` has no counterpart: there is no compile cache to fill, the
+kernels build once at first use.
 """
 
 import argparse
@@ -48,6 +50,19 @@ def _add_threads_arg(sp):
                     'only 1 is supported')
 
 
+def _no_shards(value):
+    raise argparse.ArgumentTypeError(
+        'sketches and alignment batches sharded over several devices are '
+        'not supported by kevlar_tpu_torch yet; it runs on one device '
+        '(--device)')
+
+
+def _add_shards_arg(sp):
+    sp.add_argument('--shards', type=_no_shards, metavar='S', default=None,
+                    help='kept for kevlar_tpu\'s command line; refused: the '
+                    'port runs on one device')
+
+
 def _add_device_arg(sp, what):
     sp.add_argument('--device', default='cuda', metavar='DEV',
                     help='torch device of {}: "cuda" (default; the CUDA '
@@ -73,7 +88,12 @@ def _count_subparser(subparsers):
     sp.add_argument('--num-bands', type=int, metavar='N', default=None)
     sp.add_argument('--band', type=int, metavar='I', default=None,
                     help='band between 1 and N (inclusive) to process')
+    _add_shards_arg(sp)
     _add_threads_arg(sp)
+    sp.add_argument('--sketch-format', choices=('native', 'khmer'),
+                    default='native', help='on-disk sketch format: "native" '
+                    '(device-backed, npz) or "khmer" (byte-compatible with '
+                    'khmer/reference-kevlar count tables, host engine)')
     _add_device_arg(sp, 'the sketch and the counting kernels')
     sp.add_argument('counttable', type=str, help='output count table file')
     sp.add_argument('seqfile', type=str, nargs='+',
@@ -100,6 +120,7 @@ def _novel_subparser(subparsers):
     sp.add_argument('--max-fpr', type=float, default=0.2, metavar='FPR')
     sp.add_argument('--num-bands', type=int, metavar='N', default=None)
     sp.add_argument('--band', type=int, metavar='I', default=None)
+    _add_shards_arg(sp)
     sp.add_argument('-o', '--out', metavar='FILE')
     sp.add_argument('--save-case-counts', metavar='CT', nargs='+')
     sp.add_argument('--save-ctrl-counts', metavar='CT', nargs='+')
@@ -125,6 +146,50 @@ def _filter_subparser(subparsers):
     sp.add_argument('augfastq', help='novel reads in augmented Fastq format')
 
 
+def _augment_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'augment', description='Transfer interesting k-mer annotations.')
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('augseqs', help='augmented sequence file')
+    sp.add_argument('seqs', help='sequences to annotate')
+
+
+def _assemble_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'assemble', description='Assemble reads into contigs representing '
+        'putative variants')
+    sp.add_argument('-p', '--part-id', type=str, metavar='ID')
+    sp.add_argument('--max-reads', type=int, metavar='N', default=10000)
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('augfastq', help='annotated reads in augmented format')
+
+
+def _mutate_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'mutate', description='Apply a mutation table to a genome.')
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('mutations', help='mutations file')
+    sp.add_argument('genome', help='genome to mutate')
+
+
+def _gentrio_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'gentrio', description='Simulate a trio with inherited and de novo '
+        'variants.')
+    sp.add_argument('-i', '--inherited', type=int, metavar='I', default=20)
+    sp.add_argument('-d', '--de-novo', type=int, metavar='D', default=10)
+    sp.add_argument('--vcf', metavar='FILE')
+    sp.add_argument('--prefix', metavar='PFX', default='trio')
+    sp.add_argument('--weights', metavar='WT',
+                    default='snv=0.8,ins=0.1,del=0.1')
+    sp.add_argument('--indel-sizes', metavar='BANDS', default=None,
+                    help='comma-separated LO-HI size bands; each indel '
+                         'picks a band uniformly, then a size uniformly '
+                         'within it (default: uniform 5-350)')
+    sp.add_argument('-s', '--seed', metavar='S', default=None, type=int)
+    sp.add_argument('genome', help='genome to mutate')
+
+
 def _partition_subparser(subparsers):
     sp = subparsers.add_parser(
         'partition', description='Group reads by shared interesting k-mers.')
@@ -141,6 +206,21 @@ def _partition_subparser(subparsers):
     sp.add_argument('infile', help='input reads in augmented format')
 
 
+def _localize_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'localize', description='Compute the reference target sequence for '
+        'each partition (native exact seed matching; no bwa needed).')
+    sp.add_argument('-d', '--delta', type=int, metavar='D', default=50)
+    sp.add_argument('-p', '--part-id', type=str, metavar='ID')
+    sp.add_argument('-o', '--out', metavar='FILE', default='-')
+    sp.add_argument('-z', '--seed-size', type=int, metavar='Z', default=51)
+    sp.add_argument('-x', '--max-diff', type=int, metavar='X', default=None)
+    sp.add_argument('--include', metavar='REGEX', type=str)
+    sp.add_argument('--exclude', metavar='REGEX', type=str)
+    sp.add_argument('refr', help='reference genome Fasta')
+    sp.add_argument('contigs', nargs='+', help='augmented contig files')
+
+
 def _add_score_args(sp):
     sp.add_argument('-A', '--match', type=int, default=1, metavar='A')
     sp.add_argument('-B', '--mismatch', type=int, default=2, metavar='B')
@@ -153,6 +233,26 @@ def _add_mask_args(sp):
     sp.add_argument('--mask-mem', type=memory_setting, default=1e6,
                     metavar='MEM')
     sp.add_argument('--mask-max-fpr', type=float, default=0.01, metavar='FPR')
+
+
+def _call_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'call', description='Align contigs to reference targets and call '
+        'variants.')
+    _add_score_args(sp)
+    _add_mask_args(sp)
+    sp.add_argument('-d', '--debug', action='store_true')
+    sp.add_argument('--no-homopoly-filter', action='store_true')
+    sp.add_argument('--max-target-length', type=int, default=10000,
+                    metavar='L')
+    sp.add_argument('--refr', metavar='FILE')
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('-k', '--ksize', type=int, default=31, metavar='K')
+    _add_shards_arg(sp)
+    _add_device_arg(sp, 'the contig x cutout alignments (one batch across '
+                    'all partitions)')
+    sp.add_argument('queryseq', help='assembled contigs (augmented Fasta)')
+    sp.add_argument('targetseq', help='reference target cutouts (Fasta)')
 
 
 def _alac_subparser(subparsers):
@@ -173,6 +273,7 @@ def _alac_subparser(subparsers):
     sp.add_argument('-i', '--min-ikmers', metavar='I', type=int, default=None)
     sp.add_argument('-k', '--ksize', type=int, default=31, metavar='K')
     sp.add_argument('-t', '--threads', type=int, default=1, metavar='T')
+    _add_shards_arg(sp)
     _add_device_arg(sp, 'the contig x cutout alignments')
     sp.add_argument('infile', help='partitioned reads in augmented format')
     sp.add_argument('refr', help='reference genome in Fasta format')
@@ -224,14 +325,58 @@ def _simlike_subparser(subparsers):
     sp.add_argument('vcf', nargs='+')
 
 
+def _split_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'split', description='Split partitions across N output files.')
+    sp.add_argument('infile', help='partitioned reads (augmented format)')
+    sp.add_argument('numfiles', type=int, help='number of output files')
+    sp.add_argument('base', help='prefix of all output files')
+
+
+def _dist_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'dist', description='Abundance distribution of masked k-mers.')
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('-k', '--ksize', metavar='K', type=int, default=31)
+    sp.add_argument('-M', '--memory', type=memory_setting, default=1e6,
+                    metavar='MEM')
+    sp.add_argument('-t', '--threads', type=int, metavar='T', default=1)
+    sp.add_argument('-p', '--plot', metavar='PNG')
+    sp.add_argument('--tsv', metavar='TSV')
+    sp.add_argument('--plot-xlim', metavar=('MIN', 'MAX'), type=int, nargs=2,
+                    default=(0, 100))
+    _add_device_arg(sp, 'the mask, the counts and the tracking sketch of '
+                    'both passes')
+    sp.add_argument('mask', help='nodetable containing target k-mers')
+    sp.add_argument('infiles', nargs='+', help='input Fastq/Fasta files')
+
+
+def _unband_subparser(subparsers):
+    sp = subparsers.add_parser(
+        'unband', description='Merge per-band novel outputs.')
+    sp.add_argument('-n', '--n-batches', metavar='N', type=int, default=16)
+    sp.add_argument('-o', '--out', metavar='FILE')
+    sp.add_argument('infile', nargs='+',
+                    help='input files in augmented format')
+
+
 SUBPARSER_FUNCS = {
     'count': _count_subparser,
     'novel': _novel_subparser,
     'filter': _filter_subparser,
+    'augment': _augment_subparser,
+    'assemble': _assemble_subparser,
+    'mutate': _mutate_subparser,
+    'gentrio': _gentrio_subparser,
     'partition': _partition_subparser,
+    'localize': _localize_subparser,
+    'call': _call_subparser,
     'alac': _alac_subparser,
     'varfilter': _varfilter_subparser,
     'simlike': _simlike_subparser,
+    'split': _split_subparser,
+    'dist': _dist_subparser,
+    'unband': _unband_subparser,
 }
 
 
@@ -241,10 +386,19 @@ def mains():
         'count': kt.count.main,
         'novel': kt.novel.main,
         'filter': kt.filter.main,
+        'augment': kt.augment.main,
+        'assemble': kt.assemble.main,
+        'mutate': kt.mutate.main,
+        'gentrio': kt.gentrio.main,
         'partition': kt.partition.main,
+        'localize': kt.localize.main,
+        'call': kt.call.main,
         'alac': kt.alac.main,
         'varfilter': kt.varfilter.main,
         'simlike': kt.simlike.main,
+        'split': kt.split.main,
+        'dist': kt.dist.main,
+        'unband': kt.unband.main,
     }
 
 
@@ -264,6 +418,9 @@ def parser():
                    help='log file for diagnostic messages')
     p.add_argument('--tee', action='store_true',
                    help='write diagnostics to logfile AND terminal (stderr)')
+    p.add_argument('--profile', metavar='DIR', default=None,
+                   help='capture a torch.profiler trace of this run into '
+                   'DIR/<cmd>.trace.json (chrome trace format)')
     subparsers = p.add_subparsers(dest='cmd', metavar='cmd',
                                   help='"' + subcommandstr + '"')
     for func in SUBPARSER_FUNCS.values():
@@ -280,11 +437,28 @@ def parse_args(arglist=None):
     return args
 
 
+def _start_profile(tracedir):
+    """A started ``torch.profiler`` trace of the host and, where there is
+    one, the card (the workflow's ``profile`` key does the same per
+    stage)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(tracedir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    tracer = profile(activities=activities)
+    tracer.__enter__()
+    kevlar_tpu_torch.plog('[kevlar] profiler trace ->', tracedir)
+    return tracer
+
+
 def main(arglist=None):
     args = parse_args(arglist)
     if args.cmd is None:
         parser().parse_args(['-h'])
         return
+    tracer = _start_profile(args.profile) if args.profile else None
     try:
         mains()[args.cmd](args)
     except BrokenPipeError:
@@ -297,3 +471,8 @@ def main(arglist=None):
         print('[kevlar::{}] error: {}'.format(args.cmd, err),
               file=sys.stderr)
         sys.exit(1)
+    finally:
+        if tracer is not None:
+            tracer.__exit__(None, None, None)
+            tracer.export_chrome_trace(os.path.join(
+                args.profile, args.cmd + '.trace.json'))

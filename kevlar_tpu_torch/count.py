@@ -111,15 +111,33 @@ def load_sample_seqfile(seqfiles, ksize, memory, maxfpr=0.2, count=True,
                         smallcount=False, mask=None, maskmaxabund=0,
                         consume_masked=False, numbands=None, band=None,
                         outfile=None, batch_size=COUNT_BATCH_READS,
-                        device='cuda', save_async=False):
+                        device='cuda', sketch_format='native',
+                        save_async=False):
     """Compute k-mer abundances for one sample on ``device``; returns the
     sketch (saved to ``outfile`` when given).
+
+    ``sketch_format='khmer'`` counts on the khmer-binary-compatible host
+    engine instead (:mod:`kevlar_tpu_torch.oxli`): the saved file is
+    byte-identical to what khmer itself produces for the same input (incl.
+    hash-range banding).  A khmer-format mask lives in khmer's hash space,
+    so a count with one joins it there.  The native format (device-backed,
+    npz) is the default.
 
     With ``save_async`` the save runs on a background thread, off the
     critical path (the tables are not written to again); callers join
     ``sketch._save_thread`` before relying on the file, and
     :func:`kevlar_tpu_torch.sketch.load` of that file joins it itself."""
     counter_bits = (4 if smallcount else 8) if count else 1
+    from kevlar_tpu_torch.oxli import OxliSketch
+    if sketch_format != 'khmer' and isinstance(mask, OxliSketch):
+        kevlar_tpu_torch.plog('[kevlar::count] mask is khmer-format; '
+                              'counting on the khmer-compatible host engine')
+        sketch_format = 'khmer'
+    if sketch_format == 'khmer':
+        return _load_sample_seqfile_khmer(
+            seqfiles, ksize, memory, maxfpr, counter_bits, mask,
+            consume_masked, maskmaxabund, numbands, band, outfile,
+            count=count, smallcount=smallcount)
     sketch = allocate_from_memory(ksize, memory, num_tables=4,
                                   counter_bits=counter_bits, device=device)
     numreads = 0
@@ -161,6 +179,54 @@ def load_sample_seqfile(seqfiles, ksize, memory, maxfpr=0.2, count=True,
     return sketch
 
 
+def _load_sample_seqfile_khmer(seqfiles, ksize, memory, maxfpr, counter_bits,
+                               mask, consume_masked, maskmaxabund, numbands,
+                               band, outfile, count=True, smallcount=False):
+    """khmer-format counting path: byte-compatible tables + save files."""
+    from kevlar_tpu_torch.oxli import OxliSketch
+    from kevlar_tpu_torch.sketch import BUCKETS_PER_BYTE
+    if mask is not None and not isinstance(mask, OxliSketch):
+        raise ValueError(
+            '--sketch-format khmer requires a khmer-format mask '
+            '(.nt/.nodetable file); got a native-format sketch')
+    tablesize = int(memory) // 4 * BUCKETS_PER_BYTE[counter_bits]
+    sketch = OxliSketch(ksize, max(tablesize, 1), 4,
+                        counter_bits=counter_bits)
+    threshold = (maskmaxabund + 1) if (mask is not None and maskmaxabund)\
+        else 1
+    numreads = 0
+    for seqfile in seqfiles:
+        kevlar_tpu_torch.plog(
+            '[kevlar::count] - processing "{}"'.format(seqfile))
+        nr, _ = sketch.consume_seqfile(
+            seqfile, mask=mask, threshold=threshold,
+            consume_masked=consume_masked, numbands=numbands, band=band)
+        numreads += nr
+
+    message = 'Done loading k-mers'
+    if numbands:
+        message += ' (band {:d}/{:d})'.format(band + 1, numbands)
+    fpr = estimate_fpr(sketch)
+    message += ';\n    {:d} reads processed'.format(numreads)
+    # exact (khmer-tracked) distinct-k-mer count, matching the reference's
+    # "N distinct k-mers stored" log line
+    message += ', {:d} distinct k-mers stored'.format(
+        sketch.n_unique_kmers())
+    message += ';\n    estimated false positive rate is {:1.3f}'.format(fpr)
+    if fpr > maxfpr:
+        message += ' (FPR too high, bailing out!!!)'
+        raise KevlarUnsuitableFPRError('[kevlar::count] ' + message)
+    if outfile:
+        extensions = get_extension(count=count, smallcount=smallcount)
+        if not outfile.endswith(extensions):
+            outfile += extensions[1]
+        sketch.save(outfile)
+        register_saved(outfile, sketch)
+        message += ';\n    saved to "{:s}"'.format(outfile)
+    kevlar_tpu_torch.plog('[kevlar::count]', message)
+    return sketch
+
+
 def print_config(args):
     tabletypes = {1: 'node', 4: 'small count', 8: 'count'}
     maxcounts = {1: 1, 4: 15, 8: 255}
@@ -194,7 +260,8 @@ def main(args):
         args.seqfile, args.ksize, args.memory, args.max_fpr, count=docount,
         smallcount=dosmallcount, mask=mask,
         consume_masked=args.count_masked, numbands=args.num_bands,
-        band=myband, outfile=args.counttable, device=args.device)
+        band=myband, outfile=args.counttable, device=args.device,
+        sketch_format=args.sketch_format)
     if torch.device(args.device).type == 'cuda':
         torch.cuda.synchronize(args.device)
     total = timer.stop()

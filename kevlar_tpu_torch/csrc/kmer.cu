@@ -44,6 +44,13 @@
 //   division) and sends all of a kept k-mer's adds back to back as
 //   fire-and-forget reductions (RED, no return value), so that they are
 //   in flight together: no index tensor, no 64-bit arithmetic, one launch.
+//   Two more modes of the same kernel, for callers other than the count:
+//   with a counter it also adds the number of k-mers it kept to a device
+//   int64 (a block sum, one atomic a block), so that a caller who wants that
+//   number need not apply the predicates again; in mark mode the target is
+//   a table of 8-bit counters and a kept k-mer stores 1 at its buckets (a
+//   presence sketch: plain byte stores of one value, no atomics), where it
+//   can be read by K2 at once, with no accumulator to unpack and pack.
 //   kt_scatter_add takes given indices (what B10 computes): a 2-D grid
 //   gives the table from blockIdx.y, without a division.
 //
@@ -378,8 +385,12 @@ __global__ void scatter_add_kernel(int32_t *__restrict__ acc, int64_t C,
     atomicAdd(acc + t * C + j, 1);       // result unused: a RED
 }
 
+// what a kept k-mer does, and whether the kept k-mers are counted
+constexpr int kAdd = 0, kAddCount = 1, kMark = 2;
+
 struct ConsumeArgs {
-    int32_t *acc;             // [ntables, tablesize]
+    int32_t *acc;             // [ntables, tablesize]; uint8 in mark mode
+    unsigned long long *nkept;  // the kept k-mers' count, kAddCount only
     const int32_t *h1, *h2;   // [n], uint32 bits
     const uint8_t *valid;     // [n]
     const uint8_t *mcnt;      // [n] mask counts, or null
@@ -402,9 +413,21 @@ __device__ __forceinline__ bool consume_keeps(const ConsumeArgs &a,
     return keep;
 }
 
-// All of one k-mer's adds, indices first: T > 0 unrolls, T == 0 loops over
-// a.ntables.
-template <int T>
+// One update of a kept k-mer at bucket idx of table t.
+template <int MODE>
+__device__ __forceinline__ void consume_update(const ConsumeArgs &a, int t,
+                                               uint32_t idx) {
+    int64_t at = (int64_t)t * a.tablesize + idx;
+    if constexpr (MODE == kMark) {
+        reinterpret_cast<uint8_t *>(a.acc)[at] = 1;
+    } else {
+        atomicAdd(a.acc + at, 1);
+    }
+}
+
+// All of one k-mer's updates, indices first: T > 0 unrolls, T == 0 loops
+// over a.ntables.
+template <int T, int MODE>
 __device__ __forceinline__ void consume_one(const ConsumeArgs &a,
                                             uint32_t h1, uint32_t h2) {
     if constexpr (T > 0) {
@@ -414,24 +437,23 @@ __device__ __forceinline__ void consume_one(const ConsumeArgs &a,
             idx[t] = mod_by(h1 + (uint32_t)t * h2, a.tablesize, a.magic);
         }
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-            atomicAdd(a.acc + (int64_t)t * a.tablesize + idx[t], 1);
-        }
+        for (int t = 0; t < T; ++t) consume_update<MODE>(a, t, idx[t]);
     } else {
         for (int t = 0; t < a.ntables; ++t) {
-            uint32_t idx = mod_by(h1 + (uint32_t)t * h2, a.tablesize,
-                                  a.magic);
-            atomicAdd(a.acc + (int64_t)t * a.tablesize + idx, 1);
+            consume_update<MODE>(
+                a, t, mod_by(h1 + (uint32_t)t * h2, a.tablesize, a.magic));
         }
     }
 }
 
 // A thread takes four consecutive k-mers.  VEC: h1/h2 are 16-byte aligned
 // and valid/mcnt 4-byte aligned, so a thread's inputs are four loads.
-template <int T, bool VEC>
+template <int T, bool VEC, int MODE>
 __global__ void consume_kernel(const __grid_constant__ ConsumeArgs a) {
     int64_t g = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-    if (g >= a.n) return;
+    if constexpr (MODE != kAddCount) {
+        if (g >= a.n) return;
+    }  // when counting, every thread of a block reaches the sum below
     uint32_t h1[4], h2[4], valid[4], mcnt[4] = {0, 0, 0, 0};
     if (VEC && g + 4 <= a.n) {
         uint4 x = __ldg(reinterpret_cast<const uint4 *>(a.h1 + g));
@@ -456,12 +478,41 @@ __global__ void consume_kernel(const __grid_constant__ ConsumeArgs a) {
             mcnt[k] = (in && a.mcnt) ? a.mcnt[g + k] : 0u;
         }
     }
+    unsigned kept = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         if (consume_keeps(a, h1[k], valid[k], mcnt[k])) {
-            consume_one<T>(a, h1[k], h2[k]);
+            consume_one<T, MODE>(a, h1[k], h2[k]);
+            ++kept;
         }
     }
+    if constexpr (MODE == kAddCount) {
+        // one atomic a block: every block's goes to the same address, where
+        // they queue up one behind the other
+        __shared__ unsigned warp_kept[kWarps];
+        kept = __reduce_add_sync(0xffffffffu, kept);
+        if ((threadIdx.x & 31) == 0) warp_kept[threadIdx.x >> 5] = kept;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            unsigned total = 0;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) total += warp_kept[w];
+            if (total) atomicAdd(a.nkept, (unsigned long long)total);
+        }
+    }
+}
+
+template <int MODE>
+int launch_consume(const ConsumeArgs &a, bool vec, cudaStream_t st) {
+    unsigned blocks = (unsigned)(((a.n + 3) / 4 + kThreads - 1) / kThreads);
+    if (a.ntables == 4) {
+        if (vec) consume_kernel<4, true, MODE><<<blocks, kThreads, 0, st>>>(a);
+        else consume_kernel<4, false, MODE><<<blocks, kThreads, 0, st>>>(a);
+    } else {
+        if (vec) consume_kernel<0, true, MODE><<<blocks, kThreads, 0, st>>>(a);
+        else consume_kernel<0, false, MODE><<<blocks, kThreads, 0, st>>>(a);
+    }
+    return (int)cudaGetLastError();
 }
 
 inline unsigned blocks_for(int64_t total) {
@@ -583,16 +634,21 @@ int kt_scatter_add(void *acc, int64_t C, const void *idx, int64_t ntables,
 // every k-mer with valid != 0, (h1 & bandmask) == band and, where mcnt is
 // not null, mcnt <= threshold (or >= threshold with `masked`) adds 1 at
 // (h1 + t * h2) mod 2^32 mod tablesize of every table t.  `magic` is
-// floor(2^32 / tablesize) as for kt_gather_counts.
+// floor(2^32 / tablesize) as for kt_gather_counts.  Where `nkept` is not
+// null, the number of k-mers kept is added to the int64 it points to on the
+// device.  With `mark`, acc is uint8 [ntables, tablesize] and a kept k-mer
+// stores 1 at its buckets instead (`nkept` must then be null).
 int kt_consume(void *acc, int64_t tablesize, uint32_t magic, int ntables,
                const void *h1, const void *h2, const void *valid,
                const void *mcnt, int64_t n, uint32_t bandmask, uint32_t band,
-               int threshold, int masked, void *stream) {
+               int threshold, int masked, int mark, void *nkept,
+               void *stream) {
     if (n == 0 || ntables == 0) return 0;
-    if (tablesize < 1 || tablesize >= (int64_t)1 << 31)
+    if (tablesize < 1 || tablesize >= (int64_t)1 << 31 || (mark && nkept))
         return (int)cudaErrorInvalidValue;
     ConsumeArgs a;
     a.acc = (int32_t *)acc;
+    a.nkept = (unsigned long long *)nkept;
     a.h1 = (const int32_t *)h1;
     a.h2 = (const int32_t *)h2;
     a.valid = (const uint8_t *)valid;
@@ -607,16 +663,10 @@ int kt_consume(void *acc, int64_t tablesize, uint32_t magic, int ntables,
     a.masked = masked;
     bool vec = (((uintptr_t)h1 | (uintptr_t)h2) & 15) == 0 &&
                (((uintptr_t)valid | (uintptr_t)mcnt) & 3) == 0;
-    unsigned blocks = blocks_for((n + 3) / 4);
     cudaStream_t st = (cudaStream_t)stream;
-    if (ntables == 4) {
-        if (vec) consume_kernel<4, true><<<blocks, kThreads, 0, st>>>(a);
-        else consume_kernel<4, false><<<blocks, kThreads, 0, st>>>(a);
-    } else {
-        if (vec) consume_kernel<0, true><<<blocks, kThreads, 0, st>>>(a);
-        else consume_kernel<0, false><<<blocks, kThreads, 0, st>>>(a);
-    }
-    return (int)cudaGetLastError();
+    if (mark) return launch_consume<kMark>(a, vec, st);
+    if (nkept) return launch_consume<kAddCount>(a, vec, st);
+    return launch_consume<kAdd>(a, vec, st);
 }
 
 const char *kt_kmer_error_string(int err) {

@@ -170,3 +170,20 @@ def localize(partstream, refrfile, seedsize=51, delta=50, maxdiff=None,
         kevlar_tpu_torch.plog(
             '[kevlar::localize] WARNING: no reference matches')
 
+
+def main(args):
+    from kevlar_tpu_torch.sequence import Record, write_record
+    contigstream = seqio.afxstream(args.contigs)
+    if args.part_id:
+        pstream = seqio.parse_single_partition(contigstream, args.part_id)
+    else:
+        pstream = seqio.parse_partitioned_reads(contigstream)
+    outstream = kevlar_tpu_torch.open(args.out, 'w')
+    for part, gdna in localize(pstream, args.refr, seedsize=args.seed_size,
+                               delta=args.delta, maxdiff=args.max_diff,
+                               inclpattern=args.include,
+                               exclpattern=args.exclude):
+        seqname = gdna.defline
+        if part is not None:
+            seqname += ' kvcc={}'.format(part)
+        write_record(Record(name=seqname, sequence=gdna.sequence), outstream)

@@ -9,9 +9,10 @@ its own index.
 
 :func:`connected_components` dispatches as ``kevlar_tpu`` does: below
 ``HOST_CC_THRESHOLD`` incidence pairs the host union-find, at or above it
-min-label propagation on ``device`` (:func:`connected_components_bipartite`:
-K4 of :mod:`kevlar_tpu_torch.ops.cc_cuda` on a CUDA tensor, the plain
-PyTorch version on a CPU tensor).
+the components on ``device`` (:func:`connected_components_bipartite`: K4 of
+:mod:`kevlar_tpu_torch.ops.cc_cuda`, a one-pass union-find, on a CUDA
+tensor; the plain PyTorch version, min-label propagation, on a CPU
+tensor).
 """
 
 import numpy as np
@@ -59,6 +60,9 @@ def _check(read_ids, kmer_ids, n_reads, n_kmers):
             read_ids.device, kmer_ids.device))
     if n_reads < 1 or n_kmers < 1 or n_reads >= KMER_LABEL_INIT:
         raise ValueError('need 1 <= n_reads < 2^30 and n_kmers >= 1')
+    if n_reads + n_kmers >= 2 ** 31:
+        # K4 numbers k-mer j as node n_reads + j in int32
+        raise ValueError('need n_reads + n_kmers < 2^31')
     for name, x, n in (('read', read_ids, n_reads),
                        ('k-mer', kmer_ids, n_kmers)):
         if x.numel():
@@ -119,7 +123,7 @@ HOST_CC_THRESHOLD = 200_000
 
 def connected_components(read_ids, kmer_ids, n_reads, n_kmers,
                          device='cuda'):
-    """Dispatch to the host union-find or to the propagation on
+    """Dispatch to the host union-find or to the components on
     ``device``; numpy int32 arrays in, numpy int32 labels out."""
     if len(read_ids) < HOST_CC_THRESHOLD:
         return host_connected_components(read_ids, kmer_ids, n_reads,

@@ -19,8 +19,11 @@
   count path's kernel: it takes K1's hashes and validity (and K2's mask
   counts), applies the band and mask predicates and computes the bucket
   indices itself; plain version
-  :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes_plain`.
-  :func:`scatter_add_cuda` takes given indices, as B10 does; plain version
+  :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes_plain`.  The same
+  kernel can add the number of k-mers it kept to a device counter, and in
+  mark mode (:func:`mark_cuda`, plain version ``mark_hashes_plain``) stores
+  1 into a table of 8-bit counters instead.  :func:`scatter_add_cuda` takes
+  given indices, as B10 does; plain version
   :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_plain`.
 
 Each launch function takes tensors its dispatcher has checked, launches on
@@ -114,7 +117,7 @@ def _load():
         lib.kt_consume.restype = ci
         lib.kt_consume.argtypes = [vp, cl, ctypes.c_uint32, ci, vp, vp, vp,
                                    vp, cl, ctypes.c_uint32, ctypes.c_uint32,
-                                   ci, ci, vp]
+                                   ci, ci, ci, vp, vp]
         lib.kt_kmer_error_string.restype = ctypes.c_char_p
         lib.kt_kmer_error_string.argtypes = [ci]
         _lib = lib
@@ -192,22 +195,40 @@ def scatter_add_cuda(acc, idx):
     return acc
 
 
-def consume_cuda(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
-                 consume_masked=False, numbands=None, band=None):
-    """K3 from hashes, on checked tensors (see
-    :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes`): adds in place
-    and returns ``acc``."""
+def _launch_consume(target, h1, h2, valid, mcnt, mask_threshold,
+                    consume_masked, numbands, band, mark, nkept):
     lib = _load()
-    dev = acc.device
-    tablesize = acc.shape[1]
+    dev = target.device
+    tablesize = target.shape[1]
     with torch.cuda.device(dev):
         err = lib.kt_consume(
-            acc.data_ptr(), tablesize, mod_magic(tablesize), acc.shape[0],
-            h1.data_ptr(), h2.data_ptr(), valid.data_ptr(),
+            target.data_ptr(), tablesize, mod_magic(tablesize),
+            target.shape[0], h1.data_ptr(), h2.data_ptr(), valid.data_ptr(),
             None if mcnt is None else mcnt.data_ptr(), h1.numel(),
             numbands - 1 if numbands else 0, band if numbands else 0,
-            int(mask_threshold), int(bool(consume_masked)),
+            int(mask_threshold), int(bool(consume_masked)), int(mark),
+            None if nkept is None else nkept.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, 'kt_consume', err)
     launches['consume'] += 1
-    return acc
+    return target
+
+
+def consume_cuda(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
+                 consume_masked=False, numbands=None, band=None, nkept=None):
+    """K3 from hashes, on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes`): adds in place
+    (and the number of k-mers kept to ``nkept``, where given) and returns
+    ``acc``."""
+    return _launch_consume(acc, h1, h2, valid, mcnt, mask_threshold,
+                           consume_masked, numbands, band, False, nkept)
+
+
+def mark_cuda(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
+              consume_masked=False, numbands=None, band=None):
+    """K3's kernel in mark mode, on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.mark_hashes`): stores 1 at the
+    kept k-mers' buckets of the 8-bit ``tables`` in place and returns
+    them."""
+    return _launch_consume(tables, h1, h2, valid, mcnt, mask_threshold,
+                           consume_masked, numbands, band, True, None)

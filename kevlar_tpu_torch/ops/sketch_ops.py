@@ -14,20 +14,21 @@ and mask counts to :func:`consume_hashes` (K3), which drops k-mers outside
 the band and those the mask screens out, computes each table's bucket index
 and adds 1 per (table, kept k-mer) into an int32 accumulator: one kernel on
 a card, :func:`consume_hashes_plain` (int64 index arithmetic, then
-:func:`scatter_add_plain`) on the CPU.  :func:`scatter_add` is K3's other
-entry, from given indices, where -1 means skip.  The :class:`Accumulator` is
-bucket-ordered
-(``[ntables, tablesize]``): the planar layout of the JAX package exists
-for the TPU's tiling and is not carried over.  It lives for one
-``consume_seqfile`` call, unpacked from the tables at its start and
-saturated and packed back at its end.  Saturating once at the end gives
-the same counts as saturating per increment, because the adds are
-monotone.
+:func:`scatter_add_plain`) on the CPU.  :func:`mark_hashes` is the same
+kernel writing 1 into 8-bit tables instead (a presence sketch).
+:func:`scatter_add` is K3's other entry, from given indices, where -1 means
+skip.  The :class:`Accumulator` is bucket-ordered (``[ntables,
+tablesize]``): the planar layout of the JAX package exists for the TPU's
+tiling and is not carried over.  It lives for one consume (a
+``consume_seqfile`` call, a ``Sketch.consuming()`` block), unpacked from
+the tables at its start and saturated and packed back at its end.
+Saturating once at the end gives the same counts as saturating per
+increment, because the adds are monotone.
 
 Dispatch: on CUDA tensors :func:`gather_counts_multi`,
-:func:`consume_hashes` and :func:`scatter_add` launch their kernels; on CPU
-tensors they run the plain versions beside them.  No path falls back from
-one to the other.
+:func:`consume_hashes`, :func:`mark_hashes` and :func:`scatter_add` launch
+their kernels; on CPU tensors they run the plain versions beside them.  No
+path falls back from one to the other.
 """
 
 import torch
@@ -183,64 +184,118 @@ def scatter_add_plain(acc, idx):
     return acc
 
 
+def _check_consume(target, dtype, h1, h2, valid, mcnt, nkept=None):
+    """The checks a consume and a mark share: ``target`` [T, tablesize] of
+    ``dtype``, the hashed k-mers' vectors alike in shape, all on its
+    device."""
+    if target.dtype != dtype or target.dim() != 2 or \
+            not target.is_contiguous():
+        raise ValueError('the counters must be a contiguous 2-D {} tensor, '
+                         'got {} {}'.format(dtype, target.dtype,
+                                            tuple(target.shape)))
+    if not 1 <= target.shape[1] < (1 << 31):
+        raise ValueError('tablesize must be in [1, 2^31)')
+    for name, x, want in (('h1', h1, torch.int32), ('h2', h2, torch.int32),
+                          ('valid', valid, torch.uint8),
+                          ('mcnt', mcnt, torch.uint8)):
+        if x is None and name == 'mcnt':
+            continue
+        if x.dtype != want or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError('{} must be a contiguous 1-D {} tensor'.format(
+                name, want))
+        if x.shape != h1.shape or x.device != target.device:
+            raise ValueError('{} differs from h1 in shape, or from the '
+                             'counters in device'.format(name))
+    if nkept is not None and (nkept.dtype != torch.int64 or
+                              nkept.numel() != 1 or
+                              nkept.device != target.device):
+        raise ValueError('nkept must be one int64 on the counters\' device')
+    kind = target.device.type
+    if kind not in ('cuda', 'cpu'):
+        raise ValueError('no consume engine for device ' +
+                         str(target.device))
+    return kind
+
+
 def consume_hashes(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
-                   consume_masked=False, numbands=None, band=None):
+                   consume_masked=False, numbands=None, band=None,
+                   nkept=None):
     """Count hashed k-mers into ``acc`` [T, tablesize] int32, in place:
     every k-mer n with ``valid[n] != 0``, inside the band (``h1 &
     (numbands-1) == band``, where ``numbands`` is given) and passing the
     mask (``mcnt[n] <= mask_threshold``, or ``>=`` with ``consume_masked``,
     where ``mcnt`` is given) adds 1 at bucket ``(h1 + t*h2) mod 2^32 mod
-    tablesize`` of every table t.
+    tablesize`` of every table t.  The number of k-mers so counted is added
+    to ``nkept``, one int64 on the device, where given.
 
     ``h1``/``h2`` [N] int32 holding uint32 bits, ``valid`` and ``mcnt`` [N]
     uint8, all on ``acc``'s device.  CUDA tensors launch K3
     (``kt_consume``), CPU tensors run :func:`consume_hashes_plain`."""
-    if acc.dtype != torch.int32 or acc.dim() != 2 or \
-            not acc.is_contiguous():
-        raise ValueError('acc must be a contiguous 2-D int32 tensor')
-    if not 1 <= acc.shape[1] < (1 << 31):
-        raise ValueError('tablesize must be in [1, 2^31)')
-    for name, x, dtype in (('h1', h1, torch.int32), ('h2', h2, torch.int32),
-                           ('valid', valid, torch.uint8),
-                           ('mcnt', mcnt, torch.uint8)):
-        if x is None and name == 'mcnt':
-            continue
-        if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
-            raise ValueError('{} must be a contiguous 1-D {} tensor'.format(
-                name, dtype))
-        if x.shape != h1.shape or x.device != acc.device:
-            raise ValueError('{} differs from h1 in shape, or from acc in '
-                             'device'.format(name))
-    kind = acc.device.type
-    args = (acc, h1, h2, valid, mcnt, mask_threshold, consume_masked,
-            numbands, band)
-    if kind == 'cuda':
-        return kmer_cuda.consume_cuda(*args)
-    if kind == 'cpu':
-        return consume_hashes_plain(*args)
-    raise ValueError('no consume engine for device ' + str(acc.device))
+    kind = _check_consume(acc, torch.int32, h1, h2, valid, mcnt, nkept)
+    engine = kmer_cuda.consume_cuda if kind == 'cuda' else \
+        consume_hashes_plain
+    return engine(acc, h1, h2, valid, mcnt, mask_threshold, consume_masked,
+                  numbands, band, nkept)
 
 
-def consume_hashes_plain(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
-                         consume_masked=False, numbands=None, band=None):
-    """Plain PyTorch version of K3's consume entry, on any device: the
-    predicates and the bucket indices in int64 tensors holding uint32
-    values, then :func:`scatter_add_plain`."""
+def mark_hashes(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
+                consume_masked=False, numbands=None, band=None):
+    """Mark hashed k-mers present in ``tables`` [T, tablesize] uint8 (8-bit
+    counters in the persistent layout), in place: the k-mers
+    :func:`consume_hashes` would count set their bucket of every table to
+    1.  For a presence sketch that is read (by K2) between the batches
+    that fill it: nothing to unpack or pack, and it stays 0 or 1 however
+    often a k-mer comes.  CUDA tensors launch K3's kernel in mark mode, CPU
+    tensors run :func:`mark_hashes_plain`."""
+    kind = _check_consume(tables, torch.uint8, h1, h2, valid, mcnt)
+    engine = kmer_cuda.mark_cuda if kind == 'cuda' else mark_hashes_plain
+    return engine(tables, h1, h2, valid, mcnt, mask_threshold,
+                  consume_masked, numbands, band)
+
+
+def _kept_indices(ntables, tablesize, h1, h2, valid, mcnt, mask_threshold,
+                  consume_masked, numbands, band):
+    """Plain PyTorch: bool [N], the k-mers a consume counts (valid, inside
+    the band, passing the mask), and int32 [T, N], their bucket index in
+    each table with -1 at the others; int64 tensors hold the uint32
+    arithmetic."""
     keep = valid != 0
-    a = hashing.to_u32(h1)
-    b = hashing.to_u32(h2)
     if numbands:
-        keep = keep & ((a & (numbands - 1)) == band)
+        keep = keep & ((hashing.to_u32(h1) & (numbands - 1)) == band)
     if mcnt is not None:
         if consume_masked:
             keep = keep & (mcnt >= mask_threshold)
         else:
             keep = keep & (mcnt <= mask_threshold)
-    tablesize = acc.shape[1]
+    a = hashing.to_u32(h1)
+    b = hashing.to_u32(h2)
     idx = torch.stack([hashing.table_index(a, b, t, tablesize)
-                       for t in range(acc.shape[0])])
-    idx = torch.where(keep, idx, -1).to(torch.int32)
+                       for t in range(ntables)])
+    return keep, torch.where(keep, idx, -1).to(torch.int32)
+
+
+def consume_hashes_plain(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
+                         consume_masked=False, numbands=None, band=None,
+                         nkept=None):
+    """Plain PyTorch version of K3's consume entry, on any device: the
+    predicates and the bucket indices, then :func:`scatter_add_plain`."""
+    keep, idx = _kept_indices(acc.shape[0], acc.shape[1], h1, h2, valid,
+                              mcnt, mask_threshold, consume_masked, numbands,
+                              band)
+    if nkept is not None:
+        nkept += keep.sum()
     return scatter_add_plain(acc, idx)
+
+
+def mark_hashes_plain(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
+                      consume_masked=False, numbands=None, band=None):
+    """Plain PyTorch version of K3's kernel in mark mode, on any device."""
+    keep, idx = _kept_indices(tables.shape[0], tables.shape[1], h1, h2,
+                              valid, mcnt, mask_threshold, consume_masked,
+                              numbands, band)
+    for t in range(tables.shape[0]):
+        tables[t][idx[t][keep].to(torch.int64)] = 1
+    return tables
 
 
 class Accumulator:
@@ -283,7 +338,8 @@ class Accumulator:
 
 
 def consume_codes(accumulator, codes, ksize, numbands=None, band=None,
-                  mask=None, mask_threshold=0, consume_masked=False):
+                  mask=None, mask_threshold=0, consume_masked=False,
+                  nkept=None):
     """Count every k-mer of a batch of base codes (uint8 [N, L], >= 4
     invalid) into ``accumulator``.
 
@@ -291,7 +347,7 @@ def consume_codes(accumulator, codes, ksize, numbands=None, band=None,
     (numbands-1) == band`` (0-based band).  ``mask`` is ``(tables,
     counter_bits, tablesize)`` of a mask sketch on the same device: k-mers
     whose mask count is ``<= mask_threshold`` are kept, or ``>=`` with
-    ``consume_masked``.
+    ``consume_masked``.  ``nkept`` as for :func:`consume_hashes`.
     """
     h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
     h1, h2, valid = h1.reshape(-1), h2.reshape(-1), valid.reshape(-1)
@@ -300,7 +356,37 @@ def consume_codes(accumulator, codes, ksize, numbands=None, band=None,
         mcnt = gather_counts(mask[0], h1, h2, mask[1], mask[2])
     accumulator.add(h1, h2, valid, mcnt=mcnt, mask_threshold=mask_threshold,
                     consume_masked=consume_masked, numbands=numbands,
-                    band=band)
+                    band=band, nkept=nkept)
+
+
+def consume_batch(accumulator, codes, ksize, **predicates):
+    """:func:`consume_codes` of one ``[B, L]`` batch, returning the number
+    of k-mers it counted as a 0-d int64 tensor on the batch's device (no
+    host sync; ``int()`` it only when needed): the consume itself counts
+    them.  Counterpart of ``kevlar_tpu.ops.sketch_ops.consume_batch``, over
+    an open :class:`Accumulator` instead of donated tables."""
+    nkept = torch.zeros(1, dtype=torch.int64, device=codes.device)
+    consume_codes(accumulator, codes, ksize, nkept=nkept, **predicates)
+    return nkept[0]
+
+
+def consume_batch_stack(accumulator, codes_stack, ksize, **predicates):
+    """Count a ``[NB, B, L]`` stack of batches (counterpart of
+    ``kevlar_tpu.ops.sketch_ops.consume_batch_stack``, whose scan over the
+    leading axis is a loop of :func:`consume_codes` here)."""
+    for codes in codes_stack:
+        consume_codes(accumulator, codes, ksize, **predicates)
+
+
+def query_batch(tables, codes, ksize, counter_bits, tablesize):
+    """Counts for every k-mer of a ``[B, L]`` batch of base codes: uint8
+    ``[B, P]`` counts (0 where the window is invalid) and uint8 validity.
+    K1, then K2 (counterpart of ``kevlar_tpu.ops.sketch_ops.query_batch``).
+    """
+    h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
+    counts = gather_counts(tables, h1.reshape(-1), h2.reshape(-1),
+                           counter_bits, tablesize).reshape(valid.shape)
+    return counts * valid, valid
 
 
 def occupancy(tables, counter_bits, tablesize):

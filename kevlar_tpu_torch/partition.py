@@ -7,8 +7,8 @@ read names (contract: reference kevlar/partition.py:15-80). Strict mode
 additionally requires a perfect overlap (ReadPair) before connecting two
 reads; PCR duplicates are dropped per partition unless ``dedup`` is off.
 Component extraction is :mod:`kevlar_tpu_torch.ops.cc_ops`: the host
-union-find on small graphs, label propagation on ``device`` (K4 on a GPU)
-on large ones.
+union-find on small graphs, the components on ``device`` (K4 on a GPU) on
+large ones.
 """
 
 import kevlar_tpu_torch

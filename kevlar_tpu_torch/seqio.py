@@ -11,7 +11,7 @@ from itertools import groupby
 import re
 
 import kevlar_tpu_torch
-from kevlar_tpu_torch.sequence import Record
+from kevlar_tpu_torch.sequence import Record, parse_augmented_fastx
 
 _PART_LABEL = re.compile(r'kvcc=(\d+)')
 
@@ -86,6 +86,11 @@ def multi_file_iter(filenames, parser=parse_fastx):
     for filename in filenames:
         with kevlar_tpu_torch.open(filename, 'r') as fh:
             yield from parser(fh)
+
+
+def afxstream(filelist):
+    for infile in filelist:
+        yield from parse_augmented_fastx(kevlar_tpu_torch.open(infile, 'r'))
 
 
 def partition_id(readname):

@@ -93,6 +93,9 @@ def print_augmented_fastx(record, outstream):
         outstream.write(recstr)
 
 
+write_record = print_augmented_fastx
+
+
 def parse_augmented_fastx(instream):
     """Parse augmented FASTA/FASTQ records (generator)."""
     record = None

@@ -15,6 +15,7 @@ tablesize] uint8, unpacked), ``ksize``, ``tablesize``, ``ntables``,
 .ct, ...) names the counter width.  Either package loads the other's files.
 """
 
+import contextlib
 import io
 import os
 import zipfile
@@ -87,6 +88,7 @@ class Sketch:
         self.backend = backend
         self._n_occupied = None
         self._host_tables = None
+        self._acc = None
         if backend == 'host':
             self.device = None
             if tables is None:
@@ -111,6 +113,34 @@ class Sketch:
                     tuple(values.shape), self.ntables, tablesize))
             self.tables = sketch_ops.pack_rows(values.to(self.device),
                                                self.counter_bits)
+
+    # -- the accumulator of a batch consume ------------------------------
+    @contextlib.contextmanager
+    def consuming(self):
+        """Hold a device sketch's int32 :class:`~kevlar_tpu_torch.ops.
+        sketch_ops.Accumulator` open over a loop of batch consumes::
+
+            with sketch.consuming():
+                for bases in batches:
+                    sketch.consume_batch(bases)
+
+        The block's entry unpacks the tables into it and its exit saturates
+        and packs them back, once for all its batches; inside, ``tables`` is
+        None and the sketch cannot be read.  A batch consume outside a block
+        is a block of its own.  Blocks nest: the outermost closes."""
+        if self.backend != 'device':
+            raise ValueError('a host-backend sketch has no accumulator')
+        if self._acc is not None:
+            yield self._acc
+            return
+        self._acc = sketch_ops.Accumulator(self.tables, self.counter_bits,
+                                           self.tablesize)
+        self.tables = None
+        self._invalidate()
+        try:
+            yield self._acc
+        finally:
+            self.tables, self._acc = self._acc.tables(), None
 
     # -- khmer-parity introspection ------------------------------------
     def ksize(self):
@@ -144,6 +174,9 @@ class Sketch:
         a sketch (a consume's mask, a screen's sample)."""
         if self.backend != 'device':
             raise ValueError('a host-backend sketch has no device tables')
+        if self._acc is not None:
+            raise ValueError('the sketch is inside a consuming() block: its '
+                             'tables are packed when the block ends')
         return self.tables, self.counter_bits, self.tablesize
 
     # -- host mirror (always unpacked counter values) ---------------------
@@ -180,6 +213,22 @@ class Sketch:
         self._n_occupied = None
         return len(h1)
 
+    # -- hashing helpers ------------------------------------------------
+    def hash(self, kmer):
+        """64-bit canonical hash of a k-mer string (h1<<32 | h2)."""
+        h1, h2 = dna.hash_kmer(kmer)
+        return (h1 << 32) | h2
+
+    def reverse_hash(self, value):
+        """Table hashes are one-way (khmer raises the same error for its
+        table types; only graph types hash reversibly)."""
+        raise ValueError('reverse hashing not implemented for table-hashed '
+                         'sketches')
+
+    def get_kmers(self, seq):
+        k = self._ksize
+        return [seq[i:i + k] for i in range(len(seq) - k + 1)]
+
     # -- point/host queries ----------------------------------------------
     def _host_counts(self, h1, h2, valid=None):
         tables = self._host()
@@ -202,7 +251,147 @@ class Sketch:
         h1, h2, valid = dna.kmer_hashes(dna.encode(seq), self._ksize)
         return [int(c) for c in self._host_counts(h1, h2, valid)]
 
+    def get_kmer_hashes(self, seq):
+        """64-bit canonical hashes for the valid k-mers of `seq`
+        (khmer-contract API; hash values use this package's scheme, with
+        the same canonicality invariant)."""
+        h1, h2, valid = dna.kmer_hashes(dna.encode(seq), self._ksize)
+        keys = (h1.astype(np.uint64) << np.uint64(32)) | h2.astype(np.uint64)
+        return [int(key) for key, v in zip(keys, valid) if v]
+
+    def abundance_distribution(self, records, tracking):
+        """Histogram of distinct-k-mer abundances, khmer-style.
+
+        ``records`` is an iterable of Records (or a filename); ``tracking``
+        is a presence sketch (counter_bits=1, host backend) used to count
+        each distinct k-mer exactly once across calls.  Returns a
+        length-256 array where entry ``c`` is the number of distinct
+        k-mers with count ``c``.  Host point queries, as in ``kevlar_tpu``;
+        the ``dist`` stage has its own pass on the device.
+        """
+        from kevlar_tpu_torch import seqio
+        from kevlar_tpu_torch.batch import batches_from_records
+        if isinstance(records, str):
+            records = seqio.multi_file_iter([records])
+        hist = np.zeros(256, dtype=np.int64)
+        for batch in batches_from_records(records):
+            h1, h2, valid = dna.kmer_hashes(batch.bases, self._ksize)
+            h1, h2, valid = h1.ravel(), h2.ravel(), valid.ravel()
+            fresh = valid & (tracking._host_counts(h1, h2, valid) == 0)
+            if not fresh.any():
+                continue
+            keys = (h1.astype(np.uint64) << np.uint64(32)) | \
+                h2.astype(np.uint64)
+            _, first = np.unique(keys[fresh], return_index=True)
+            idx = np.flatnonzero(fresh)[first]
+            counts = self._host_counts(h1[idx], h2[idx])
+            np.add.at(hist, np.clip(counts, 0, 255).astype(np.int64), 1)
+            tracking._host_consume_hashes(h1[idx], h2[idx])
+        return hist
+
     # -- mutation ---------------------------------------------------------
+    def add(self, kmer):
+        self.consume(kmer)
+
+    def count(self, kmer):
+        self.consume(kmer)
+
+    def consume(self, seq):
+        """Count every k-mer in a sequence string; returns the number of
+        k-mers consumed.  The sequence is padded to a bucketed length, as a
+        read batch is."""
+        if len(seq) < self._ksize:
+            return 0
+        from kevlar_tpu_torch.batch import bucket_length
+        pad = bucket_length(len(seq))
+        bases = np.full((1, pad), 4, dtype=np.uint8)
+        bases[0, :len(seq)] = dna.encode(seq)
+        return int(self.consume_batch(bases))
+
+    def _codes(self, bases):
+        """``bases`` (numpy or tensor, uint8 base codes, 4 = not ACGT) as a
+        contiguous tensor on the sketch's device."""
+        if not torch.is_tensor(bases):
+            bases = torch.from_numpy(np.ascontiguousarray(bases, np.uint8))
+        return bases.to(self.device).contiguous()
+
+    def _mask_spec(self, mask):
+        """``(tables, counter_bits, tablesize)`` of a consume's mask on
+        this sketch's device (a host-backend mask is packed and shipped)."""
+        if mask is None:
+            return None
+        if not isinstance(mask, Sketch):
+            raise ValueError('the mask of a device consume must be a sketch '
+                             'of this package\'s format, not khmer\'s: '
+                             'their hash spaces differ')
+        if mask.backend == 'host':
+            packed = sketch_ops.pack_rows(
+                torch.from_numpy(mask.tables).to(self.device),
+                mask.counter_bits)
+            return packed, mask.counter_bits, mask.tablesize
+        if mask.device != self.device:
+            raise ValueError('mask is on {}, sketch on {}'.format(
+                mask.device, self.device))
+        return mask.table_spec()
+
+    def consume_batch(self, bases, numbands=None, band=None, mask=None,
+                      mask_threshold=0, consume_masked=False):
+        """Count all k-mers of a padded ``[B, L]`` base-code batch.
+
+        A device sketch hashes the batch (K1), gets the mask's counts (K2)
+        and scatters into its accumulator (K3's consume, which also counts
+        what it kept) on its device: the kernels on a GPU, their plain
+        versions on the CPU.  A loop of calls goes inside a
+        :meth:`consuming` block.  Returns the number of k-mers consumed: a
+        0-d tensor on the device (no host sync per batch), an int on the
+        host backend.
+        """
+        if self.backend == 'host':
+            h1, h2, valid = dna.kmer_hashes(np.asarray(bases), self._ksize)
+            if numbands:
+                valid = valid & ((h1 & np.uint32(numbands - 1))
+                                 == np.uint32(band))
+            if mask is not None:
+                mcnt = mask._host_counts(h1, h2)
+                if consume_masked:
+                    valid = valid & (mcnt >= mask_threshold)
+                else:
+                    valid = valid & (mcnt <= mask_threshold)
+            return self._host_consume_hashes(h1, h2, valid)
+        maskspec = self._mask_spec(mask)
+        with self.consuming() as acc:
+            return sketch_ops.consume_batch(
+                acc, self._codes(bases), self._ksize, numbands=numbands,
+                band=band, mask=maskspec, mask_threshold=mask_threshold,
+                consume_masked=consume_masked)
+
+    def consume_batch_stack(self, bases_stack, numbands=None, band=None,
+                            mask=None, mask_threshold=0,
+                            consume_masked=False):
+        """Count a ``[NB, B, L]`` stack of batches."""
+        if self.backend == 'host':
+            for bases in bases_stack:
+                self.consume_batch(bases, numbands=numbands, band=band,
+                                   mask=mask, mask_threshold=mask_threshold,
+                                   consume_masked=consume_masked)
+            return
+        maskspec = self._mask_spec(mask)
+        with self.consuming() as acc:
+            sketch_ops.consume_batch_stack(
+                acc, self._codes(bases_stack), self._ksize,
+                numbands=numbands, band=band, mask=maskspec,
+                mask_threshold=mask_threshold, consume_masked=consume_masked)
+
+    def query_batch(self, bases):
+        """Device query: uint8 ``[B, P]`` counts (0 at invalid windows) and
+        validity for a base-code batch, tensors on the sketch's device: K1,
+        then K2."""
+        if self.backend != 'device':
+            raise ValueError('query_batch needs a device sketch')
+        return sketch_ops.query_batch(self.tables, self._codes(bases),
+                                      self._ksize, self.counter_bits,
+                                      self.tablesize)
+
     def consume_hashes(self, h1, h2, valid=None):
         """Count pre-hashed k-mers (uint32 arrays); returns the number
         counted.  A device sketch computes their bucket indices and
@@ -217,13 +406,10 @@ class Sketch:
         a = torch.from_numpy(h1.astype(np.int64)).to(self.device)
         b = torch.from_numpy(h2.astype(np.int64)).to(self.device)
         ok = torch.from_numpy(keep).to(self.device)
-        acc = sketch_ops.Accumulator(self.tables, self.counter_bits,
-                                     self.tablesize)
         idx = torch.stack([hashing.table_index(a, b, t, self.tablesize)
                            for t in range(self.ntables)])
-        acc.add_indices(torch.where(ok, idx, -1).to(torch.int32))
-        self.tables = acc.tables()
-        self._invalidate()
+        with self.consuming() as acc:
+            acc.add_indices(torch.where(ok, idx, -1).to(torch.int32))
         return int(keep.sum())
 
     # -- persistence ------------------------------------------------------
@@ -280,6 +466,20 @@ def estimate_fpr(sketch):
     occ = float(sketch.n_occupied())
     fp_one = occ / min(sketch.hashsizes())
     return fp_one ** float(sketch.ntables)
+
+
+def allocate(ksize, target_tablesize, num_tables=4, count=False, graph=False,
+             smallcount=False, device='cuda'):
+    bits = (4 if smallcount else 8) if count else 1
+    if graph:
+        # khmer graph types hash with the reversible 2-bit code (and khmer
+        # raises on reverse_hash for table types); graphs are control-plane
+        # objects in kevlar, so the khmer-compatible host engine serves them
+        from kevlar_tpu_torch.oxli import OxliSketch
+        return OxliSketch(ksize, target_tablesize, num_tables,
+                          counter_bits=bits, hash_mode='twobit')
+    return Sketch(ksize, target_tablesize, num_tables, counter_bits=bits,
+                  device=device)
 
 
 def allocate_from_memory(ksize, memory, num_tables=4, counter_bits=8,
@@ -350,8 +550,10 @@ def _cached_load(filename, device, backend):
     if key is None or key != _stat_key(path):
         del _process_cache[path]  # file changed on disk since we wrote it
         return None
-    same_place = sketch.backend == backend and (
-        backend == 'host' or sketch.device == torch.device(device))
+    # a khmer-format sketch lives on the host whatever the caller asks
+    same_place = not isinstance(sketch, Sketch) or (
+        sketch.backend == backend and (
+            backend == 'host' or sketch.device == torch.device(device)))
     return sketch if same_place else None
 
 
@@ -391,6 +593,25 @@ def load(filename, device='cuda', backend='device', cache=True):
     return sketch
 
 
+def autoload(infile, count=True, graph=False, ksize=31, table_size=1e4,
+             num_tables=4, num_bands=None, band=None, device='cuda'):
+    """Load a sketch file, or build one from FASTA/FASTQ input."""
+    try:
+        return load(infile, device=device)
+    except KevlarSketchTypeError:
+        sketch = allocate(ksize, table_size, num_tables, count=count,
+                          graph=graph, smallcount=False, device=device)
+        if graph:
+            # khmer-engine object: its own (khmer-semantics) consume;
+            # library-level band indices are 0-based, as in the reference
+            sketch.consume_seqfile(infile, numbands=num_bands, band=band)
+            return sketch
+        from kevlar_tpu_torch import count as count_mod
+        count_mod.consume_seqfile(sketch, [infile], numbands=num_bands,
+                                  band=band)
+        return sketch
+
+
 class BandedSketchView:
     """Host-side read-only view over N per-band sketch files.
 
@@ -412,8 +633,9 @@ class BandedSketchView:
         self._ksize = ksizes.pop()
 
     @classmethod
-    def load(cls, filenames):
-        return cls([load(f, backend='host', cache=False) for f in filenames])
+    def load(cls, filenames, backend='host', device='cuda'):
+        return cls([load(f, device=device, backend=backend, cache=False)
+                    for f in filenames])
 
     def ksize(self):
         return self._ksize
@@ -431,6 +653,11 @@ class BandedSketchView:
             counts[sel] = sk._host_counts(h1[sel], h2[sel])
         return [int(c) for c in counts]
 
+    def get(self, kmer):
+        h1, h2 = dna.hash_kmer(kmer)
+        b = int(np.uint32(h1) & np.uint32(self._numbands - 1))
+        return self._sketches[b].get(kmer)
+
 
 def load_sketchfiles(sketchfiles, maxfpr=0.2, device='cuda'):
     """Load each sketch file; raises KevlarUnsuitableFPRError when a
@@ -440,7 +667,7 @@ def load_sketchfiles(sketchfiles, maxfpr=0.2, device='cuda'):
     for sketchfile in sketchfiles:
         plog('[kevlar::sketch]     loading sketchfile "{}"...'.format(
             sketchfile))
-        sketch = load(sketchfile, device=device)
+        sketch = autoload(sketchfile, device=device)
         fpr = estimate_fpr(sketch)
         message = 'estimated false positive rate is {:1.3f}'.format(fpr)
         if fpr > maxfpr:

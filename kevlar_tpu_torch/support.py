@@ -1,5 +1,7 @@
-"""Host-side observability helpers (a copy of ``kevlar_tpu.support``'s
-:class:`Timer` and :class:`ProgressIndicator`).
+"""Host-side observability and simulation helpers (a copy of
+``kevlar_tpu.support``): :class:`Timer`, :class:`ProgressIndicator` and
+:class:`MutableString`, the editable character buffer of the genome
+simulators (``gentrio``, ``mutate``).
 
 - :class:`Timer` — named wall-clock phase spans (behavioral contract:
   reference kevlar/timer.py:13-39).
@@ -76,3 +78,58 @@ class ProgressIndicator:
         if self._clock is not None:
             text += ' ({:.2f} seconds elapsed)'.format(self._clock.probe())
         kevlar_tpu_torch.plog(text)
+
+
+class MutableString:
+    """An editable ASCII character buffer with string-like indexing.
+
+    Backed by a ``bytearray`` so genome-scale point edits, insertions, and
+    deletions (gentrio/mutate) are O(1)/O(n) on bytes rather than on a list
+    of one-character Python strings.
+    """
+
+    __slots__ = ('_buf',)
+
+    def __init__(self, data=''):
+        if isinstance(data, MutableString):
+            self._buf = bytearray(data._buf)
+        else:
+            self._buf = bytearray(str(data), 'ascii')
+
+    def __str__(self):
+        return self._buf.decode('ascii')
+
+    __repr__ = __str__
+
+    def __len__(self):
+        return len(self._buf)
+
+    def __eq__(self, other):
+        return str(self) == str(other)
+
+    def __contains__(self, sub):
+        return str(sub).encode('ascii') in self._buf
+
+    def __getitem__(self, index):
+        piece = self._buf[index]
+        if isinstance(piece, int):
+            return chr(piece)
+        return piece.decode('ascii')
+
+    def __setitem__(self, index, value):
+        if isinstance(index, slice):
+            self._buf[index] = str(value).encode('ascii')
+        else:
+            self._buf[index] = ord(str(value))
+
+    def __delitem__(self, index):
+        del self._buf[index]
+
+    def __add__(self, tail):
+        joined = MutableString()
+        joined._buf = self._buf + str(tail).encode('ascii')
+        return joined
+
+    def __iadd__(self, tail):
+        self._buf += str(tail).encode('ascii')
+        return self

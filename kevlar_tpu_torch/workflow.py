@@ -67,8 +67,10 @@ def _mem(value, default):
     return memory_setting(value)
 
 
-def run_mark1(config):
-    """Run the full trio workflow; returns the final VCF path."""
+def run_mark1(config, logstream=None):
+    """Run the full trio workflow; returns the final VCF path.
+    ``logstream`` is accepted for ``kevlar_tpu``'s signature and unused, as
+    there: diagnostics go to ``kevlar_tpu_torch.plog``."""
     from kevlar_tpu_torch import count as count_mod
     from kevlar_tpu_torch import novel as novel_mod
     from kevlar_tpu_torch import filter as filter_mod

@@ -188,9 +188,17 @@ def test_port_imports_no_jax():
             'import kevlar_tpu_torch.simlike, kevlar_tpu_torch.workflow\n'
             'import kevlar_tpu_torch.oxli, kevlar_tpu_torch.ops.cc_cuda\n'
             'import kevlar_tpu_torch.varfilter, kevlar_tpu_torch.readgraph\n'
+            'import kevlar_tpu_torch.split, kevlar_tpu_torch.unband\n'
+            'import kevlar_tpu_torch.augment, kevlar_tpu_torch.assemble\n'
+            'import kevlar_tpu_torch.localize, kevlar_tpu_torch.mutate\n'
+            'import kevlar_tpu_torch.gentrio, kevlar_tpu_torch.mutsim\n'
+            'import kevlar_tpu_torch.evaluate, kevlar_tpu_torch.dist\n'
+            'import kevlar_tpu_torch.sketch, kevlar_tpu_torch.support\n'
             'import kevlar_tpu_torch.cli as c\n'
-            'for name in ("filter", "partition", "simlike", "varfilter"):\n'
+            'assert len(c.mains()) == len(c.SUBPARSER_FUNCS) == 16\n'
+            'for name in c.SUBPARSER_FUNCS:\n'
             '    c.mains()[name]\n'
+            'c.parser()\n'
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "kevlar_tpu.")) or m == "kevlar_tpu"]\n'
             'assert not bad, bad\n'

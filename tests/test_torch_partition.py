@@ -8,8 +8,13 @@ port with ``--device cpu``).  The port's plain label propagation must give
 the labels of ``kevlar_tpu.ops.cc_ops.connected_components_bipartite_jit``
 (JAX on the CPU) and of the host union-find, on random graphs, chains,
 isolated reads and duplicate pairs, and through the dispatcher on a graph
-above ``HOST_CC_THRESHOLD``.  The ``cuda``-marked test holds K4 to the
-plain version on the card and skips here.
+above ``HOST_CC_THRESHOLD``.  K4 itself (``csrc/cc.cu``, a lock-free
+union-find) is emulated in Python integers, :func:`_emulate_union_find`:
+its hook and flatten kernels memory access by memory access, with the
+threads of the hook kernel interleaved at random between accesses to stand
+in for the card's races; its labels must equal all of the above under
+every interleaving tried.  The ``cuda``-marked test holds K4 to the plain
+version on the card and skips here.
 
 The JAX package is imported inside the tests that compare with it, so the
 ``cuda`` test also runs where JAX is absent (the machine with the card):
@@ -139,6 +144,118 @@ def test_label_propagation_matches_jax_and_union_find(graph):
         want)
 
 
+# -- K4's union-find, emulated ------------------------------------------------
+
+def _find_root(parent, x):
+    """``find_root`` of csrc/cc.cu as a generator that yields before every
+    access to ``parent`` (a load, or the path-halving store), so that a
+    scheduler can run other threads in between; returns the root."""
+    yield
+    p = parent[x]
+    while p != x:
+        yield
+        g = parent[p]
+        if g != p:
+            yield
+            parent[x] = g
+        x, p = p, g
+    return x
+
+
+def _hook_thread(parent, read, kmer_node):
+    """One thread of ``kt_cc_hook``: link the roots of a pair's two nodes,
+    the larger onto the smaller, by compare-and-swap (atomic: no yield
+    inside it), retrying from the new roots when the swap loses."""
+    a = yield from _find_root(parent, read)
+    b = yield from _find_root(parent, kmer_node)
+    while a != b:
+        hi, lo = max(a, b), min(a, b)
+        yield
+        seen = parent[hi]
+        if seen == hi:
+            parent[hi] = lo
+            break
+        a = yield from _find_root(parent, seen)
+        b = yield from _find_root(parent, lo)
+
+
+def _emulate_union_find(reads, kmers, n_reads, n_kmers, rng, resident):
+    """Labels of K4's three kernels: ``kt_cc_init``, then ``kt_cc_hook``
+    with one thread a pair, started in a shuffled order, up to ``resident``
+    of them alive at a time and the next memory access always made by one
+    of those picked at random, then ``kt_cc_flatten``."""
+    parent = list(range(n_reads + n_kmers))
+    order = rng.permutation(len(reads)).tolist()
+    alive = []
+    while order or alive:
+        while order and len(alive) < resident:
+            e = order.pop()
+            alive.append(_hook_thread(parent, int(reads[e]),
+                                      n_reads + int(kmers[e])))
+        slot = int(rng.integers(len(alive)))
+        try:
+            next(alive[slot])
+        except StopIteration:
+            alive[slot] = alive[-1]
+            alive.pop()
+    assert all(parent[i] <= i for i in range(len(parent)))
+    labels = np.empty(n_reads, dtype=np.int32)
+    for i in range(n_reads):
+        x = i
+        while parent[x] != x:
+            x = parent[x]
+        labels[i] = x
+    return labels
+
+
+def _uf_graphs():
+    """Small versions of every family of the smoke's ``_cc_graphs``."""
+    rng = np.random.default_rng(23)
+    reads = rng.integers(0, 300, 1200) * 2            # odd reads isolated
+    kmers = rng.integers(0, 2400, 1200)               # most k-mers single
+    dup = rng.integers(0, 1200, 300)
+    return _graphs() + [
+        ('isolated-single-duplicate',
+         np.concatenate([reads, reads[dup]]).astype(np.int32),
+         np.concatenate([kmers, kmers[dup]]).astype(np.int32), 601, 2400),
+        ('hot-kmer', rng.integers(0, 200, 600).astype(np.int32),
+         rng.integers(0, 4, 600).astype(np.int32), 200, 4),
+        ('E=0', np.zeros(0, np.int32), np.zeros(0, np.int32), 17, 1)]
+
+
+@pytest.mark.parametrize('resident', [1, 7, 64], ids=lambda r: 'x%d' % r)
+@pytest.mark.parametrize('graph', _uf_graphs(), ids=lambda g: g[0])
+def test_union_find_emulation_matches_plain_and_jax(graph, resident):
+    from kevlar_tpu.ops import cc_ops as jax_cc
+    _, reads, kmers, n_reads, n_kmers = graph
+    want = cc_ops.connected_components_plain(
+        torch.from_numpy(reads), torch.from_numpy(kmers), n_reads,
+        n_kmers).numpy()
+    np.testing.assert_array_equal(
+        cc_ops.host_connected_components(reads, kmers, n_reads, n_kmers),
+        want)
+    if len(reads):
+        np.testing.assert_array_equal(np.asarray(
+            jax_cc.connected_components_bipartite_jit(
+                reads, kmers, n_reads=n_reads, n_kmers=n_kmers)), want)
+    for seed in range(3):
+        rng = np.random.default_rng(1000 * resident + seed)
+        got = _emulate_union_find(reads, kmers, n_reads, n_kmers, rng,
+                                  resident)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_node_count_beyond_int32_is_refused():
+    """K4 numbers k-mer j as node n_reads + j in int32."""
+    reads = torch.tensor([0], dtype=torch.int32)
+    kmers = torch.tensor([0], dtype=torch.int32)
+    with pytest.raises(ValueError, match='n_reads \\+ n_kmers'):
+        cc_ops.connected_components_bipartite(reads, kmers, 2 ** 29,
+                                              2 ** 31 - 2 ** 29)
+    with pytest.raises(ValueError, match='2\\^30'):
+        cc_ops.connected_components_bipartite(reads, kmers, 2 ** 30, 1)
+
+
 def test_empty_incidence_keeps_every_read_alone():
     empty = torch.zeros(0, dtype=torch.int32)
     np.testing.assert_array_equal(
@@ -205,10 +322,10 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cc_kernel_matches_plain_on_card(cuda_device):
     before = cc_cuda.launches['cc_labels']
-    for _, reads, kmers, n_reads, n_kmers in _graphs():
+    for _, reads, kmers, n_reads, n_kmers in _uf_graphs():
         r = torch.from_numpy(reads).to(cuda_device)
         k = torch.from_numpy(kmers).to(cuda_device)
         got = cc_cuda.cc_labels_cuda(r, k, n_reads, n_kmers)
         want = cc_ops.connected_components_plain(r, k, n_reads, n_kmers)
         assert torch.equal(got, want)
-    assert cc_cuda.launches['cc_labels'] == before + len(_graphs())
+    assert cc_cuda.launches['cc_labels'] == before + len(_uf_graphs())
