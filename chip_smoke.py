@@ -1,14 +1,11 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about 12 minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 13 minutes
     python3 chip_smoke.py --compare-parent DIR
                                  # the aligner, the consume step and a
                                  # helium sample count of this tree against
                                  # an older checkout in DIR
-    python3 chip_smoke.py --compare-k4 DIR
-                                 # K4 of an older checkout in DIR against
-                                 # this tree's, each through its own wrapper
     python3 chip_smoke.py --profile-workflow
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
@@ -40,7 +37,13 @@ Phases (any failure raises, and the script exits non-zero):
    0.90 fails.  Then the ``call`` path from files, on the same reads:
    ``split`` into two shards, ``assemble``, ``localize`` and ``call
    --device cuda`` each; B1 must launch, and the shards' records together
-   must be the alac run's;
+   must be the alac run's.  Then the seeds phase: the alac run's seed set
+   through ``SeedIndex`` with the host and the device backend on the same
+   index (ranges and lookup dicts identical; the keys' copy to the card,
+   the device search queued behind a spin kernel, host ``np.searchsorted``
+   and each whole lookup timed, the search's bound printed), and shard 0's
+   ``localize`` with ``KEVLAR_SEED_BACKEND=device`` (cutouts identical to
+   the host run's; the device search must run);
 5. count kernels: K1 (k-mer hashing of base codes) at k = 15, 21, 31, 32,
    33 and 51 with N bases, padding rows, row lengths that are not a
    multiple of 4, 8 or 16, rows of 1,024 bases and rows that start off a
@@ -91,7 +94,15 @@ Phases (any failure raises, and the script exits non-zero):
    exist, the four de novo SNVs must be PASS calls at their positions, and
    no PASS call may lie more than 10 bp from a de novo locus.  Whether the
    300 bp insertion was called, the stage walls, the peak RSS and the read
-   and call counts of each stage are printed;
+   and call counts of each stage are printed.  Then the simlike phase: the
+   run's preliminary calls through ``cli.main(['simlike', ..., '--device',
+   'cuda'])`` on the trio's tables, host (default), with
+   ``KEVLAR_SIMLIKE_BATCH=1`` (VCF text identical; K1 and K2 must launch)
+   and with ``KEVLAR_SIMLIKE_DEVICE=1`` (the same PASS set, every LIKESCORE
+   within rel 1e-4, abs 1e-2 of host's); and ``score_bundles`` on 100,000
+   seeded trio bundles (K 0-64) on the card, timed beside its bound, 1,000
+   of them held to the float64 host functions (rel 2e-5, abs 2e-3, the
+   same ranking);
 10. dist: ``cli.main(['dist', ..., '--device', 'cuda'])`` with the trio's
    1-bit reference mask over the proband's FASTQ (``-M 500M``).  K1, K2
    and K3's consume must each launch, mu must lie in ``DIST_MU_BAND``
@@ -100,7 +111,11 @@ Phases (any failure raises, and the script exits non-zero):
    Then ``Sketch.query_batch`` of one batch of reads against the proband's
    table on the card must equal the host mirror's counts.
 
-The last two lines of standard output are the kernels record (JSON: B1,
+Before the card's name, a JSON line ``{"programs": [...]}`` records the
+two XLA programs ported as plain torch (B7 ``seed_ranges``, B8
+``score_bundles``): launches on their paths, ms, the host version's ms and
+the bound.  The last two lines of standard output are the kernels record
+(JSON: B1,
 K1, K2, K3's two entries and K4, each with its launches on its path's run,
 max_abs_err, ms,
 plain_ms, its bound on this run's inputs (``bound_ms``, ``bound_by``: the
@@ -1118,9 +1133,18 @@ def phase_slice(device, workdir):
         seen.append((list(targets), list(queries), kw, out))
         return out
 
+    # the run's seed set, for the seeds phase
+    seedsets = []
+    lookup_fn = reference.SeedIndex.lookup
+
+    def recording_lookup(index, seeds):
+        seedsets.append(set(seeds))
+        return lookup_fn(index, seeds)
+
     vcfpath = os.path.join(workdir, 'calls.vcf')
     logpath = os.path.join(workdir, 'alac.log')
     align_cuda.align_batch = recording
+    reference.SeedIndex.lookup = recording_lookup
     align_cuda.launches = 0
     t0 = time.time()
     try:
@@ -1128,6 +1152,7 @@ def phase_slice(device, workdir):
                   '--device', device, '-o', vcfpath, reads, refr])
     finally:
         align_cuda.align_batch = batch_fn
+        reference.SeedIndex.lookup = lookup_fn
         if kevlar_tpu_torch.logstream not in (None, sys.stderr):
             kevlar_tpu_torch.logstream.close()
         kevlar_tpu_torch.logstream = None
@@ -1201,7 +1226,8 @@ def phase_slice(device, workdir):
           flush=True)
     return dict(launches=launches, err=err, ms=ms, dp_ms=dp_ms, tb_ms=tb_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                reads=reads, refr=refr, vcf=vcfpath, rows=seen)
+                reads=reads, refr=refr, vcf=vcfpath, rows=seen,
+                seeds=seedsets[-1])
 
 
 def _run_cli(argv, logpath):
@@ -1275,6 +1301,269 @@ def phase_call(device, workdir, refr, reads, alac_vcf, shards=2):
                                        for k, v in walls.items()),
               sum(walls.values()), launches, len(records)), flush=True)
     return dict(launches=launches, walls=walls)
+
+
+def _host_times(fn, reps):
+    """(last result, [ms of each of ``reps`` calls of ``fn``]) by the host
+    clock."""
+    times = []
+    for _ in range(reps):
+        t0 = time.time()
+        out = fn()
+        times.append(1e3 * (time.time() - t0))
+    return out, times
+
+
+def phase_seeds(device, workdir, refr, seeds, shard=0, reps=3):
+    """Seeds phase: the device seed search (B7) against the host search on
+    phase 4's seed index and the alac run's seed set (``seeds``), then
+    ``localize`` of shard ``shard`` of the call path with
+    ``KEVLAR_SEED_BACKEND=device``, whose cutouts must be the call path's
+    (host search)."""
+    import math
+    import torch
+    from kevlar_tpu_torch import dna, reference
+    from kevlar_tpu_torch.ops import seed_ops
+
+    host = reference.autoindex(refr, 51, device=device)
+    if host.backend != 'host':
+        raise AssertionError('phase 4 left a {} index'.format(host.backend))
+    dev = reference.SeedIndex.from_file(
+        reference.index_path(refr, 51), host.refrseqs, backend='device',
+        device=device)
+    nkeys = len(dev._keys)
+    _, flip_ms = _host_times(lambda: seed_ops.ordered_int64(dev._keys), 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    keys = dev.device_keys()
+    torch.cuda.synchronize()
+    copy_ms = 1e3 * (time.time() - t0)
+
+    seedlist = sorted(seeds)
+    qbases, _ = dna.encode_batch(seedlist)
+    qcodes, _ = dna.seed_codes(qbases, 51)
+    qkeys = reference._fold_codes(qcodes[:, 0, :])
+    queries = torch.from_numpy(seed_ops.ordered_int64(qkeys)).to(device)
+    (start, count), ms = _timed(seed_ops.seed_ranges, keys, queries,
+                                reps=reps, spin=True)
+    (lo, hi), host_ms = _host_times(
+        lambda: (np.searchsorted(host._keys, qkeys, side='left'),
+                 np.searchsorted(host._keys, qkeys, side='right')), reps)
+    if not (np.array_equal(start.cpu().numpy(), lo) and
+            np.array_equal(count.cpu().numpy(), hi - lo)):
+        raise AssertionError('device seed ranges differ from np.searchsorted')
+    sectors = len(qkeys) * 2 * math.ceil(math.log2(nkeys))
+    bound_ms, bound_by = _bound(sectors * SECTOR, 0)
+    print('[smoke] seeds: {:,} queries (the alac run\'s seed set) against '
+          '{:,} keys; keys to the card {:.1f} ms for {:,} bytes (of which '
+          'the host flip to ordered int64 {:.1f} ms); device search (two '
+          'torch.searchsorted, queued) {:.4f} ms, {:.1f} G sectors/s; host '
+          'np.searchsorted {}; bound {:.4f} ms by {} ({:,} random {}-byte '
+          'sectors: queries x 2 x ceil(log2 keys)); ranges identical'.format(
+              len(qkeys), nkeys, copy_ms, keys.numel() * 8, flip_ms[0], ms,
+              sectors / ms / 1e6, _spread(host_ms), bound_ms, bound_by,
+              sectors, SECTOR), flush=True)
+
+    found, walls = {}, {}
+    for which, index in (('host', host), ('device', dev)):
+        found[which], walls[which] = _host_times(
+            lambda: index.lookup(seeds), 1)
+    if found['host'] != found['device']:
+        raise AssertionError('device lookup: {} seeds matched, host {}'.format(
+            len(found['device']), len(found['host'])))
+    print('[smoke] seeds: whole lookup (search + host verification) host '
+          '{:.1f} ms, device {:.1f} ms; {:,} seeds matched, identical'.format(
+              walls['host'][0], walls['device'][0], len(found['host'])),
+          flush=True)
+
+    contigs = os.path.join(workdir, 'shard{}.contigs.augfasta'.format(shard))
+    out = os.path.join(workdir, 'seeds.cutouts.fa')
+    seed_ops.launches = 0
+    os.environ['KEVLAR_SEED_BACKEND'] = 'device'
+    try:
+        localize_s = _run_cli(
+            ['localize', '--device', device, '-o', out, refr, contigs],
+            os.path.join(workdir, 'seeds.localize.log'))
+    finally:
+        del os.environ['KEVLAR_SEED_BACKEND']
+    launches = seed_ops.launches
+    with open(out) as fh, open(os.path.join(
+            workdir, 'shard{}.cutouts.fa'.format(shard))) as gh:
+        if fh.read() != gh.read():
+            raise AssertionError('localize with the device seed search '
+                                 'differs from the call path\'s')
+    if launches <= 0:
+        raise AssertionError('localize with KEVLAR_SEED_BACKEND=device ran no '
+                             'device search')
+    print('[smoke] seeds: localize of shard {} with KEVLAR_SEED_BACKEND=device '
+          '{:.2f} s (index loaded and copied to the card in the run; {} '
+          'seed_ranges call); cutouts == the call path\'s'.format(
+              shard, localize_s, launches), flush=True)
+    reference._index_cache.clear()
+    return dict(launches=launches, ms=ms, host_ms=float(np.median(host_ms)),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# float32 operations of _score_bundles per k-mer of a trio bundle: six
+# absent-genotype terms (three lgamma, a log, a log1p, ~10 more: ~140
+# each), seven normal logpdfs (~5), the 11 scenarios' sums and max (~44)
+# and the masked sums (~10)
+SIMLIKE_OPS_PER_KMER = 930
+
+
+def _random_trio_bundles(rng, n, kmax=64):
+    """``n`` trio bundles of tests/test_simlike.py's shape at K 0-``kmax``:
+    case abundances 0-40, controls 0-6, half SNV mode (copy numbers 0-4),
+    half indel mode."""
+    from kevlar_tpu_torch.simlike import _AbundanceBundle
+    bundles = []
+    for K in rng.integers(0, kmax + 1, n):
+        case = rng.integers(0, 41, K)
+        mom, dad = rng.integers(0, 7, K), rng.integers(0, 7, K)
+        refr = (rng.integers(0, 5, K).tolist() if rng.random() < 0.5
+                else [None] * K)
+        bundles.append(_AbundanceBundle(case, [mom, dad], refr, 0))
+    return bundles
+
+
+def _likescores(text):
+    """{(chrom, pos, ref, alt): (FILTER, LIKESCORE)} of a VCF's text."""
+    out = {}
+    for line in text.split('\n'):
+        if line and not line.startswith('#'):
+            f = line.split('\t')
+            score = re.search(r'LIKESCORE=([^;]+)', f[7]).group(1)
+            out[tuple(f[:2] + f[3:5])] = (f[6], float(score))
+    return out
+
+
+def phase_simlike(device, workdir, nbundles=100_000, sample=1000, reps=5):
+    """Simlike phase: the workflow's preliminary calls (phase 9) through
+    ``cli.main(['simlike', ..., '--device', device])`` against the trio's
+    tables on disk, host (default), ``KEVLAR_SIMLIKE_BATCH=1`` (text equal to
+    host's) and ``KEVLAR_SIMLIKE_DEVICE=1`` (PASS set equal, LIKESCORE within
+    rel 1e-4, abs 1e-2); then ``score_bundles`` (B8) on ``nbundles`` random
+    trio bundles, timed, a ``sample`` of them held to the float64 host
+    functions (rel 2e-5, abs 2e-3; ranking equal)."""
+    import torch
+    from kevlar_tpu_torch import simlike
+    from kevlar_tpu_torch.ops import kmer_cuda, simlike_ops
+
+    mu, sigma, error = HELIUM_COVERAGE, HELIUM_COVERAGE * 0.3, 0.001
+
+    def path(name):
+        return os.path.join(workdir, 'workflow', name)
+
+    argv = ['simlike', '--case', path('case.ct'), '--controls',
+            path('control0.ct'), path('control1.ct'), '--refr',
+            path('refr.sct'), '--mu', str(mu), '--sigma', str(sigma),
+            '--epsilon', str(error), '--case-min', '5', '--ctrl-max', '1',
+            '--device', device]
+    texts, walls, launches = {}, {}, {}
+    for mode, switch in (('host', None), ('batch', 'KEVLAR_SIMLIKE_BATCH'),
+                         ('device', 'KEVLAR_SIMLIKE_DEVICE')):
+        out = os.path.join(workdir, 'simlike.{}.vcf'.format(mode))
+        for name in kmer_cuda.launches:
+            kmer_cuda.launches[name] = 0
+        simlike_ops.launches = 0
+        if switch:
+            os.environ[switch] = '1'
+        try:
+            walls[mode] = _run_cli(
+                argv + ['-o', out, path('calls.prelim.vcf')],
+                os.path.join(workdir, 'simlike.{}.log'.format(mode)))
+        finally:
+            if switch:
+                del os.environ[switch]
+        launches[mode] = dict(kmer_cuda.launches,
+                              score_bundles=simlike_ops.launches)
+        with open(out) as fh:
+            texts[mode] = fh.read()
+    if texts['batch'] != texts['host']:
+        raise AssertionError('simlike with KEVLAR_SIMLIKE_BATCH=1 wrote '
+                             'another VCF than the host run')
+    if not (launches['batch']['kmer_hashes'] > 0 and
+            launches['batch']['gather_counts'] > 0):
+        raise AssertionError('the batched gather launched no K1/K2: '
+                             '{}'.format(launches['batch']))
+    if launches['device']['score_bundles'] <= 0:
+        raise AssertionError('KEVLAR_SIMLIKE_DEVICE=1 ran no score_bundles')
+    host, dev = _likescores(texts['host']), _likescores(texts['device'])
+    passing = {k for k, (filt, _) in host.items() if filt == 'PASS'}
+    if set(dev) != set(host) or passing != {
+            k for k, (filt, _) in dev.items() if filt == 'PASS'}:
+        raise AssertionError('device scoring: calls or PASS set differ')
+    worst = max((abs(dev[k][1] - host[k][1]) /
+                 (1e-2 + 1e-4 * abs(host[k][1])) for k in host), default=0)
+    if worst > 1:
+        raise AssertionError('device scoring: a LIKESCORE is {:.2f}x the '
+                             'tolerance away from host'.format(worst))
+    print('[smoke] simlike on the workflow\'s {} calls ({} PASS): host {:.2f} '
+          's, KEVLAR_SIMLIKE_BATCH=1 {:.2f} s (text identical; K1 {}, K2 {} '
+          'launches), KEVLAR_SIMLIKE_DEVICE=1 {:.2f} s (PASS set identical, '
+          'LIKESCORE at most {:.3f} of the tolerance away; score_bundles {} '
+          'call)'.format(
+              len(host), len(passing), walls['host'], walls['batch'],
+              launches['batch']['kmer_hashes'],
+              launches['batch']['gather_counts'], walls['device'], worst,
+              launches['device']['score_bundles']), flush=True)
+
+    rng = np.random.default_rng(SEED + 8)
+    bundles = _random_trio_bundles(rng, nbundles)
+    t0 = time.time()
+    tensors = simlike_ops.bundle_tensors(bundles, device)
+    torch.cuda.synchronize()
+    pack_s = time.time() - t0
+    (lldn, llfp, llih), ms = _timed(simlike_ops._score_bundles, *tensors,
+                                    mu, sigma, error, reps=reps, spin=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    whole = simlike_ops.score_bundles(bundles, mu, sigma, error, device)
+    whole_s = time.time() - t0
+    got = np.stack([x.cpu().numpy() for x in (lldn, llfp, llih)], 1)
+    if not np.array_equal(got, np.array(whole).T):
+        raise AssertionError('score_bundles differs from _score_bundles')
+    picks = np.sort(rng.choice(nbundles, sample, replace=False))
+    t0 = time.time()
+    want = np.array([
+        (simlike.likelihood_denovo(b.aslists(), b.refrcopies, mean=mu,
+                                   sd=sigma, error=error),
+         simlike.likelihood_false(b.aslists(), b.refrcopies, mean=mu,
+                                  error=error),
+         simlike.likelihood_inherited(b.aslists(), mean=mu, sd=sigma,
+                                      error=error))
+        for b in (bundles[i] for i in picks)])
+    host_ms = 1e3 * (time.time() - t0)
+    err = np.abs(got[picks] - want)
+    worst = float((err / (2e-3 + 2e-5 * np.abs(want))).max())
+    if worst > 1:
+        raise AssertionError('score_bundles: {:.2f}x the tolerance away from '
+                             'the float64 host functions'.format(worst))
+
+    def ranking(scores):
+        return np.argsort(scores[:, 0] - np.maximum(scores[:, 1],
+                                                    scores[:, 2]),
+                          kind='stable')
+
+    if not np.array_equal(ranking(got[picks]), ranking(want)):
+        raise AssertionError('score_bundles ranks the sample otherwise than '
+                             'the float64 host functions')
+    kmers = sum(len(b.case) for b in bundles)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + \
+        3 * 4 * nbundles
+    bound_ms, bound_by = _bound(nbytes, kmers * SIMLIKE_OPS_PER_KMER)
+    print('[smoke] score_bundles on {:,} trio bundles ({:,} k-mers, padded '
+          'to K = {}): {:.4f} ms on the card (queued), bound {:.4f} ms by {} '
+          '({:,} bytes, {} operations a k-mer); whole call with packing and '
+          'copies {:.2f} s (packing {:.2f} s); float64 host functions {:.1f} '
+          'ms for {:,} of them, max abs error {:.3g} ({:.3f} of the '
+          'tolerance), ranking equal'.format(
+              nbundles, kmers, tensors[0].shape[1], ms, bound_ms, bound_by,
+              nbytes, SIMLIKE_OPS_PER_KMER, whole_s, pack_s, host_ms, sample,
+              float(err.max()), worst), flush=True)
+    return dict(launches=launches['device']['score_bundles'], ms=ms,
+                host_ms=host_ms, host_n=sample, bound_ms=bound_ms,
+                bound_by=bound_by, walls=walls)
 
 
 # mu of ``dist`` on the helium proband: 30x of 150 bp reads at k = 31 cover
@@ -2221,70 +2510,6 @@ def compare_counts(parent, device, workdir):
               *_producer_split(reads['proband'], device)), flush=True)
 
 
-# What ``--compare-k4`` runs in a process of its own from the root of each
-# tree: that tree's K4 through its own wrapper, on the graphs of the npz
-# file named first, held to the tree's plain version; prints {graph: [ms of
-# each call, by the host clock around a synchronised call]}.
-_K4_TIMER = '''
-import json, sys, time
-import numpy as np
-import torch
-from kevlar_tpu_torch.ops import cc_cuda, cc_ops
-graphs, reps, out = np.load(sys.argv[1]), int(sys.argv[2]), {}
-for i, (name, n_reads, n_kmers) in enumerate(json.loads(str(graphs['meta']))):
-    r = torch.from_numpy(graphs['r%d' % i]).cuda()
-    k = torch.from_numpy(graphs['k%d' % i]).cuda()
-    want = cc_ops.connected_components_plain(r, k, n_reads, n_kmers)
-    times = []
-    for rep in range(reps + 1):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        got = cc_cuda.cc_labels_cuda(r, k, n_reads, n_kmers)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.time() - t0))
-    if not torch.equal(got.to(want.dtype), want):
-        raise SystemExit('K4 differs from the plain version on ' + name)
-    out[name] = times[1:]
-print(json.dumps(out))
-'''
-
-
-def compare_cc(parent, reps=10):
-    """``--compare-k4 DIR``: K4 of the checkout in ``DIR`` against this
-    tree's on the smoke's graphs, each tree through its own wrapper in a
-    process of its own (so whatever the older kernel's C interface was), in
-    turns old, new, new, old."""
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit('chip_smoke: no CUDA device')
-    print(_nvidia_smi(), flush=True)
-    here = os.path.dirname(os.path.abspath(__file__))
-    graphs = [g for g in _cc_graphs(np.random.default_rng(SEED + 7))
-              if len(g[1]) > 1]
-    times = {'old': {}, 'new': {}}
-    with tempfile.TemporaryDirectory() as workdir:
-        path = os.path.join(workdir, 'graphs.npz')
-        arrays = {'meta': json.dumps([(g[0], g[3], g[4]) for g in graphs])}
-        for i, g in enumerate(graphs):
-            arrays['r%d' % i], arrays['k%d' % i] = g[1], g[2]
-        np.savez(path, **arrays)
-        for side in ('old', 'new', 'new', 'old'):
-            tree = os.path.abspath(parent) if side == 'old' else here
-            done = subprocess.run(
-                [sys.executable, '-c', _K4_TIMER, path, str(reps)], cwd=tree,
-                check=True, stdout=subprocess.PIPE, text=True)
-            for name, ms in json.loads(
-                    done.stdout.strip().splitlines()[-1]).items():
-                times[side].setdefault(name, []).extend(ms)
-    for name, reads, _, n_reads, n_kmers in graphs:
-        print('[compare] K4 {}: old {}, new {}; bound {:.5f} ms by {}; both '
-              '== their plain versions'.format(
-                  name, _spread(times['old'][name]),
-                  _spread(times['new'][name]),
-                  *_cc_bound(len(reads), n_reads, n_kmers)), flush=True)
-    return 0
-
-
 def profile_workflow():
     """``--profile-workflow``: the helium trio through run_mark1 under
     torch.profiler, for the card's busy share of the trio wall."""
@@ -2344,8 +2569,6 @@ def main():
         return compare_parent(sys.argv[2])
     if sys.argv[1:2] == ['--profile-workflow']:
         return profile_workflow()
-    if sys.argv[1:2] == ['--compare-k4']:
-        return compare_cc(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -2364,6 +2587,7 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         run = phase_slice(device, workdir)
         phase_call(device, workdir, run['refr'], run['reads'], run['vcf'])
+        seeds = phase_seeds(device, workdir, run['refr'], run.pop('seeds'))
         part = phase_partition(device, workdir, run['reads'])
         cc = phase_cc_kernel(device, part.pop('incidence'))
     kmer = phase_kmer_kernels(device)
@@ -2371,6 +2595,7 @@ def main():
         trio = phase_trio(device, workdir)
         phase_workflow(device, workdir, trio['refr'], trio['denovo'],
                        trio['reads'])
+        sim = phase_simlike(device, workdir)
         phase_dist(device, workdir, trio['reads'])
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
           flush=True)
@@ -2411,6 +2636,22 @@ def main():
         'ms': cc['ms'], 'plain_ms': cc['plain_ms'],
         'bound_ms': cc['bound_ms'], 'bound_by': cc['bound_by'],
         'library_ms': None})
+    programs = [{
+        'name': 'seed_ranges (B7: two torch.searchsorted over the sorted '
+                'keys as order-preserving int64)',
+        'route': 'torch', 'source': 'kevlar_tpu_torch/ops/seed_ops.py',
+        'replaces': 'kevlar_tpu/ops/seed_ops.py:77',
+        'launches': seeds['launches'], 'ms': seeds['ms'],
+        'host_ms': seeds['host_ms'], 'bound_ms': seeds['bound_ms'],
+        'bound_by': seeds['bound_by']}, {
+        'name': 'score_bundles (B8: float32 trio likelihoods, 11-scenario '
+                'max)',
+        'route': 'torch', 'source': 'kevlar_tpu_torch/ops/simlike_ops.py',
+        'replaces': 'kevlar_tpu/ops/simlike_ops.py:54',
+        'launches': sim['launches'], 'ms': sim['ms'],
+        'host_ms': sim['host_ms'], 'host_bundles': sim['host_n'],
+        'bound_ms': sim['bound_ms'], 'bound_by': sim['bound_by']}]
+    print(json.dumps({'programs': programs}))
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

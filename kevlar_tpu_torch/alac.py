@@ -50,7 +50,7 @@ def alac(pstream, refrfile, threads=1, ksize=31, maxreads=10000, delta=50,
     t1 = time.time()
     targets = _localized_targets(
         contigs, refrfile, seedsize=seedsize, delta=delta, maxdiff=maxdiff,
-        inclpattern=inclpattern, exclpattern=exclpattern)
+        inclpattern=inclpattern, exclpattern=exclpattern, device=device)
     t2 = time.time()
 
     # one global alignment batch across every partition — the

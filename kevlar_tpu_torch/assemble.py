@@ -2,7 +2,7 @@
 
 The reference bridges to the fermi-lite C library (FMD-index + unitig graph,
 kevlar/assembly.pyx + third-party/fermi-lite).  Here the engine is the
-C++ assembler ``kevlar_tpu/native/asm.cpp`` (built by
+C++ assembler ``kevlar_tpu_torch/csrc/asm.cpp`` (built by
 :mod:`kevlar_tpu_torch.native`): spectral error correction plus an
 exact-overlap string graph with fermi-class cleaning (tip removal, weak-edge
 pruning, open/simple bubble popping).  Unlike ``kevlar_tpu.assemble`` there

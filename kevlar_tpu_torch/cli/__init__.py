@@ -217,6 +217,8 @@ def _localize_subparser(subparsers):
     sp.add_argument('-x', '--max-diff', type=int, metavar='X', default=None)
     sp.add_argument('--include', metavar='REGEX', type=str)
     sp.add_argument('--exclude', metavar='REGEX', type=str)
+    _add_device_arg(sp, 'the seed search when KEVLAR_SEED_BACKEND=device '
+                    'selects it (else unused: numpy on the host)')
     sp.add_argument('refr', help='reference genome Fasta')
     sp.add_argument('contigs', nargs='+', help='augmented contig files')
 
@@ -322,6 +324,9 @@ def _simlike_subparser(subparsers):
     sp.add_argument('--sample-labels', metavar='LBL', type=str, nargs='+')
     sp.add_argument('-f', '--fast-mode', action='store_true')
     sp.add_argument('-o', '--out', metavar='OUT', default='-')
+    _add_device_arg(sp, 'the count tables and the scoring when '
+                    'KEVLAR_SIMLIKE_BATCH=1 or KEVLAR_SIMLIKE_DEVICE=1 '
+                    'selects them (else unused: host memory maps)')
     sp.add_argument('vcf', nargs='+')
 
 

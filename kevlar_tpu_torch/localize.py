@@ -105,19 +105,22 @@ def unique_seeds(partitions, seedsize=51):
     }
 
 
-def get_seed_matches(seeds, refrseqs, seedsize=51, refrfile=None):
+def get_seed_matches(seeds, refrseqs, seedsize=51, refrfile=None,
+                     device='cuda'):
     """Exact genomic matches for canonical seeds: {seed: {(seqid, pos)}}.
 
     With ``refrfile`` the index loads from (or persists to) its on-disk
     cache next to the FASTA — the `bwa index` analog (the reference
     builds its BWA index before the timed workflow, reference.py:35-51).
+    ``device`` is where ``KEVLAR_SEED_BACKEND=device`` searches.
     """
     kevlar_tpu_torch.plog('[kevlar::localize] computing seed matches')
     if refrfile:
         from kevlar_tpu_torch.reference import autoindex
-        index = autoindex(refrfile, seedsize, refrseqs=refrseqs)
+        index = autoindex(refrfile, seedsize, refrseqs=refrseqs,
+                          device=device)
     else:
-        index = SeedIndex(refrseqs, seedsize)
+        index = SeedIndex(refrseqs, seedsize, device=device)
     matches = index.lookup(seeds)
     kevlar_tpu_torch.plog('[kevlar::localize] found positions for '
                     '{} seeds'.format(len(matches)))
@@ -140,7 +143,7 @@ def cutout(contigs, refrseqs, seed_matches, seedsize=51, delta=50,
 
 
 def localize(partstream, refrfile, seedsize=51, delta=50, maxdiff=None,
-             inclpattern=None, exclpattern=None, debug=False):
+             inclpattern=None, exclpattern=None, debug=False, device='cuda'):
     """Stream (partid, cutout) pairs for a partitioned contig stream."""
     partdata = list(partstream)
     kevlar_tpu_torch.plog('[kevlar::localize] loaded {} read partitions into '
@@ -153,7 +156,7 @@ def localize(partstream, refrfile, seedsize=51, delta=50, maxdiff=None,
     kevlar_tpu_torch.plog('[kevlar::localize] loading reference sequences')
     refrseqs = seqio.parse_seq_dict(kevlar_tpu_torch.open(refrfile, 'r'))
     seed_matches = get_seed_matches(seeds, refrseqs, seedsize=seedsize,
-                                    refrfile=refrfile)
+                                    refrfile=refrfile, device=device)
     if not seed_matches:
         kevlar_tpu_torch.plog(
             '[kevlar::localize] WARNING: no reference matches')
@@ -182,7 +185,7 @@ def main(args):
     for part, gdna in localize(pstream, args.refr, seedsize=args.seed_size,
                                delta=args.delta, maxdiff=args.max_diff,
                                inclpattern=args.include,
-                               exclpattern=args.exclude):
+                               exclpattern=args.exclude, device=args.device):
         seqname = gdna.defline
         if part is not None:
             seqname += ' kvcc={}'.format(part)

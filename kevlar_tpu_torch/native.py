@@ -6,12 +6,13 @@ inside the package) and loaded with ``ctypes``.  A failed build raises:
 nothing falls back to a slower engine (the port has no Python-parser
 fallback for counting).
 
-Both C++ sources are compiled by path from ``kevlar_tpu/native/`` — reading
-a file imports nothing of the JAX package:
+Both C++ sources are the port's own, under ``csrc/`` (copies of
+``kevlar_tpu``'s, equal but for the reference's path in one comment, so
+that the port builds without the JAX package's files):
 
-- the assembler from ``asm.cpp`` alone (no other source, no zlib); its
+- the assembler from ``csrc/asm.cpp`` alone (no other source, no zlib); its
   ``kt_assemble`` and ``kt_correct`` entry points are bound;
-- the reader from ``fastx.cpp`` alone, linked with ``-lz`` (plain and
+- the reader from ``csrc/fastx.cpp`` alone, linked with ``-lz`` (plain and
   gzipped input); its ``kt_fastx_*`` entry points are bound.
 """
 
@@ -28,10 +29,8 @@ import kevlar_tpu_torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, '_build')
-ASM_SOURCE = os.path.normpath(
-    os.path.join(_HERE, '..', 'kevlar_tpu', 'native', 'asm.cpp'))
-FASTX_SOURCE = os.path.normpath(
-    os.path.join(_HERE, '..', 'kevlar_tpu', 'native', 'fastx.cpp'))
+ASM_SOURCE = os.path.join(_HERE, 'csrc', 'asm.cpp')
+FASTX_SOURCE = os.path.join(_HERE, 'csrc', 'fastx.cpp')
 
 _lib = None
 _fastx_lib = None

@@ -7,7 +7,8 @@ Here the same contract is implemented natively: every seed-sized window of
 the reference genome is packed into an exact canonical 256-bit code
 (:func:`kevlar_tpu_torch.dna.seed_codes`), folded to a 64-bit key, sorted
 once, and queried by binary search with exact sequence verification — a
-vectorised numpy index with no subprocess.  The index persists next to the
+vectorised numpy index with no subprocess (or, with the ``'device'``
+backend, ``torch.searchsorted`` on the card).  The index persists next to the
 FASTA as ``<refr>.kevseedidx<S>.npz``, in the same arrays as
 ``kevlar_tpu.reference``, so either package reads the other's index.
 """
@@ -104,13 +105,44 @@ def _load_npz_mmap(filename):
     return out
 
 
-class SeedIndex:
-    """Sorted-key index of every canonical seed in a reference genome,
-    searched on the host with numpy ``searchsorted``."""
+def _seed_backend(backend):
+    """``backend``, else ``KEVLAR_SEED_BACKEND``, else ``'host'``."""
+    import os
+    backend = backend or os.environ.get('KEVLAR_SEED_BACKEND', 'host')
+    if backend == 'sharded':
+        raise ValueError('seed backend "sharded" (keys sharded over several '
+                         'devices) is not supported by kevlar_tpu_torch yet; '
+                         'it runs on one device (backend "device")')
+    if backend not in ('host', 'device'):
+        raise ValueError('unknown seed backend {!r}; expected host, device, '
+                         'or sharded'.format(backend))
+    return backend
 
-    def __init__(self, refrseqs, seedsize):
+
+class SeedIndex:
+    """Sorted-key index of every canonical seed in a reference genome.
+
+    ``backend`` selects where the binary search runs:
+
+    - ``'host'`` (default): numpy ``searchsorted`` over the sorted keys.
+    - ``'device'``: the keys live on ``device`` as order-preserving int64
+      (:func:`kevlar_tpu_torch.ops.seed_ops.ordered_int64`), copied there
+      at the first lookup, and the whole seed batch is one pair of
+      ``torch.searchsorted`` calls
+      (:func:`kevlar_tpu_torch.ops.seed_ops.seed_ranges`).
+
+    The env var ``KEVLAR_SEED_BACKEND`` overrides the default; ``'sharded'``
+    (``kevlar_tpu``'s key array over a device mesh) is refused by name.
+    Exact sequence verification always runs on the host, so every backend
+    returns identical matches.
+    """
+
+    def __init__(self, refrseqs, seedsize, backend=None, device='cuda'):
         self.seedsize = seedsize
         self.refrseqs = refrseqs
+        self.backend = _seed_backend(backend)
+        self.device = device
+        self._device_index = None
         self._seqids = sorted(refrseqs)
         keys_all, seqidx_all, pos_all = [], [], []
         for si, seqid in enumerate(self._seqids):
@@ -159,7 +191,7 @@ class SeedIndex:
             raise
 
     @classmethod
-    def from_file(cls, path, refrseqs):
+    def from_file(cls, path, refrseqs, backend=None, device='cuda'):
         """Load a persisted index; ``refrseqs`` still backs the exact
         sequence verification in :meth:`lookup`.  Arrays are memory-mapped
         (copy-on-write) when the npz is uncompressed: lookups only touch
@@ -171,11 +203,36 @@ class SeedIndex:
         obj = cls.__new__(cls)
         obj.seedsize = int(data['seedsize'])
         obj.refrseqs = refrseqs
+        obj.backend = _seed_backend(backend)
+        obj.device = device
+        obj._device_index = None
         obj._seqids = [str(s) for s in data['seqids']]
         obj._keys = data['keys']
         obj._seqidx = data['seqidx']
         obj._pos = data['pos']
         return obj
+
+    def device_keys(self):
+        """The sorted keys on ``device`` as order-preserving int64, copied
+        there once per index."""
+        if self._device_index is None:
+            import torch
+            from kevlar_tpu_torch.ops import seed_ops
+            # the flip makes a fresh array: a memory-mapped file's keys are
+            # never handed to torch.from_numpy
+            self._device_index = torch.from_numpy(
+                seed_ops.ordered_int64(self._keys)).to(self.device)
+        return self._device_index
+
+    def _search_device(self, qkeys):
+        """(lo, hi) numpy index ranges per query key via the device search."""
+        import torch
+        from kevlar_tpu_torch.ops import seed_ops
+        queries = torch.from_numpy(seed_ops.ordered_int64(qkeys))
+        start, count = seed_ops.seed_ranges(self.device_keys(),
+                                            queries.to(self.device))
+        start = start.cpu().numpy()
+        return start, start + count.cpu().numpy()
 
     def lookup(self, seeds):
         """Match canonical seed strings; returns {seed: set((seqid, pos))}.
@@ -190,8 +247,11 @@ class SeedIndex:
         qbases, _ = dna.encode_batch(seedlist)
         qcodes, qvalid = dna.seed_codes(qbases, self.seedsize)
         qkeys = _fold_codes(qcodes[:, 0, :])
-        lo = np.searchsorted(self._keys, qkeys, side='left')
-        hi = np.searchsorted(self._keys, qkeys, side='right')
+        if self.backend == 'device':
+            lo, hi = self._search_device(qkeys)
+        else:
+            lo = np.searchsorted(self._keys, qkeys, side='left')
+            hi = np.searchsorted(self._keys, qkeys, side='right')
         for i, seed in enumerate(seedlist):
             if not qvalid[i, 0]:
                 continue
@@ -221,20 +281,24 @@ def index_path(refrfile, seedsize):
     return '{}.kevseedidx{}.npz'.format(refrfile, seedsize)
 
 
-def autoindex(refrfile, seedsize=51, refrseqs=None):
+def autoindex(refrfile, seedsize=51, refrseqs=None, device='cuda'):
     """Build (or load) the seed index for a reference FASTA file.
 
     Mirrors the reference's ``autoindex`` (reference.py:35-51: run
     ``bwa index`` iff the index files are missing): the sorted key/pos
     arrays persist next to the FASTA and later runs load them instead of
     re-extracting and re-sorting every genome seed.  A stale index (older
-    than the FASTA) is rebuilt.
+    than the FASTA) is rebuilt.  The search backend comes from
+    ``KEVLAR_SEED_BACKEND`` (``'host'`` by default); ``device`` is where
+    the ``'device'`` backend keeps the keys.  The in-process cache holds
+    one index per file, seed size, backend and device.
     """
     import os
     if not os.path.isfile(refrfile):
         raise KevlarRefrSeqNotFoundError(
             'reference file {:s} does not exist'.format(refrfile))
-    key = (os.path.abspath(refrfile), seedsize)
+    backend = _seed_backend(None)
+    key = (os.path.abspath(refrfile), seedsize, backend, str(device))
     if key in _index_cache:
         return _index_cache[key]
     if refrseqs is None:
@@ -244,7 +308,8 @@ def autoindex(refrfile, seedsize=51, refrseqs=None):
     if os.path.isfile(idxfile) and \
             os.path.getmtime(idxfile) >= os.path.getmtime(refrfile):
         try:
-            index = SeedIndex.from_file(idxfile, refrseqs)
+            index = SeedIndex.from_file(idxfile, refrseqs, backend=backend,
+                                        device=device)
             kevlar_tpu_torch.plog('[kevlar::reference] loaded seed index '
                                   '"{}"'.format(idxfile))
         except Exception as exc:
@@ -255,7 +320,7 @@ def autoindex(refrfile, seedsize=51, refrseqs=None):
     if index is None:
         kevlar_tpu_torch.plog('[kevlar::reference] building seed index for '
                               '"{}" (seedsize {})'.format(refrfile, seedsize))
-        index = SeedIndex(refrseqs, seedsize)
+        index = SeedIndex(refrseqs, seedsize, backend=backend, device=device)
         try:
             index.save(idxfile)
         except OSError as exc:  # read-only genome dir: stay in-memory

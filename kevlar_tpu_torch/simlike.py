@@ -1,9 +1,12 @@
 """``simlike`` stage: trio likelihood scoring of variant calls.
 
-Port of ``kevlar_tpu.simlike``'s float64 host path (a copy with the
-imports rewritten; the batched device gather, the ``KEVLAR_SIMLIKE_*``
-switches and the float32 device scoring are not ported).  For each call,
-the abundances of every variant-spanning (ALTWINDOW) k-mer in
+Port of ``kevlar_tpu.simlike`` (a copy with the imports rewritten; the
+mesh-sharded sketches that select the batched gather by themselves there
+are not ported).  ``KEVLAR_SIMLIKE_BATCH=1`` gathers every call's window
+counts in a few ``Sketch.query_batch`` calls on the device (K1, K2) instead
+of per-call host gathers, and ``KEVLAR_SIMLIKE_DEVICE=1`` adds float32
+scoring on the device (:mod:`kevlar_tpu_torch.ops.simlike_ops`); both are
+off by default.  For each call, the abundances of every variant-spanning (ALTWINDOW) k-mer in
 case/controls form a columnar bundle (k-mers already present in the
 reference genome are masked out); three log-likelihood models score the
 bundle and LIKESCORE = LLDN - max(LLFP, LLIH):
@@ -273,6 +276,92 @@ class _AbundanceBundle:
                    for ctrl in self.controls)
 
 
+def _use_batched_gather():
+    """Whether to batch every call's window queries into device calls.
+
+    Off by default (``kevlar_tpu`` turns it on by itself for mesh-sharded
+    sketches, which the port does not have).  ``KEVLAR_SIMLIKE_BATCH=1/0``
+    forces/disables.  ``KEVLAR_SIMLIKE_DEVICE=1`` implies batch mode
+    (device scoring rides the batched-gather path; without this it would
+    be silently inert).
+    """
+    import os
+    forced = os.environ.get('KEVLAR_SIMLIKE_BATCH')
+    if forced is not None:
+        return forced == '1'
+    return os.environ.get('KEVLAR_SIMLIKE_DEVICE') == '1'
+
+
+def gather_bundles_batched(windowpairs, case, controls, refr,
+                           dropoutliers=False, sharedmin=0):
+    """One :class:`_AbundanceBundle` per (altseq, refrseq) pair, with every
+    sample's window queries batched into bucketed device calls.
+
+    The columnar (call x k-mer) counts come from one ``query_batch`` (K1,
+    then K2, on the sketch's device) per (sample, length bucket) instead of
+    per-call point gathers.  Bit-equal to per-call
+    ``_AbundanceBundle.gather`` (pinned in tests/test_torch_simlike.py).
+    Reference semantics: simlike.py:51-96.
+    """
+    from kevlar_tpu_torch import dna
+    from kevlar_tpu_torch.batch import bucket_length
+
+    k = case.ksize()
+    samples = [case] + list(controls)
+    bundles = [None] * len(windowpairs)
+
+    def batched_counts(sketch, rows, bucket):
+        # query_batch's counts are 0 at invalid windows already
+        bases, _ = dna.encode_batch(rows, pad_to=bucket)
+        counts, _ = sketch.query_batch(bases)
+        return counts.cpu().numpy().astype(np.int64)
+
+    groups = {}
+    for i, (alt, _refrseq) in enumerate(windowpairs):
+        groups.setdefault(bucket_length(len(alt)), []).append(i)
+    for bucket, idxs in sorted(groups.items()):
+        alts = [windowpairs[i][0] for i in idxs]
+        percounts = [batched_counts(s, alts, bucket) for s in samples]
+        refrcnt = batched_counts(refr, alts, bucket)
+        # SNV/MNV rows additionally query the REF window for copy numbers
+        snv = [i for i in idxs
+               if len(windowpairs[i][1]) == len(windowpairs[i][0])]
+        refrwin_counts = {}
+        if snv:
+            rbucket = max(bucket_length(len(windowpairs[i][1]))
+                          for i in snv)
+            rc = batched_counts(refr, [windowpairs[i][1] for i in snv],
+                                rbucket)
+            refrwin_counts = {i: rc[j] for j, i in enumerate(snv)}
+        for j, i in enumerate(idxs):
+            alt, refrseq = windowpairs[i]
+            P = len(alt) - k + 1
+            novel = refrcnt[j][:P] == 0
+            casevec = percounts[0][j][:P][novel]
+            ctrlvecs = [percounts[1 + c][j][:P][novel]
+                        for c in range(len(controls))]
+            keep = _AbundanceBundle._family_background_mask(
+                ctrlvecs, sharedmin)
+            if len(alt) == len(refrseq):
+                refrcopies = refrwin_counts[i][:P][novel]
+                if keep is not None:
+                    refrcopies = refrcopies[keep]
+                refrcopies = list(refrcopies)
+            else:
+                refrcopies = [None] * (len(casevec) if keep is None
+                                       else int(keep.sum()))
+            if keep is not None:
+                casevec = casevec[keep]
+                ctrlvecs = [c[keep] for c in ctrlvecs]
+            if dropoutliers:
+                casevec = _AbundanceBundle._drop_outliers(casevec)
+                ctrlvecs = [_AbundanceBundle._drop_outliers(c)
+                            for c in ctrlvecs]
+            bundles[i] = _AbundanceBundle(casevec, ctrlvecs, refrcopies,
+                                          P - len(casevec))
+    return bundles
+
+
 def spanning_kmer_abundances(altseq, refrseq, case, controls, refr,
                              dropoutliers=False):
     """Abundances of variant-spanning k-mers, dropping k-mers present in
@@ -318,18 +407,30 @@ def _screen(call, bundle, casemin, ctrlmax, caseabundlow, ctrlabundhigh):
         call.filter(vf.ControlAbundance)
 
 
-def _score(call, bundle, mu, sigma, epsilon):
-    abunds = bundle.aslists()
-    lldn = likelihood_denovo(abunds, bundle.refrcopies, mean=mu, sd=sigma,
-                             error=epsilon)
-    llfp = likelihood_false(abunds, bundle.refrcopies, mean=mu,
-                            error=epsilon)
-    llih = likelihood_inherited(abunds, mean=mu, sd=sigma, error=epsilon)
+def _score(call, bundle, mu, sigma, epsilon, precomputed=None):
+    if precomputed is not None:
+        lldn, llfp, llih = precomputed
+    else:
+        abunds = bundle.aslists()
+        lldn = likelihood_denovo(abunds, bundle.refrcopies, mean=mu,
+                                 sd=sigma, error=epsilon)
+        llfp = likelihood_false(abunds, bundle.refrcopies, mean=mu,
+                                error=epsilon)
+        llih = likelihood_inherited(abunds, mean=mu, sd=sigma, error=epsilon)
     call.annotate('LLDN', lldn)
     call.annotate('LLFP', llfp)
     call.annotate('LLIH', llih)
     call.annotate('LIKESCORE', lldn - max(llfp, llih))
 
+
+def _use_device_scoring(controls):
+    """Device tensor scoring (ops/simlike_ops.py) is opt-in: the host
+    numpy path is exact float64 ``math.lgamma`` and already cheap, so
+    float32 device math only pays off when the pipeline is device-resident
+    end-to-end.  Trios only (the inheritance model is trio-specific)."""
+    import os
+    return os.environ.get('KEVLAR_SIMLIKE_DEVICE') == '1' \
+        and len(controls) == 2
 
 
 def _annotate_sample_data(call, bundle, samplelabels):
@@ -366,7 +467,10 @@ def simlike(variants, case, controls, refr, mu=30.0, sigma=8.0, epsilon=0.001,
             casemin=6, ctrlmax=1, caseabundlow=5, ctrlabundhigh=4,
             samplelabels=None, fastmode=False, minlikescore=0.0,
             dropoutliers=False, ambigthresh=10, caseabundgate=300.0,
-            sharedkmermin=None):
+            sharedkmermin=None, device='cuda'):
+    """Score, filter and rank ``variants``; ``device`` is where
+    ``KEVLAR_SIMLIKE_DEVICE=1`` scores (the batched gather queries each
+    sketch on its own device)."""
     if sharedkmermin is None:
         sharedkmermin = casemin  # family-background bar: solidly present
     if samplelabels is None:
@@ -377,13 +481,13 @@ def simlike(variants, case, controls, refr, mu=30.0, sigma=8.0, epsilon=0.001,
         call.annotate('LIKESCORE', float('-inf'))
         by_partition[call.attribute('PART')].append(call)
 
-    def process(call, bundle):
+    def process(call, bundle, precomputed=None):
         call.annotate('DROPPED', bundle.ndropped)
         _screen(call, bundle, casemin, ctrlmax, caseabundlow, ctrlabundhigh)
         if fastmode and call.filterstr != 'PASS':
             park(call)
             return
-        _score(call, bundle, mu, sigma, epsilon)
+        _score(call, bundle, mu, sigma, epsilon, precomputed=precomputed)
         # Likelihood-gated heuristic override (deviation from the
         # reference, docs/migrating.md): the CaseAbundance run-length
         # heuristic (kevlar/simlike.py:284-290) kills real heterozygous
@@ -406,14 +510,43 @@ def simlike(variants, case, controls, refr, mu=30.0, sigma=8.0, epsilon=0.001,
         _annotate_sample_data(call, bundle, samplelabels)
         by_partition[call.attribute('PART')].append(call)
 
-    for call in variants:
-        if (fastmode and call.filterstr != 'PASS') or \
-                _defective_window(call, case.ksize()):
-            park(call)
-            continue
-        process(call, _AbundanceBundle.gather(
-            call.window, call.refrwindow, case, controls, refr,
-            dropoutliers=dropoutliers, sharedmin=sharedkmermin))
+    if _use_batched_gather():
+        # device-batch path: every scoreable call's window queries ride a
+        # handful of bucketed query_batch calls
+        calls = list(variants)
+        slots = []
+        pairs = []
+        for call in calls:
+            if (fastmode and call.filterstr != 'PASS') or \
+                    _defective_window(call, case.ksize()):
+                slots.append(None)
+            else:
+                slots.append(len(pairs))
+                pairs.append((call.window, call.refrwindow))
+        bundles = gather_bundles_batched(pairs, case, controls, refr,
+                                         dropoutliers=dropoutliers,
+                                         sharedmin=sharedkmermin)
+        scores = None
+        if _use_device_scoring(controls):
+            from kevlar_tpu_torch.ops import simlike_ops
+            lldn, llfp, llih = simlike_ops.score_bundles(
+                bundles, mean=mu, sd=sigma, error=epsilon, device=device)
+            scores = list(zip(lldn, llfp, llih))
+        for call, slot in zip(calls, slots):
+            if slot is None:
+                park(call)
+            else:
+                process(call, bundles[slot],
+                        precomputed=scores[slot] if scores else None)
+    else:
+        for call in variants:
+            if (fastmode and call.filterstr != 'PASS') or \
+                    _defective_window(call, case.ksize()):
+                park(call)
+                continue
+            process(call, _AbundanceBundle.gather(
+                call.window, call.refrwindow, case, controls, refr,
+                dropoutliers=dropoutliers, sharedmin=sharedkmermin))
 
     ranked = []
     for partitionid, calls in by_partition.items():
@@ -443,7 +576,12 @@ def main(args):
                           'sample')
     # host-backend (copy-on-write mmap) loads: simlike only point-queries
     # a few thousand windows, so shipping full multi-GB tables to the
-    # device (and the np.load memcpy itself) would dominate the stage wall
+    # device (and the np.load memcpy itself) would dominate the stage
+    # wall.  Device/batched scoring modes need tables on --device.
+    import os
+    want_device = (os.environ.get('KEVLAR_SIMLIKE_BATCH') == '1'
+                   or os.environ.get('KEVLAR_SIMLIKE_DEVICE') == '1')
+    backend = 'device' if want_device else 'host'
 
     def load_ct(spec):
         # comma-separated per-band tables (count --num-bands) score
@@ -451,7 +589,7 @@ def main(args):
         # its owning band's (mmapped) table
         if ',' in spec:
             return sketch.BandedSketchView.load(spec.split(','))
-        return sketch.load(spec, backend='host')
+        return sketch.load(spec, backend=backend, device=args.device)
 
     case = load_ct(args.case)
     controls = [load_ct(c) for c in args.controls]
@@ -473,7 +611,7 @@ def main(args):
         fastmode=args.fast_mode, minlikescore=args.min_like_score,
         dropoutliers=args.drop_outliers, ambigthresh=args.ambig_thresh,
         caseabundgate=args.case_abund_gate,
-        sharedkmermin=args.shared_kmer_min)
+        sharedkmermin=args.shared_kmer_min, device=args.device)
     try:
         for call in calls:
             writer.write(call)

@@ -12,7 +12,7 @@ setup(
     long_description_content_type='text/markdown',
     packages=find_packages(exclude=('tests',)),
     package_data={'kevlar_tpu.native': ['*.cpp'],
-                  'kevlar_tpu_torch': ['csrc/*.cu']},
+                  'kevlar_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp']},
     python_requires='>=3.10',
     install_requires=['jax', 'numpy'],
     entry_points={
@@ -26,6 +26,11 @@ setup(
             'kevlar-tpu-get-partitions = '
             'kevlar_tpu.sandbox.get_partitions:main',
             'kevlar-tpu-subsketch = kevlar_tpu.sandbox.subsketch:main',
+            'kevlar-tpu-torch-compact = kevlar_tpu_torch.sandbox.compact:main',
+            'kevlar-tpu-torch-get-partitions = '
+            'kevlar_tpu_torch.sandbox.get_partitions:main',
+            'kevlar-tpu-torch-subsketch = '
+            'kevlar_tpu_torch.sandbox.subsketch:main',
         ],
     },
     classifiers=[

@@ -194,11 +194,21 @@ def test_port_imports_no_jax():
             'import kevlar_tpu_torch.gentrio, kevlar_tpu_torch.mutsim\n'
             'import kevlar_tpu_torch.evaluate, kevlar_tpu_torch.dist\n'
             'import kevlar_tpu_torch.sketch, kevlar_tpu_torch.support\n'
+            'import kevlar_tpu_torch.reference, kevlar_tpu_torch.native\n'
+            'import kevlar_tpu_torch.ops.seed_ops\n'
+            'import kevlar_tpu_torch.ops.simlike_ops\n'
+            'import kevlar_tpu_torch.sandbox.compact\n'
+            'import kevlar_tpu_torch.sandbox.get_partitions\n'
+            'import kevlar_tpu_torch.sandbox.subsketch\n'
+            'import kevlar_tpu_torch.workflows.bam_preproc\n'
             'import kevlar_tpu_torch.cli as c\n'
             'assert len(c.mains()) == len(c.SUBPARSER_FUNCS) == 16\n'
             'for name in c.SUBPARSER_FUNCS:\n'
             '    c.mains()[name]\n'
             'c.parser()\n'
+            'from kevlar_tpu_torch import native\n'
+            'for src in (native.ASM_SOURCE, native.FASTX_SOURCE):\n'
+            '    assert "/kevlar_tpu_torch/csrc/" in src, src\n'
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "kevlar_tpu.")) or m == "kevlar_tpu"]\n'
             'assert not bad, bad\n'

@@ -204,3 +204,27 @@ def test_localize_cutouts_and_varmap_calls_match(case):
     assert any('\tPASS\t' in row for row in rows)
     assert seqio.parse_seq_dict(open(refr))['chr1'][:80] == \
         open(refr).read().split('\n')[1]
+
+
+@pytest.mark.parametrize('name', ['asm.cpp', 'fastx.cpp'])
+def test_native_builds_from_the_ports_own_sources(name):
+    """The port compiles its own copies of the C++ sources, byte for byte
+    those of ``kevlar_tpu`` but for the reference's source path in a
+    comment, named as the port's Python copies name it (a test may read
+    kevlar_tpu/, the port may not)."""
+    import os
+    import re
+    source = {'asm.cpp': native.ASM_SOURCE,
+              'fastx.cpp': native.FASTX_SOURCE}[name]
+    here = os.path.dirname(os.path.abspath(native.__file__))
+    assert source == os.path.join(here, 'csrc', name)
+    with open(os.path.join(os.path.dirname(jax_native.__file__), name),
+              'rb') as fh:
+        original = fh.read()
+    with open(source, 'rb') as fh:
+        copy = fh.read()
+    # the original names the reference's checkout by its absolute path
+    path = re.compile(rb'\((/\w+/)?reference[ /]kevlar/')
+    assert len(path.findall(original)) == 1
+    assert path.sub(b'(kevlar/', copy) == path.sub(b'(kevlar/', original)
+    assert copy != original and len(copy) < len(original)
