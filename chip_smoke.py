@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about 13 minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 14 minutes
     python3 chip_smoke.py --compare-parent DIR
                                  # the aligner, the consume step and a
                                  # helium sample count of this tree against
@@ -110,13 +110,37 @@ Phases (any failure raises, and the script exits non-zero):
    and ``--device cpu`` must print the same JSON and write the same TSV.
    Then ``Sketch.query_batch`` of one batch of reads against the proband's
    table on the card must equal the host mirror's counts.
+11. sharded (``kevlar_tpu_torch.parallel``), every mesh naming this one
+   card several times: after the seeds phase, the alac run's seeds through
+   ``seed_ranges_sharded`` over the bigsim keys cut in 4 shards (ranges ==
+   the device search's) and its pairs through B1 on a (2, 1) mesh (==
+   unsharded); after phase 9, on the helium trio at ``-M 500M``: the
+   proband counted on a (1, 4) mesh down the routed consume (``kt_route``,
+   one all_to_all, ``kt_scatter_add``; tables == an unsharded count), the
+   case on a (2, 2) mesh with the workflow's mask re-sharded (the replicate
+   consume: K2 and ``kt_consume`` with bucket ranges; tables == the
+   workflow's ``case.ct``), the novel screen over the workflow's three
+   tables re-sharded on (1, 4) (text == the workflow's), ``count`` and
+   ``novel --shards 1`` through the CLI (== phase 6's), and a forced
+   overflow (capacity 1,024: the batch re-runs down the replicate path,
+   tables equal).  The routed and replicated batches, the walls and the
+   launches are printed; K1, ``kt_route``, ``kt_scatter_add`` and both
+   range variants must launch.  ``kt_route``, the range variants and
+   ``kt_scatter_add`` on the routed count's received bins (one owner's
+   [4, 4 x capacity] from a (1, 4) mesh's all_to_all, into its 4 x
+   31,250,000 int32 accumulator) are held to their plain versions and
+   timed after phase 5.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the
 two XLA programs ported as plain torch (B7 ``seed_ranges``, B8
 ``score_bundles``): launches on their paths, ms, the host version's ms and
 the bound.  The last two lines of standard output are the kernels record
 (JSON: B1,
-K1, K2, K3's two entries and K4, each with its launches on its path's run,
+K1, K2, K3's three entries (the consume from hashes; ``kt_scatter_add``
+from indices at phase 5's shape, launched by the trio's device recount, and
+at the routed count's shape, launched by the sharded phase's routed
+count), K4, ``kt_route`` and the range variants of K2 and K3's consume,
+each with its launches on its path's run,
 max_abs_err, ms,
 plain_ms, its bound on this run's inputs (``bound_ms``, ``bound_by``: the
 larger of bytes over ``HBM_BYTES_PER_S`` and operations over
@@ -2202,6 +2226,512 @@ def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
     return dict(launches=launches, wall=wall)
 
 
+# ---------------------------------------------------- the sharded slice
+
+
+SHARDS = 4           # the mesh's shards, every one on the card
+SHARD_TOTAL = 124_999_999  # buckets of a 500M 8-bit sample table
+
+
+def _mesh(device, n_data, n_shard):
+    """A (n_data, n_shard) mesh whose every cell is ``device``."""
+    from kevlar_tpu_torch.parallel import make_mesh
+    return make_mesh(n_data, n_shard, devices=[device] * (n_data * n_shard))
+
+
+def _sync(mesh):
+    import torch
+    for dev in {d for row in mesh.devices for d in row}:
+        torch.cuda.synchronize(dev)
+
+
+def _all_to_all_ms(mesh, capacity, reps=10):
+    """ms of one ``all_to_all`` of a count batch's bins (4 tables, a
+    [4, S, C] int32 send buffer on every device) by the host clock, the
+    mesh's devices synchronised around each."""
+    import torch
+    from kevlar_tpu_torch.parallel import collectives
+    n_shard = mesh.shape['shard']
+    send = [[torch.randint(0, 1 << 20, (4, n_shard, capacity),
+                           dtype=torch.int32, device=dev) for dev in row]
+            for row in mesh.devices]
+    collectives.all_to_all(mesh, send)
+    times = []
+    for _ in range(reps):
+        _sync(mesh)
+        t0 = time.time()
+        collectives.all_to_all(mesh, send)
+        _sync(mesh)
+        times.append(1e3 * (time.time() - t0))
+    return times
+
+
+def _shard_equal(sharded, tables, label):
+    """Raise unless ``sharded``'s shards are ``tables`` ([T, tablesize]
+    8-bit counters on its device) cut at its shard size."""
+    import torch
+    ss = sharded.shard_size
+    for s in range(sharded.mesh.shape['shard']):
+        held = min(ss, sharded.tablesize - s * ss)
+        for d in range(sharded.mesh.shape['data']):
+            got = sharded.tables[d][s]
+            want = tables[:, s * ss:s * ss + held].to(got.device)
+            if not (torch.equal(got[:, :held], want) and
+                    not got[:, held:].any()):
+                raise AssertionError('{}: shard ({}, {}) differs'.format(
+                    label, d, s))
+
+
+def _route_bound(n, ntables, nshards, capacity):
+    """kt_route: h1, h2 and valid read once, the send buffer (its fill
+    included) and the populations written once; ~20 integer operations a
+    table and k-mer."""
+    return _bound(n * 9 + ntables * nshards * (capacity + 1) * 4,
+                  n * ntables * 20)
+
+
+def _capacity(nrows, L, n_dev):
+    """The routed consume's capacity for a [nrows, L] batch on ``n_dev``
+    shards of one data row."""
+    from kevlar_tpu_torch.parallel.sharded import routing_capacity
+    return routing_capacity(1, n_dev, KSIZE, (nrows, L))
+
+
+def _routed_scatter_add_check(device, rng, ss):
+    """K3 at the routed count's shape: what the owner of shard 0 receives
+    on a (1, 4) mesh, the four devices' 8,192-row shares of a batch routed
+    by kt_route and moved by one all_to_all ([4, 4 x capacity] int32, the
+    sentinel ``ss`` in unfilled slots), added into its 4 x ``ss`` int32
+    accumulator; against its plain version, then timed."""
+    import torch
+    from kevlar_tpu_torch.ops import kmer_cuda, sketch_ops
+    from kevlar_tpu_torch.parallel import collectives
+    cap = _capacity(32768, 160, SHARDS)
+    send = []
+    for _ in range(SHARDS):
+        codes = torch.from_numpy(_read_bases(rng, 32768 // SHARDS, 160,
+                                             150)).to(device)
+        h1, h2, valid = (x.reshape(-1) for x in
+                         kmer_cuda.kmer_hashes_cuda(codes, KSIZE))
+        send.append(kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss,
+                                         SHARD_TOTAL, cap)[0])
+    del codes, h1, h2, valid
+    recv = collectives.all_to_all(_mesh(device, 1, SHARDS), [send])[0][0]
+    recv = recv.reshape(4, SHARDS * cap)
+    del send
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    acc = torch.randint(0, 100, (4, ss), dtype=torch.int32, device=device,
+                        generator=gen)
+    got = kmer_cuda.scatter_add_cuda(acc.clone(), recv)
+    want = sketch_ops.scatter_add_plain(acc.clone(), recv)
+    err = _max_diff(got, want, 'K3 on the received bins')
+    del got, want
+    kept = recv < ss
+    nkept = int(kept.sum())
+    _, ms = _timed(kmer_cuda.scatter_add_cuda, acc, recv, reps=20, spin=True)
+    _, plain_ms = _timed(sketch_ops.scatter_add_plain, acc, recv, reps=5)
+    # one library call for the same function: index_add_ on the flat
+    # accumulator, its kept flat indices prepared outside the timing
+    flat = (recv.long() + torch.arange(4, device=device)[:, None] * ss)[kept]
+    ones = torch.ones_like(flat, dtype=torch.int32)
+    _, library_ms = _timed(acc.view(-1).index_add_, 0, flat, ones, reps=5,
+                           spin=True)
+    del flat, ones, kept, acc
+    # every received index read once; a kept update reads and writes its
+    # sector
+    bound_ms, bound_by = _bound(recv.numel() * 4 + nkept * 2 * SECTOR, nkept)
+    shape = ('4 x {:,} received indices ({:.1%} sentinels), 4 x {:,} '
+             'int32'.format(SHARDS * cap, 1 - nkept / recv.numel(), ss))
+    print('[smoke] K3 scatter_add on the routed count\'s bins: identical to '
+          'plain; {}: kernel {:.4f} ms ({:.1f} G updates/s), plain {:.3f} '
+          'ms, one index_add_ {:.4f} ms, bound {:.4f} ms by {}'.format(
+              shape, ms, nkept / ms / 1e6, plain_ms, library_ms, bound_ms,
+              bound_by), flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, shape=shape)
+
+
+def sharded_kernel_checks(device):
+    """kt_route and the range variants of K2 and K3 against their plain
+    versions on the card, at the shapes the sharded phase gives them, then
+    timed.  Returns {kernel: dict(err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, shape)}."""
+    import torch
+    from kevlar_tpu_torch.ops import kmer_cuda, sketch_ops
+    rng = np.random.default_rng(SEED + 8)
+    out = {}
+    ss = SHARD_TOTAL // SHARDS + 1
+
+    # kt_route: one device's share of a count batch (8,192 of 32,768 reads
+    # on a (1, 4) mesh), then the whole batch; and a batch that overflows
+    # a small capacity (populations exact, each bin full)
+    err = 0
+    times = {}
+    for nrows in (32768 // SHARDS, 32768):
+        codes = torch.from_numpy(_read_bases(rng, nrows, 160, 150)).to(
+            device)
+        h1, h2, valid = (x.reshape(-1) for x in
+                         kmer_cuda.kmer_hashes_cuda(codes, KSIZE))
+        cap = _capacity(32768 if nrows < 32768 else 4 * 32768, 160, SHARDS)
+        got = kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss, SHARD_TOTAL,
+                                   cap)
+        want = sketch_ops.route_plain(h1, h2, valid, 4, SHARDS, ss,
+                                      SHARD_TOTAL, cap)
+        err = max(err, _max_diff(got[1], want[1], 'kt_route populations'),
+                  _max_diff(got[0].sort(dim=2).values,
+                            want[0].sort(dim=2).values, 'kt_route bins'))
+        _, ms = _timed(kmer_cuda.route_cuda, h1, h2, valid, 4, SHARDS, ss,
+                       SHARD_TOTAL, cap, reps=20, spin=True)
+        _, plain_ms = _timed(sketch_ops.route_plain, h1, h2, valid, 4, SHARDS,
+                             ss, SHARD_TOTAL, cap, reps=3)
+        nbytes = h1.numel() * 9 + 4 * SHARDS * (cap + 1) * 4
+        times[nrows] = (h1.numel(), cap, ms, plain_ms, nbytes) + \
+            _route_bound(h1.numel(), 4, SHARDS, cap)
+        fill = int(got[1].max()) / cap
+    small = 4096
+    tight = kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss, SHARD_TOTAL,
+                                 small)
+    err = max(err, _max_diff(tight[1], want[1], 'kt_route overflow pops'),
+              _max_diff((tight[0] < ss).sum(dim=2),
+                        torch.full((4, SHARDS), small, dtype=torch.int64,
+                                   device=device), 'kt_route full bins'))
+    n, cap, ms, plain_ms, nbytes, bound_ms, bound_by = times[32768 // SHARDS]
+    out['route'] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None,
+                        shape='{:,} hashed k-mers x 4 tables to {} shards of '
+                        '{:,} buckets, capacity {:,}'.format(n, SHARDS, ss,
+                                                            cap))
+    print('[smoke] kt_route: identical to plain (populations; bins sorted; '
+          'an overflowing batch keeps exact populations and full bins); {}'
+          .format('; '.join(
+              '{:,} k-mers (capacity {:,}): kernel {:.4f} ms ({:.1f} GB/s of '
+              '{:,} bytes), plain {:.3f} ms, bound {:.4f} ms by {}'.format(
+                  t[0], t[1], t[2], t[4] / t[2] / 1e6, t[4], t[3], t[5],
+                  t[6]) for t in times.values())), flush=True)
+    print('[smoke] kt_route: the fullest bin of the whole batch holds {:.3f} '
+          'of its capacity (1.25x the expected population)'.format(fill),
+          flush=True)
+    del h1, h2, valid, codes, got, want, tight
+    out['K3 routed'] = _routed_scatter_add_check(device, rng, ss)
+
+    # K2 with a range: the screen's launch on one shard of a (1, 4) mesh,
+    # three samples (4,096 reads x 130 windows), each a shard of a 500M
+    # table; and 1/4/8 bits at an odd span
+    err = 0
+    h1, h2 = _random_hashes(rng, DEFAULT_SCREEN_READS * 130, device)
+    for bits, span in ((1, 1_000_008), (4, 999_992), (8, 1_000_000)):
+        samples = [(_random_sketch(rng, bits, span, device)[0], bits,
+                    3_999_999, s * span, span) for s in range(3)]
+        got = kmer_cuda.gather_counts_cuda(samples, h1, h2)
+        want = sketch_ops.gather_counts_multi_plain(samples, h1, h2)
+        err = max(err, _max_diff(got, want, 'K2 range {} bits'.format(bits)))
+    samples = [(_random_sketch(rng, 8, ss, device)[0], 8, SHARD_TOTAL, ss,
+                ss) for _ in range(3)]
+    got, ms = _timed(kmer_cuda.gather_counts_cuda, samples, h1, h2, reps=20,
+                     spin=True)
+    want, plain_ms = _timed(sketch_ops.gather_counts_multi_plain, samples,
+                            h1, h2, reps=5)
+    err = max(err, _max_diff(got, want, 'K2 range, screen shape'))
+    # the probes this data sends into the shard's range read a sector each
+    a, b = (x.to(torch.int64) & 0xFFFFFFFF for x in (h1, h2))
+    owned = sum(int((((a + t * b) & 0xFFFFFFFF) % SHARD_TOTAL // ss == 1)
+                    .sum()) for t in range(4))
+    nbytes = h1.numel() * (8 + 3) + 3 * min(owned * SECTOR, 4 * ss)
+    bound_ms, bound_by = _bound(nbytes, 3 * 4 * h1.numel() *
+                                K2_OPS_PER_PROBE)
+    out['K2 range'] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None,
+                           shape='{:,} k-mers, 3 sketches, shard 1 of 4 '
+                           '(4 x {:,} of {:,} buckets)'.format(
+                               h1.numel(), ss, SHARD_TOTAL))
+    print('[smoke] K2 gather_counts with a bucket range: identical to plain '
+          '(1/4/8 bits; 255 outside the range); {}: kernel {:.4f} ms, plain '
+          '{:.3f} ms, bound {:.4f} ms by {} ({:,} of {:,} probes in the '
+          'range)'.format(out['K2 range']['shape'], ms, plain_ms, bound_ms,
+                          bound_by, owned, 4 * h1.numel()), flush=True)
+    del samples, got, want, a, b, h1, h2
+
+    # K3 consume with a range: the masked count's launch on shard 1 of a
+    # (2, 2) mesh (16,384 reads x 130 windows, 15% kept by the mask) into
+    # its 4 x 62,500,000 int32 accumulator (at helium's 500M); and odd
+    # ranges of a small table
+    err = 0
+    h1, h2 = _random_hashes(rng, 100_003, device)
+    valid = torch.from_numpy((rng.random(100_003) < 0.9).astype(
+        np.uint8)).to(device)
+    mcnt = torch.from_numpy(rng.integers(0, 3, 100_003).astype(np.uint8)).to(
+        device)
+    for lo, span, kw in ((0, 1001, {}), (1000, 1001, {}),
+                         (2000, 5000, dict(mcnt=mcnt, mask_threshold=1)),
+                         (3, 2998, dict(mcnt=mcnt, mask_threshold=1,
+                                        consume_masked=True))):
+        acc = torch.from_numpy(rng.integers(0, 9, (4, span)).astype(
+            np.int32)).to(device)
+        got = kmer_cuda.consume_cuda(acc.clone(), h1, h2, valid, total=3001,
+                                     lo=lo, **kw)
+        want = sketch_ops.consume_hashes_plain(acc.clone(), h1, h2, valid,
+                                               total=3001, lo=lo, **kw)
+        err = max(err, _max_diff(got, want, 'K3 consume range [{}, +{})'
+                                 .format(lo, span)))
+    half = SHARD_TOTAL // 2 + 1
+    n = 16384 * 130
+    h1, h2 = _random_hashes(rng, n, device)
+    valid = torch.from_numpy((rng.random(n) < 0.995).astype(np.uint8)).to(
+        device)
+    mcnt = torch.from_numpy((rng.random(n) >= 0.15).astype(np.uint8)).to(
+        device)
+    kw = dict(mcnt=mcnt, mask_threshold=0, total=SHARD_TOTAL, lo=half)
+    acc = torch.zeros((4, half), dtype=torch.int32, device=device)
+    got = kmer_cuda.consume_cuda(acc.clone(), h1, h2, valid, **kw)
+    want = sketch_ops.consume_hashes_plain(acc.clone(), h1, h2, valid, **kw)
+    err = max(err, _max_diff(got, want, 'K3 consume range, 1 GB shard'))
+    added = int(got.sum())
+    del got, want
+    _, ms = _timed(kmer_cuda.consume_cuda, acc, h1, h2, valid, reps=20,
+                   spin=True, **kw)
+    _, plain_ms = _timed(sketch_ops.consume_hashes_plain, acc, h1, h2, valid,
+                         reps=3, **kw)
+    kept = int(((valid != 0) & (mcnt <= 0)).sum())
+    bound_ms, bound_by = _bound(n * 10 + added * 2 * SECTOR,
+                                n * 6 + kept * 4 * K2_OPS_PER_PROBE)
+    out['K3 consume range'] = dict(
+        err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+        shape='{:,} hashed k-mers (15% kept), shard 1 of 2 (4 x {:,} int32 '
+        'of {:,} buckets)'.format(n, half, SHARD_TOTAL))
+    print('[smoke] K3 consume with a bucket range: identical to plain (odd '
+          'ranges, masks); {}: kernel {:.4f} ms ({:,} of {:,} kept updates '
+          'in the range), plain {:.3f} ms, bound {:.4f} ms by {}'.format(
+              out['K3 consume range']['shape'], ms, added, 4 * kept,
+              plain_ms, bound_ms, bound_by), flush=True)
+    return out
+
+
+def phase_sharded_seeds(device, refr, seeds, reps=3):
+    """The sharded seed search: phase 4's bigsim keys cut over a (1, 4)
+    mesh on the card, the alac run's seed set through
+    ``seed_ranges_sharded``; the same ranges as the device backend's
+    search.  Returns its launches (seed_ranges calls) and ms."""
+    import torch
+    from kevlar_tpu_torch import dna, reference
+    from kevlar_tpu_torch.ops import seed_ops
+    index = reference.SeedIndex.from_file(reference.index_path(refr, 51), {},
+                                          backend='device', device=device)
+    qbases, _ = dna.encode_batch(sorted(seeds))
+    qcodes, _ = dna.seed_codes(qbases, 51)
+    queries = torch.from_numpy(seed_ops.ordered_int64(
+        reference._fold_codes(qcodes[:, 0, :]))).to(device)
+    start, count = seed_ops.seed_ranges(index.device_keys(), queries)
+    start, count = start.cpu().numpy(), count.cpu().numpy()
+    t0 = time.time()
+    runs, n_valid, base = seed_ops.shard_keys(index._keys, SHARDS)
+    mesh = _mesh(device, 1, SHARDS)
+    shards = [torch.from_numpy(runs[s]).to(device) for s in range(SHARDS)]
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    del runs
+    seed_ops.launches = 0
+    (got, got_count), times = _host_times(
+        lambda: seed_ops.seed_ranges_sharded(mesh, shards, queries, n_valid,
+                                             base), reps)
+    launches = seed_ops.launches
+    hit = count > 0
+    if not (np.array_equal(got_count, count) and
+            np.array_equal(got[hit], start[hit]) and
+            (got[~hit] == np.iinfo(np.int64).max).all()):
+        raise AssertionError('sharded seed ranges differ from the device '
+                             'search')
+    print('[smoke] sharded seeds: {:,} queries against {:,} keys cut over '
+          '{} shards on the card ({:.1f} s to cut and copy); '
+          'seed_ranges_sharded {} by the host clock (four searches, the '
+          'reductions over the shards, the host\'s global starts), {} '
+          'seed_ranges launches in {} calls; ranges == the device search\'s '
+          '({:,} hits)'.format(len(queries), len(index._keys), SHARDS,
+                               setup_s, _spread(times), launches, reps,
+                               int(hit.sum())), flush=True)
+    return dict(launches=launches, ms=float(np.median(times)))
+
+
+def phase_sharded_align(device, rows):
+    """Data-parallel B1: every pair of the alac run (``rows``: its
+    recorded align_batch calls) through ``align_both_strands_batch`` on a
+    (2, 1) mesh that names the card twice; the same (score, CIGAR,
+    strand) as unsharded.  Returns B1's launches."""
+    from kevlar_tpu_torch.ops import align_cuda
+    from kevlar_tpu_torch.ops.align import align_both_strands_batch
+    pairs = [pair for targets, queries, _, _ in rows
+             for pair in zip(targets[::2], queries[::2])]
+    want = align_both_strands_batch(pairs, device=device)
+    align_cuda.launches = 0
+    t0 = time.time()
+    got = align_both_strands_batch(pairs, mesh=_mesh(device, 2, 1))
+    wall = time.time() - t0
+    launches = align_cuda.launches
+    if got != want:
+        bad = sum(1 for g, w in zip(got, want) if g != w)
+        raise AssertionError('mesh-sharded B1: {} of {} pairs differ'.format(
+            bad, len(pairs)))
+    if launches < 2:
+        raise AssertionError('mesh-sharded B1 launched {} times'.format(
+            launches))
+    print('[smoke] data-parallel B1: {:,} pairs ({:,} rows) over a (2, 1) '
+          'mesh on the card in {:.2f} s, {} ksw_extz launches; (score, '
+          'CIGAR, strand) == unsharded'.format(len(pairs), 2 * len(pairs),
+                                              wall, launches), flush=True)
+    return launches
+
+
+# the kernels the sharded phase's main path must launch
+SHARDED_PATH_KERNELS = ('kmer_hashes', 'route', 'scatter_add',
+                        'gather_counts_range', 'consume_range')
+
+
+def phase_sharded(device, workdir, reads, memory='500M'):
+    """The sharded slice on the card, every mesh over this one card: the
+    proband counted on a (1, 4) mesh (routed), the case's masked count on
+    a (2, 2) mesh (replicate), the novel screen over the workflow's three
+    tables re-sharded on (1, 4), a forced overflow, ``count`` and ``novel
+    --shards 1`` through the CLI, and one batch's ``all_to_all`` timed.
+    Tables and text must equal the unsharded runs'.  Returns the launches
+    and walls."""
+    import gzip
+    import torch
+    import kevlar_tpu_torch
+    from kevlar_tpu_torch import count, novel, sketch
+    from kevlar_tpu_torch.batch import DEFAULT_BATCH_SIZE, native_base_batches
+    from kevlar_tpu_torch.cli import memory_setting
+    from kevlar_tpu_torch.ops import kmer_cuda
+    from kevlar_tpu_torch.parallel import ShardedSketch
+    t_phase = time.time()
+    mem = memory_setting(memory)
+    wf = os.path.join(workdir, 'workflow')
+    kevlar_tpu_torch.logstream = open(os.path.join(workdir, 'sharded.log'),
+                                      'w')
+    walls, batches = {}, {}
+    try:
+        # the unsharded, unmasked proband count it must equal (not the
+        # main path: counts are zeroed after it)
+        t0 = time.time()
+        single = count.load_sample_seqfile([reads['proband']], KSIZE, mem,
+                                           maxfpr=0.6, device=device)
+        tablesize = single.tablesize
+        torch.cuda.synchronize()
+        walls['count proband, one device'] = time.time() - t0
+
+        for name in kmer_cuda.launches:
+            kmer_cuda.launches[name] = 0
+        # 1. routed: (1, 4)
+        mesh14 = _mesh(device, 1, SHARDS)
+        t0 = time.time()
+        routed = count.load_sample_seqfile([reads['proband']], KSIZE, mem,
+                                           maxfpr=0.6, mesh=mesh14)
+        torch.cuda.synchronize()
+        walls['count proband, (1, 4) routed'] = time.time() - t0
+        batches['routed count'] = dict(routed.batches)
+        _shard_equal(routed, single.tables, 'routed proband count')
+        del routed, single
+        # 2. masked, replicate: (2, 2) with the workflow's 1-bit mask
+        mesh22 = _mesh(device, 2, 2)
+        mask = ShardedSketch.from_sketch(mesh22, sketch.load(
+            os.path.join(wf, 'mask.nt'), device=device, cache=False))
+        t0 = time.time()
+        masked = count.load_sample_seqfile([reads['proband']], KSIZE, mem,
+                                           maxfpr=0.6, mask=mask,
+                                           mesh=mesh22)
+        torch.cuda.synchronize()
+        walls['count case, (2, 2) masked'] = time.time() - t0
+        batches['masked count'] = dict(masked.batches)
+        case = sketch.load(os.path.join(wf, 'case.ct'), device=device,
+                           cache=False)
+        _shard_equal(masked, case.tables, 'masked case count vs case.ct')
+        del masked, mask
+        # 3. the screen over the workflow's tables, re-sharded on (1, 4)
+        samples = [ShardedSketch.from_sketch(mesh14, sk) for sk in [case] + [
+            sketch.load(os.path.join(wf, 'control{}.ct'.format(i)),
+                        device=device, cache=False) for i in (0, 1)]]
+        del case
+        t0 = time.time()
+        text = ''.join(novel.novel(
+            None, samples[:1], samples[1:], ksize=KSIZE, casemin=5,
+            ctrlmax=1, batchstream=novel.native_read_batches(
+                [reads['proband']], DEFAULT_BATCH_SIZE), emit='text'))
+        torch.cuda.synchronize()
+        walls['novel, (1, 4)'] = time.time() - t0
+        del samples
+        with gzip.open(os.path.join(wf, 'novel.augfastq.gz'), 'rt') as fh:
+            if fh.read() != text:
+                raise AssertionError('the sharded screen\'s text differs '
+                                     'from the workflow\'s novel output')
+    finally:
+        kevlar_tpu_torch.logstream.close()
+        kevlar_tpu_torch.logstream = None
+    # 7. the CLI, one shard (all a one-card host allows, as in JAX)
+    ct = os.path.join(workdir, 'shards1_proband.ct')
+    walls['CLI count --shards 1'] = _run_cli(
+        ['count', '--shards', '1', '-k', str(KSIZE), '--device', device,
+         '-M', memory, '--max-fpr', '0.6', '--mask',
+         os.path.join(workdir, 'mask.nt'), ct, reads['proband']],
+        os.path.join(workdir, 'shards1_count.log'))
+    out = os.path.join(workdir, 'shards1_novel.augfastq')
+    walls['CLI novel --shards 1'] = _run_cli(
+        ['novel', '--shards', '1', '-k', str(KSIZE), '--device', device,
+         '--case', reads['proband'], '--case-counts', ct,
+         '--control-counts', os.path.join(workdir, 'mother.ct'),
+         os.path.join(workdir, 'father.ct'), '--case-min', '5',
+         '--ctrl-max', '1', '-o', out],
+        os.path.join(workdir, 'shards1_novel.log'))
+    launches = dict(kmer_cuda.launches)
+    missing = [k for k in SHARDED_PATH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError('the sharded run launched no {} kernel'.format(
+            missing))
+    with np.load(ct) as got, np.load(os.path.join(workdir,
+                                                  'proband.ct')) as want:
+        if not np.array_equal(got['tables'], want['tables']):
+            raise AssertionError('count --shards 1 differs from the '
+                                 'unsharded count')
+    with open(out) as fh, open(os.path.join(workdir,
+                                            'novel.augfastq')) as gh:
+        if fh.read() != gh.read():
+            raise AssertionError('novel --shards 1 differs from the '
+                                 'unsharded screen')
+
+    # 4. a forced overflow (not the main path): a tiny capacity re-runs
+    # the batch down the replicate path, with the same tables
+    bases, _ = next(native_base_batches(reads['proband'], 32768,
+                                        overlap=KSIZE - 1))
+    forced = ShardedSketch(mesh14, KSIZE, tablesize, exact=True)
+    forced.consume_batch(bases, a2a_capacity=1024)
+    plain = ShardedSketch(mesh14, KSIZE, tablesize, exact=True)
+    plain.consume_batch(bases)
+    if forced.batches != {'routed': 0, 'replicated': 1, 'overflowed': 1} or \
+            plain.batches['routed'] != 1:
+        raise AssertionError('overflow: {} / {}'.format(forced.batches,
+                                                        plain.batches))
+    for s in range(SHARDS):
+        if not torch.equal(forced.tables[0][s], plain.tables[0][s]):
+            raise AssertionError('overflow: shard {} differs'.format(s))
+    del forced, plain
+    a2a = _all_to_all_ms(mesh14, _capacity(32768, 160, SHARDS))
+    print('[smoke] sharded: all_to_all of one count batch\'s bins (4 x {} x '
+          '{:,} int32 a device, {:.1f} MB in all) over {}: {}'.format(
+              SHARDS, _capacity(32768, 160, SHARDS),
+              16 * SHARDS * _capacity(32768, 160, SHARDS) * 4 / 1e6,
+              ', '.join(str(d) for d in mesh14.devices[0]), _spread(a2a)),
+          flush=True)
+    print('[smoke] sharded: {}; batches {}; the forced overflow (capacity '
+          '1,024) re-ran down the replicate path, tables equal; the routed '
+          'and masked counts == the unsharded and workflow tables, the '
+          'screen == the workflow\'s novel text, count/novel --shards 1 == '
+          'phase 6\'s; launches {}; phase wall {:.1f} s'.format(
+              ', '.join('{} {:.2f} s'.format(k, v) for k, v in walls.items()),
+              batches, {k: launches[k] for k in launches},
+              time.time() - t_phase), flush=True)
+    return dict(launches=launches, walls=walls, batches=batches)
+
+
 # ------------------------------------------- against an older checkout
 
 
@@ -2587,14 +3117,19 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         run = phase_slice(device, workdir)
         phase_call(device, workdir, run['refr'], run['reads'], run['vcf'])
-        seeds = phase_seeds(device, workdir, run['refr'], run.pop('seeds'))
+        seedset = run.pop('seeds')
+        seeds = phase_seeds(device, workdir, run['refr'], seedset)
+        phase_sharded_seeds(device, run['refr'], seedset)
+        phase_sharded_align(device, run.pop('rows'))
         part = phase_partition(device, workdir, run['reads'])
         cc = phase_cc_kernel(device, part.pop('incidence'))
     kmer = phase_kmer_kernels(device)
+    kmer.update(sharded_kernel_checks(device))
     with tempfile.TemporaryDirectory() as workdir:
         trio = phase_trio(device, workdir)
         phase_workflow(device, workdir, trio['refr'], trio['denovo'],
                        trio['reads'])
+        shard = phase_sharded(device, workdir, trio['reads'])
         sim = phase_simlike(device, workdir)
         phase_dist(device, workdir, trio['reads'])
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
@@ -2609,20 +3144,33 @@ def main():
         'traceback_ms': run['tb_ms'], 'plain_ms': run['plain_ms'],
         'bound_ms': run['bound_ms'], 'bound_by': run['bound_by'],
         'library_ms': None}]
-    for key, name, counter, replaces in (
+    for key, name, counter, replaces, path in (
             ('K1', 'kmer_hashes (rolling k-mer hashing of base codes)',
-             'kmer_hashes', 'kevlar_tpu/ops/hashing.py:82'),
+             'kmer_hashes', 'kevlar_tpu/ops/hashing.py:82', trio),
             ('K2', 'gather_counts (Count-Min min over tables, all samples)',
-             'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60'),
+             'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60', trio),
             ('K3 consume', 'consume (Count-Min scatter-add from hashes: '
              'predicates, bucket indices, atomic adds)', 'consume',
-             'tools/scatter_probe.py:76'),
-            ('K3', 'scatter_add (per-table int32 bincount from indices)',
-             'scatter_add', 'tools/scatter_probe.py:76')):
+             'tools/scatter_probe.py:76', trio),
+            ('K3', 'scatter_add (per-table int32 bincount from indices; '
+             'the trio\'s device recount)', 'scatter_add',
+             'tools/scatter_probe.py:76', trio),
+            ('K3 routed', 'scatter_add (the owners\' add of the routed '
+             'sharded consume, on its received bins)', 'scatter_add',
+             'tools/scatter_probe.py:76', shard),
+            ('route', 'route (kt_route: bins the bucket indices of hashed '
+             'k-mers by owner shard)', 'route',
+             'kevlar_tpu/parallel/sharded.py:99', shard),
+            ('K2 range', 'gather_counts with a bucket range (a shard\'s '
+             'counts, 255 outside it)', 'gather_counts_range',
+             'kevlar_tpu/parallel/sharded.py:161', shard),
+            ('K3 consume range', 'consume with a bucket range (a shard\'s '
+             'adds of the replicate and masked sharded consume)',
+             'consume_range', 'tools/scatter_probe.py:76', shard)):
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'kevlar_tpu_torch/csrc/kmer.cu', 'replaces': replaces,
-            'launches': trio['launches'][counter],
+            'launches': path['launches'][counter],
             'max_abs_err': kmer[key]['err'], 'ms': kmer[key]['ms'],
             'plain_ms': kmer[key]['plain_ms'],
             'bound_ms': kmer[key]['bound_ms'],

@@ -8,6 +8,8 @@ GPU, its plain PyTorch version on the CPU), then call variants per
 partition and emit them sorted by (seqid, position). Contract: reference
 kevlar/alac.py:19-92, with ``--threads`` parallelizing the per-partition
 call step (the reference's flag is serial, ref cli/alac.py:92-94).
+``--shards S`` cuts the alignment batch over S devices of a mesh
+(:mod:`kevlar_tpu_torch.parallel`).
 """
 
 from collections import defaultdict
@@ -41,7 +43,7 @@ def alac(pstream, refrfile, threads=1, ksize=31, maxreads=10000, delta=50,
          seedsize=31, maxdiff=None, inclpattern=None, exclpattern=None,
          match=1, mismatch=2, gapopen=5, gapextend=0, min_ikmers=None,
          maskfile=None, maskmem=1e6, maskmaxfpr=0.01, maxtargetlen=10000,
-         device='cuda'):
+         device='cuda', mesh=None):
     import time
     from kevlar_tpu_torch import call as call_mod
 
@@ -53,15 +55,15 @@ def alac(pstream, refrfile, threads=1, ksize=31, maxreads=10000, delta=50,
         inclpattern=inclpattern, exclpattern=exclpattern, device=device)
     t2 = time.time()
 
-    # one global alignment batch across every partition — the
-    # device-parallel analog of the reference's N parallel call shards
-    # (Snakefile:345-356)
+    # one global alignment batch across every partition (cut over the
+    # mesh's devices with ``mesh``) — the device-parallel analog of the
+    # reference's N parallel call shards (Snakefile:345-356)
     strandings = call_mod.align_partitions(
         {partid: call_mod.partition_jobs(
             targets[partid], contigs[partid], maxtargetlen)[3]
          for partid in targets},
         match=match, mismatch=mismatch, gapopen=gapopen,
-        gapextend=gapextend, device=device)
+        gapextend=gapextend, device=device, mesh=mesh)
     t3 = time.time()
 
     def call_one(partid):
@@ -99,6 +101,12 @@ def alac(pstream, refrfile, threads=1, ksize=31, maxreads=10000, delta=50,
 
 def main(args):
     from kevlar_tpu_torch import vcf
+    mesh = None
+    if getattr(args, 'shards', None):
+        from kevlar_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(n_data=args.shards, n_shard=1, device=args.device)
+        kevlar_tpu_torch.plog('[kevlar::alac] sharding alignment batches '
+                              'over mesh', dict(mesh.shape))
     readstream = kevlar_tpu_torch.parse_augmented_fastx(
         kevlar_tpu_torch.open(args.infile, 'r'))
     if args.part_id:
@@ -118,5 +126,5 @@ def main(args):
                         maskfile=args.gen_mask, maskmem=args.mask_mem,
                         maskmaxfpr=args.mask_max_fpr,
                         maxtargetlen=args.max_target_length,
-                        device=args.device):
+                        device=args.device, mesh=mesh):
         writer.write(varcall)

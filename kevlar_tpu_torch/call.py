@@ -88,14 +88,15 @@ def partition_jobs(targetlist, querylist, maxtargetlen=10000):
 
 
 def align_partitions(jobs_by_partition, match=1, mismatch=2, gapopen=5,
-                     gapextend=0, device='cuda'):
+                     gapextend=0, device='cuda', mesh=None):
     """Align EVERY partition's (target, query) jobs as one global batch.
 
     The replacement for the reference's N parallel ``call`` shard
     processes (workflows/mark-I/Snakefile:345-356): instead of scattering
     partitions over processes, the (contig x cutout) pairs of all
-    partitions concatenate into one batch on ``device``.  Returns
-    {partid: [(score, cigar, strand), ...]} in each partition's job order.
+    partitions concatenate into one batch on ``device``, or cut over the
+    devices of ``mesh``.  Returns {partid: [(score, cigar, strand), ...]}
+    in each partition's job order.
     """
     order = sorted(jobs_by_partition, key=lambda p: (p is None, str(p)))
     flat = []
@@ -103,7 +104,7 @@ def align_partitions(jobs_by_partition, match=1, mismatch=2, gapopen=5,
         flat += jobs_by_partition[pid]
     results = align_both_strands_batch(
         flat, match=match, mismatch=mismatch, gapopen=gapopen,
-        gapextend=gapextend, device=device)
+        gapextend=gapextend, device=device, mesh=mesh)
     out = {}
     pos = 0
     for pid in order:
@@ -194,6 +195,13 @@ def main(args):
                            source='kevlar::call', refr=args.refr)
     writer.write_header()
 
+    mesh = None
+    if getattr(args, 'shards', None):
+        from kevlar_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(n_data=args.shards, n_shard=1, device=args.device)
+        kevlar_tpu_torch.plog('[kevlar::call] sharding alignment batches '
+                              'over mesh', dict(mesh.shape))
+
     contigs_by_partition = load_contigs(seqio.parse_partitioned_reads(
         kevlar_tpu_torch.parse_augmented_fastx(
             kevlar_tpu_torch.open(args.queryseq, 'r'))))
@@ -203,14 +211,14 @@ def main(args):
     targets_by_partition = [
         (partid, gdnas) for partid, gdnas in gdnastream
         if partid in contigs_by_partition]
-    # one global alignment batch across every partition on the device, then
-    # per-partition interpretation
+    # one global alignment batch across every partition on the device (or
+    # cut over the mesh), then per-partition interpretation
     strandings = align_partitions(
         {partid: partition_jobs(gdnas, contigs_by_partition[partid],
                                 args.max_target_length)[3]
          for partid, gdnas in targets_by_partition},
         match=args.match, mismatch=args.mismatch, gapopen=args.open,
-        gapextend=args.extend, device=args.device)
+        gapextend=args.extend, device=args.device, mesh=mesh)
     maskable = []
     for partid, gdnas in targets_by_partition:
         for varcall in call(gdnas, contigs_by_partition[partid], partid,

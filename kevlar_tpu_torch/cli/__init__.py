@@ -6,10 +6,13 @@ Flag names, defaults and semantics follow ``kevlar_tpu.cli`` (and the
 reference's kevlar/cli/*.py), plus ``--device`` where a stage touches a
 device: the torch device of its kernels (default ``cuda``; ``cpu`` runs
 their plain PyTorch versions).  ``--profile DIR`` writes a
-``torch.profiler`` chrome trace of the run.  ``--shards`` (sketches and
-alignment batches spread over several devices) is refused by name, and
-``warm`` has no counterpart: there is no compile cache to fill, the
-kernels build once at first use.
+``torch.profiler`` chrome trace of the run.  ``--shards S`` spreads
+``count``'s and ``novel``'s sketches over S shards and ``call``'s and
+``alac``'s alignment batches over S devices of a mesh
+(:mod:`kevlar_tpu_torch.parallel`; on ``cuda`` S must divide the card
+count, on ``cpu`` the CPU stands in for every mesh device).  ``warm`` has no
+counterpart: there is no compile cache to fill, the kernels build once at
+first use.
 """
 
 import argparse
@@ -50,17 +53,12 @@ def _add_threads_arg(sp):
                     'only 1 is supported')
 
 
-def _no_shards(value):
-    raise argparse.ArgumentTypeError(
-        'sketches and alignment batches sharded over several devices are '
-        'not supported by kevlar_tpu_torch yet; it runs on one device '
-        '(--device)')
-
-
 def _add_shards_arg(sp):
-    sp.add_argument('--shards', type=_no_shards, metavar='S', default=None,
-                    help='kept for kevlar_tpu\'s command line; refused: the '
-                    'port runs on one device')
+    """``--shards`` of ``call`` and ``alac``."""
+    sp.add_argument('--shards', type=int, metavar='S', default=None,
+                    help='shard the global contig x cutout alignment batch '
+                    'across S devices (the device-parallel analog of the '
+                    "reference's N parallel call shard processes)")
 
 
 def _add_device_arg(sp, what):
@@ -88,7 +86,10 @@ def _count_subparser(subparsers):
     sp.add_argument('--num-bands', type=int, metavar='N', default=None)
     sp.add_argument('--band', type=int, metavar='I', default=None,
                     help='band between 1 and N (inclusive) to process')
-    _add_shards_arg(sp)
+    sp.add_argument('--shards', type=int, metavar='S', default=None,
+                    help='hash-shard the count table across S devices of '
+                    'the mesh (supersedes banding; remaining devices become '
+                    'the data-parallel axis)')
     _add_threads_arg(sp)
     sp.add_argument('--sketch-format', choices=('native', 'khmer'),
                     default='native', help='on-disk sketch format: "native" '
@@ -120,7 +121,10 @@ def _novel_subparser(subparsers):
     sp.add_argument('--max-fpr', type=float, default=0.2, metavar='FPR')
     sp.add_argument('--num-bands', type=int, metavar='N', default=None)
     sp.add_argument('--band', type=int, metavar='I', default=None)
-    _add_shards_arg(sp)
+    sp.add_argument('--shards', type=int, metavar='S', default=None,
+                    help='hash-shard every sample sketch across S devices '
+                    'and run the novel screen over the mesh (supersedes '
+                    'banding)')
     sp.add_argument('-o', '--out', metavar='FILE')
     sp.add_argument('--save-case-counts', metavar='CT', nargs='+')
     sp.add_argument('--save-ctrl-counts', metavar='CT', nargs='+')

@@ -12,6 +12,12 @@ calling thread: hash (K1), band and mask
 predicates (mask counts by K2), per-table bucket indices, scatter-add into
 the consume's int32 accumulator (K3).  The accumulator saturates and packs
 into the sketch's tables once, when the call ends.
+
+With a mesh (``--shards``), the sketch is a
+:class:`kevlar_tpu_torch.parallel.ShardedSketch`, hash-sharded across the
+mesh's 'shard' axis, and each batch goes through its consume (the routed
+one, or the replicate one when masked); banding is then unsupported, as
+in ``kevlar_tpu``.
 """
 
 import queue
@@ -22,9 +28,10 @@ import torch
 import kevlar_tpu_torch
 from kevlar_tpu_torch.batch import CodeStager, native_base_batches
 from kevlar_tpu_torch.ops import sketch_ops
+from kevlar_tpu_torch.parallel import ShardedSketch, make_mesh
 from kevlar_tpu_torch.sketch import (
-    allocate_from_memory, estimate_fpr, get_extension, register_saved,
-    KevlarUnsuitableFPRError,
+    BUCKETS_PER_BYTE, allocate_from_memory, estimate_fpr, get_extension,
+    register_saved, KevlarUnsuitableFPRError,
 )
 from kevlar_tpu_torch.support import Timer
 
@@ -40,21 +47,28 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
     the sketch's device; returns the number of reads (genome records count
     once per ``batch`` row they chunk into, as in ``kevlar_tpu``).
 
-    ``mask`` is a sketch on the same device.  ``band`` is 0-based.  Records
-    longer than 1,024 bases chunk into rows overlapping by k-1 bases, so no
-    k-mer is lost or counted twice.
+    ``mask`` is a sketch on the same device (a ShardedSketch on the same
+    mesh for a sharded ``sketch``).  ``band`` is 0-based.  Records longer
+    than 1,024 bases chunk into rows overlapping by k-1 bases, so no k-mer
+    is lost or counted twice.
     """
     device = sketch.device
-    if mask is not None and getattr(mask, 'backend', None) != 'device':
+    sharded = isinstance(sketch, ShardedSketch)
+    if sharded:
+        if mask is not None and not isinstance(mask, ShardedSketch):
+            raise ValueError('the mask of a sharded count must be sharded '
+                             'on its mesh (ShardedSketch.from_sketch)')
+    elif mask is not None and getattr(mask, 'backend', None) != 'device':
         raise ValueError('the mask must be a device sketch of this '
                          'package (khmer-format masks are not supported '
                          'by the port\'s count)')
-    if mask is not None and mask.device != device:
+    elif mask is not None and mask.device != device:
         raise ValueError('mask is on {}, sketch on {}'.format(mask.device,
                                                               device))
     wing = sketch.ksize() - 1
     threshold = 1 if consume_masked else maskmaxabund
-    maskspec = mask.table_spec() if mask is not None else None
+    maskspec = mask.table_spec() if mask is not None and not sharded \
+        else None
     q = queue.Queue(maxsize=2)
     producer_error = []
     stop = threading.Event()
@@ -74,36 +88,43 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
         finally:
             q.put(None)
 
-    acc = sketch_ops.Accumulator(sketch.tables, sketch.counter_bits,
-                                 sketch.tablesize)
-    thread = threading.Thread(target=produce, name='kevlar-count-producer',
-                              daemon=True)
-    thread.start()
-    numreads = 0
-    try:
-        while True:
-            item = q.get()
-            if item is None:
-                break
-            codes, nreads = item
+    def consume(acc, codes):
+        if sharded:
+            sketch.consume_batch(codes, numbands=numbands, band=band,
+                                 mask=mask, mask_threshold=threshold,
+                                 consume_masked=consume_masked)
+        else:
             sketch_ops.consume_codes(
                 acc, codes, sketch.ksize(), numbands=numbands, band=band,
                 mask=maskspec, mask_threshold=threshold,
                 consume_masked=consume_masked)
-            numreads += nreads
-    finally:
-        # on an error here, unblock the producer and let it end
-        stop.set()
-        while thread.is_alive():
-            try:
-                q.get(timeout=0.1)
-            except queue.Empty:
-                pass
-        thread.join()
+
+    thread = threading.Thread(target=produce, name='kevlar-count-producer',
+                              daemon=True)
+    numreads = 0
+    # the accumulator is saturated and packed into the tables when the
+    # block ends, on an error too
+    with sketch.consuming() as acc:
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                codes, nreads = item
+                consume(acc, codes)
+                numreads += nreads
+        finally:
+            # on an error here, unblock the producer and let it end
+            stop.set()
+            while thread.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            thread.join()
     if producer_error:
         raise producer_error[0]
-    sketch.tables = acc.tables()
-    sketch._invalidate()
     return numreads
 
 
@@ -112,9 +133,15 @@ def load_sample_seqfile(seqfiles, ksize, memory, maxfpr=0.2, count=True,
                         consume_masked=False, numbands=None, band=None,
                         outfile=None, batch_size=COUNT_BATCH_READS,
                         device='cuda', sketch_format='native',
-                        save_async=False):
+                        save_async=False, mesh=None):
     """Compute k-mer abundances for one sample on ``device``; returns the
     sketch (saved to ``outfile`` when given).
+
+    With ``mesh``, the sketch is hash-sharded across the mesh's 'shard'
+    axis and reads are data-parallel across 'data' (``device`` is then the
+    mesh's); banding is then unsupported, and the mask must be sharded on
+    the same mesh.  The sharded table size is the unsharded one (odd), so
+    abundances and the saved file equal the unsharded stage's.
 
     ``sketch_format='khmer'`` counts on the khmer-binary-compatible host
     engine instead (:mod:`kevlar_tpu_torch.oxli`): the saved file is
@@ -129,17 +156,31 @@ def load_sample_seqfile(seqfiles, ksize, memory, maxfpr=0.2, count=True,
     :func:`kevlar_tpu_torch.sketch.load` of that file joins it itself."""
     counter_bits = (4 if smallcount else 8) if count else 1
     from kevlar_tpu_torch.oxli import OxliSketch
-    if sketch_format != 'khmer' and isinstance(mask, OxliSketch):
+    if sketch_format != 'khmer' and isinstance(mask, OxliSketch) \
+            and mesh is None:
         kevlar_tpu_torch.plog('[kevlar::count] mask is khmer-format; '
                               'counting on the khmer-compatible host engine')
         sketch_format = 'khmer'
     if sketch_format == 'khmer':
+        if mesh is not None:
+            raise ValueError('--shards and --sketch-format khmer are '
+                             'mutually exclusive')
         return _load_sample_seqfile_khmer(
             seqfiles, ksize, memory, maxfpr, counter_bits, mask,
             consume_masked, maskmaxabund, numbands, band, outfile,
             count=count, smallcount=smallcount)
-    sketch = allocate_from_memory(ksize, memory, num_tables=4,
-                                  counter_bits=counter_bits, device=device)
+    if mesh is not None:
+        tablesize = int(memory) // 4 * BUCKETS_PER_BYTE[counter_bits]
+        if tablesize % 2 == 0:
+            tablesize -= 1  # odd, matching allocate_from_memory (banding)
+        # exact hash space: abundances (and the saved counttable) are
+        # bit-identical to the unsharded stage at the same --memory
+        sketch = ShardedSketch(mesh, ksize, max(tablesize, 1), 4,
+                               counter_bits=counter_bits, exact=True)
+    else:
+        sketch = allocate_from_memory(ksize, memory, num_tables=4,
+                                      counter_bits=counter_bits,
+                                      device=device)
     numreads = 0
     for seqfile in seqfiles:
         kevlar_tpu_torch.plog('[kevlar::count] - processing "{}"'.format(
@@ -246,10 +287,20 @@ def main(args):
     if (args.num_bands is None) is not (args.band is None):
         raise ValueError('Must specify --num-bands and --band together')
     myband = args.band - 1 if args.band else None
+    mesh = None
+    if getattr(args, 'shards', None):
+        if args.num_bands:
+            raise ValueError('banding and --shards are mutually exclusive: '
+                             'hash-space sharding supersedes banding')
+        mesh = make_mesh(n_shard=args.shards, device=args.device)
+        kevlar_tpu_torch.plog('[kevlar::count] sharding the sketch over mesh',
+                              dict(mesh.shape))
     mask = None
     if args.mask:
         from kevlar_tpu_torch import sketch as sketch_mod
         mask = sketch_mod.load(args.mask, device=args.device)
+        if mesh is not None:
+            mask = ShardedSketch.from_sketch(mesh, mask)
     print_config(args)
 
     timer = Timer()
@@ -261,7 +312,7 @@ def main(args):
         smallcount=dosmallcount, mask=mask,
         consume_masked=args.count_masked, numbands=args.num_bands,
         band=myband, outfile=args.counttable, device=args.device,
-        sketch_format=args.sketch_format)
+        sketch_format=args.sketch_format, mesh=mesh)
     if torch.device(args.device).type == 'cuda':
         torch.cuda.synchronize(args.device)
     total = timer.stop()

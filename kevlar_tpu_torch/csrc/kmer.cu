@@ -1,6 +1,7 @@
 // Count-Min sketch kernels for Hopper (sm_90a): k-mer hashing (K1), the
-// min-over-tables count gather (K2) and the scatter-add into the consume's
-// accumulator (K3: kt_consume from hashes, kt_scatter_add from indices).
+// min-over-tables count gather (K2), the scatter-add into the consume's
+// accumulator (K3: kt_consume from hashes, kt_scatter_add from indices) and
+// the routing of bucket indices to the shards that own them (kt_route).
 //
 // K1 kt_kmer_hashes replaces the XLA program of
 //   kevlar_tpu/ops/hashing.py :: kmer_codes + hash_pair
@@ -24,7 +25,11 @@
 //   with a host-made reciprocal, no division), starts all S x T byte loads
 //   through the read-only path without allocating in L1, and only then
 //   takes the minima.  Bound by bytes: a random byte of a table far larger
-//   than L2 costs its 32-byte DRAM sector.
+//   than L2 costs its 32-byte DRAM sector.  A sketch may hold one range
+//   [lo, lo + span) of a hash space of `tablesize` buckets (a shard of a
+//   ShardedSketch): a bucket outside it reads 255, so that a minimum over
+//   the shards picks the owner's count (kevlar_tpu/parallel/sharded.py ::
+//   _local_gather); the whole space is lo = 0, span = tablesize.
 // K3 kt_consume and kt_scatter_add replace
 //   tools/scatter_probe.py :: pallas_scatter_add (B10, the pl.pallas_call at
 //   :76), the core of sketch_ops._scatter_hashes_i32, and kt_consume also
@@ -52,7 +57,25 @@
 //   presence sketch: plain byte stores of one value, no atomics), where it
 //   can be read by K2 at once, with no accumulator to unpack and pack.
 //   kt_scatter_add takes given indices (what B10 computes): a 2-D grid
-//   gives the table from blockIdx.y, without a division.
+//   gives the table from blockIdx.y, without a division.  kt_consume also
+//   takes a bucket range, as K2 does: the accumulator then holds the
+//   buckets [lo, lo + span) of a hash space of `total` (a shard's), and a
+//   kept k-mer adds only where its bucket falls inside (the replicate
+//   consume of kevlar_tpu/parallel/sharded.py :: _local_consume).
+// kt_route replaces the binning half of
+//   kevlar_tpu/parallel/sharded.py :: _route_consume (an XLA program: a
+//   one-hot block cumsum over [T, K, S] ranks every k-mer's slot in its
+//   owner's bin).  It writes each kept k-mer's local bucket index
+//   (bucket mod shard_size) into bin (table, owner shard) of a [T, S, C]
+//   send buffer the wrapper fills with the sentinel shard_size, and counts
+//   every bin's population, slots beyond C included (the overflow test).
+//   Only T x S counters take every k-mer's slot, so a global atomic a
+//   k-mer would queue on a few L2 addresses: a block counts its k-mers
+//   into shared-memory bins first, reserves each bin's range with one
+//   global atomic, then writes.  The order of the slots inside a bin is
+//   not JAX's (the shared atomics hand them out in no set order); the
+//   owner's adds commute, so the counts are the same.  Bound by bytes: 9
+//   bytes a k-mer read, the send buffer written.
 //
 // Plain C entry points (bound with ctypes): each launches on the given
 // stream and returns the cudaError_t of the launch (0 = success); no entry
@@ -254,11 +277,14 @@ constexpr int kMaxSamples = 8;
 
 // One sketch: its tables as they lie in memory, and the reciprocal
 // floor(2^32 / tablesize) (2^32 - 1 for tablesize 1) that mod_by() needs.
+// The rows hold the buckets [lo, lo + span) of the hash space; others read
+// 255.
 struct GatherSample {
     const uint8_t *tables;
     int64_t width;          // bytes per table row
-    uint32_t tablesize;     // buckets per table, in [1, 2^31)
+    uint32_t tablesize;     // buckets of the hash space, in [1, 2^31)
     uint32_t magic;
+    uint32_t lo, span;      // the buckets the rows hold
     int32_t ntables;
     int32_t bits;           // 1, 4 or 8 per counter
 };
@@ -298,7 +324,9 @@ __device__ __forceinline__ uint32_t byte_of(uint32_t idx, int bits) {
 
 // S samples (the first `nsamples` of them live) of T tables each; BITS is
 // the counter width of all of them, or 0 when the samples' widths differ.
-// All indices first, then all loads, then the minima.
+// All indices first (local to the sample's range: one below lo wraps to a
+// large unsigned number, outside the range like one past its end), then
+// the loads of the buckets in range, then the minima.
 template <int S, int T, int BITS>
 __global__ void gather_counts_kernel(const __grid_constant__ GatherArgs args,
                                      int nsamples,
@@ -316,7 +344,7 @@ __global__ void gather_counts_kernel(const __grid_constant__ GatherArgs args,
 #pragma unroll
             for (int t = 0; t < T; ++t) {
                 idx[s][t] = mod_by(a + (uint32_t)t * b, args.s[s].tablesize,
-                                   args.s[s].magic);
+                                   args.s[s].magic) - args.s[s].lo;
             }
         }
     }
@@ -326,9 +354,10 @@ __global__ void gather_counts_kernel(const __grid_constant__ GatherArgs args,
             int bits = BITS ? BITS : args.s[s].bits;
 #pragma unroll
             for (int t = 0; t < T; ++t) {
-                byte[s][t] = load_streamed(args.s[s].tables +
-                                           t * args.s[s].width +
-                                           byte_of(idx[s][t], bits));
+                byte[s][t] = idx[s][t] < args.s[s].span
+                    ? load_streamed(args.s[s].tables + t * args.s[s].width +
+                                    byte_of(idx[s][t], bits))
+                    : 0u;
             }
         }
     }
@@ -339,7 +368,8 @@ __global__ void gather_counts_kernel(const __grid_constant__ GatherArgs args,
             uint32_t m = 255u;
 #pragma unroll
             for (int t = 0; t < T; ++t) {
-                uint32_t c = counter_of(byte[s][t], idx[s][t], bits);
+                uint32_t c = idx[s][t] < args.s[s].span
+                    ? counter_of(byte[s][t], idx[s][t], bits) : 255u;
                 m = c < m ? c : m;
             }
             out[(int64_t)s * n + g] = (uint8_t)m;
@@ -361,7 +391,8 @@ __global__ void gather_counts_any_kernel(
         uint32_t m = 255u;
         for (int t = 0; t < sm.ntables; ++t) {
             uint32_t idx = mod_by(a + (uint32_t)t * b, sm.tablesize,
-                                  sm.magic);
+                                  sm.magic) - sm.lo;
+            if (idx >= sm.span) continue;
             uint32_t c = counter_of(
                 load_streamed(sm.tables + t * sm.width +
                               byte_of(idx, sm.bits)), idx, sm.bits);
@@ -389,13 +420,14 @@ __global__ void scatter_add_kernel(int32_t *__restrict__ acc, int64_t C,
 constexpr int kAdd = 0, kAddCount = 1, kMark = 2;
 
 struct ConsumeArgs {
-    int32_t *acc;             // [ntables, tablesize]; uint8 in mark mode
+    int32_t *acc;             // [ntables, span]; uint8 in mark mode
     unsigned long long *nkept;  // the kept k-mers' count, kAddCount only
     const int32_t *h1, *h2;   // [n], uint32 bits
     const uint8_t *valid;     // [n]
     const uint8_t *mcnt;      // [n] mask counts, or null
     int64_t n;
-    uint32_t tablesize, magic;
+    uint32_t total, magic;    // buckets of the hash space, mod_by's magic
+    uint32_t lo, span;        // the buckets acc holds: [lo, lo + span)
     int32_t ntables;
     uint32_t bandmask, band;  // keep where (h1 & bandmask) == band
     int32_t threshold;        // mask: keep mcnt <= threshold,
@@ -413,11 +445,11 @@ __device__ __forceinline__ bool consume_keeps(const ConsumeArgs &a,
     return keep;
 }
 
-// One update of a kept k-mer at bucket idx of table t.
+// One update of a kept k-mer at bucket lo + idx of table t.
 template <int MODE>
 __device__ __forceinline__ void consume_update(const ConsumeArgs &a, int t,
                                                uint32_t idx) {
-    int64_t at = (int64_t)t * a.tablesize + idx;
+    int64_t at = (int64_t)t * a.span + idx;
     if constexpr (MODE == kMark) {
         reinterpret_cast<uint8_t *>(a.acc)[at] = 1;
     } else {
@@ -426,7 +458,8 @@ __device__ __forceinline__ void consume_update(const ConsumeArgs &a, int t,
 }
 
 // All of one k-mer's updates, indices first: T > 0 unrolls, T == 0 loops
-// over a.ntables.
+// over a.ntables.  An index is local to the range (below lo it wraps to a
+// large unsigned number); only those inside it update.
 template <int T, int MODE>
 __device__ __forceinline__ void consume_one(const ConsumeArgs &a,
                                             uint32_t h1, uint32_t h2) {
@@ -434,14 +467,17 @@ __device__ __forceinline__ void consume_one(const ConsumeArgs &a,
         uint32_t idx[T];
 #pragma unroll
         for (int t = 0; t < T; ++t) {
-            idx[t] = mod_by(h1 + (uint32_t)t * h2, a.tablesize, a.magic);
+            idx[t] = mod_by(h1 + (uint32_t)t * h2, a.total, a.magic) - a.lo;
         }
 #pragma unroll
-        for (int t = 0; t < T; ++t) consume_update<MODE>(a, t, idx[t]);
+        for (int t = 0; t < T; ++t) {
+            if (idx[t] < a.span) consume_update<MODE>(a, t, idx[t]);
+        }
     } else {
         for (int t = 0; t < a.ntables; ++t) {
-            consume_update<MODE>(
-                a, t, mod_by(h1 + (uint32_t)t * h2, a.tablesize, a.magic));
+            uint32_t idx =
+                mod_by(h1 + (uint32_t)t * h2, a.total, a.magic) - a.lo;
+            if (idx < a.span) consume_update<MODE>(a, t, idx);
         }
     }
 }
@@ -513,6 +549,95 @@ int launch_consume(const ConsumeArgs &a, bool vec, cudaStream_t st) {
         else consume_kernel<0, false, MODE><<<blocks, kThreads, 0, st>>>(a);
     }
     return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------------------- kt_route
+
+constexpr int kRoutePer = 4;          // k-mers a thread
+constexpr int kRouteMaxTables = 16;
+constexpr int kRouteMaxBins = 4096;   // tables x shards
+
+struct RouteArgs {
+    const int32_t *h1, *h2;   // [n], uint32 bits
+    const uint8_t *valid;     // [n]
+    int64_t n;
+    int32_t *send;            // [ntables, nshards, capacity]
+    int32_t *pop;             // [ntables, nshards], += each bin's k-mers
+    uint32_t total, magic;    // the hash space and mod_by's magic
+    uint32_t shard_size, shard_magic;
+    int32_t ntables, nshards;
+    int64_t capacity;
+};
+
+// floor(x / d) and x mod d by the multiply-high of mod_by (m = floor(2^32 /
+// d)): the first quotient is exact or one short.
+__device__ __forceinline__ uint32_t divmod_by(uint32_t x, uint32_t d,
+                                              uint32_t m, uint32_t *rem) {
+    uint32_t q = __umulhi(x, m);
+    uint32_t r = x - q * d;
+    if (r >= d) {
+        r -= d;
+        ++q;
+    }
+    *rem = r;
+    return q;
+}
+
+// A block takes kRoutePer x blockDim.x consecutive k-mers, thread i the
+// k-mers i, i + blockDim.x, ... (coalesced loads).  T > 0 unrolls the
+// tables; T == 0 loops over a.ntables (at most kRouteMaxTables).
+template <int T>
+__global__ void route_kernel(const __grid_constant__ RouteArgs a) {
+    extern __shared__ unsigned s_bins[];   // counts, then each bin's base
+    const int nbins = a.ntables * a.nshards;
+    unsigned *s_count = s_bins, *s_base = s_bins + nbins;
+    for (int j = threadIdx.x; j < nbins; j += blockDim.x) s_count[j] = 0u;
+    __syncthreads();
+
+    constexpr int TT = T > 0 ? T : kRouteMaxTables;
+    const int ntab = T > 0 ? T : a.ntables;
+    uint32_t bin[kRoutePer][TT], rank[kRoutePer][TT], lidx[kRoutePer][TT];
+    const int64_t g0 = (int64_t)blockIdx.x * blockDim.x * kRoutePer +
+                       threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < kRoutePer; ++k) {
+        int64_t g = g0 + (int64_t)k * blockDim.x;
+        bool keep = g < a.n && __ldg(a.valid + g) != 0;
+        uint32_t x = keep ? (uint32_t)__ldg(a.h1 + g) : 0u;
+        uint32_t y = keep ? (uint32_t)__ldg(a.h2 + g) : 0u;
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+            bin[k][t] = 0xffffffffu;
+            if (t < ntab && keep) {
+                uint32_t gidx = mod_by(x + (uint32_t)t * y, a.total, a.magic);
+                uint32_t owner = divmod_by(gidx, a.shard_size, a.shard_magic,
+                                           &lidx[k][t]);
+                bin[k][t] = (uint32_t)t * a.nshards + owner;
+                rank[k][t] = atomicAdd(s_count + bin[k][t], 1u);
+            }
+        }
+    }
+    __syncthreads();
+    // one global atomic a bin and block reserves the block's slots
+    for (int j = threadIdx.x; j < nbins; j += blockDim.x) {
+        unsigned c = s_count[j];
+        s_base[j] = c ? atomicAdd(reinterpret_cast<unsigned *>(a.pop) + j, c)
+                      : 0u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kRoutePer; ++k) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+            if (bin[k][t] != 0xffffffffu) {
+                int64_t slot = (int64_t)s_base[bin[k][t]] + rank[k][t];
+                if (slot < a.capacity) {
+                    a.send[(int64_t)bin[k][t] * a.capacity + slot] =
+                        (int32_t)lidx[k][t];
+                }
+            }
+        }
+    }
 }
 
 inline unsigned blocks_for(int64_t total) {
@@ -630,21 +755,25 @@ int kt_scatter_add(void *acc, int64_t C, const void *idx, int64_t ntables,
     return (int)cudaGetLastError();
 }
 
-// The consume of n hashed k-mers into acc [ntables, tablesize] int32:
-// every k-mer with valid != 0, (h1 & bandmask) == band and, where mcnt is
-// not null, mcnt <= threshold (or >= threshold with `masked`) adds 1 at
-// (h1 + t * h2) mod 2^32 mod tablesize of every table t.  `magic` is
-// floor(2^32 / tablesize) as for kt_gather_counts.  Where `nkept` is not
-// null, the number of k-mers kept is added to the int64 it points to on the
-// device.  With `mark`, acc is uint8 [ntables, tablesize] and a kept k-mer
-// stores 1 at its buckets instead (`nkept` must then be null).
-int kt_consume(void *acc, int64_t tablesize, uint32_t magic, int ntables,
-               const void *h1, const void *h2, const void *valid,
-               const void *mcnt, int64_t n, uint32_t bandmask, uint32_t band,
-               int threshold, int masked, int mark, void *nkept,
-               void *stream) {
+// The consume of n hashed k-mers into acc [ntables, span] int32, the
+// buckets [lo, lo + span) of a hash space of `total`: every k-mer with
+// valid != 0, (h1 & bandmask) == band and, where mcnt is not null, mcnt <=
+// threshold (or >= threshold with `masked`) adds 1 at bucket (h1 + t * h2)
+// mod 2^32 mod total of every table t, where that bucket lies in the
+// range (lo = 0, span = total: the whole table).  `magic` is floor(2^32 /
+// total) as for kt_gather_counts.  Where `nkept` is not null, the number of
+// k-mers kept is added to the int64 it points to on the device.  With
+// `mark`, acc is uint8 [ntables, span] and a kept k-mer stores 1 at its
+// buckets instead (`nkept` must then be null).
+int kt_consume(void *acc, int64_t total, uint32_t magic, int64_t lo,
+               int64_t span, int ntables, const void *h1, const void *h2,
+               const void *valid, const void *mcnt, int64_t n,
+               uint32_t bandmask, uint32_t band, int threshold, int masked,
+               int mark, void *nkept, void *stream) {
     if (n == 0 || ntables == 0) return 0;
-    if (tablesize < 1 || tablesize >= (int64_t)1 << 31 || (mark && nkept))
+    if (total < 1 || total >= (int64_t)1 << 31 || lo < 0 ||
+        lo >= (int64_t)1 << 31 || span < 1 || span >= (int64_t)1 << 31 ||
+        (mark && nkept))
         return (int)cudaErrorInvalidValue;
     ConsumeArgs a;
     a.acc = (int32_t *)acc;
@@ -654,8 +783,10 @@ int kt_consume(void *acc, int64_t tablesize, uint32_t magic, int ntables,
     a.valid = (const uint8_t *)valid;
     a.mcnt = (const uint8_t *)mcnt;
     a.n = n;
-    a.tablesize = (uint32_t)tablesize;
+    a.total = (uint32_t)total;
     a.magic = magic;
+    a.lo = (uint32_t)lo;
+    a.span = (uint32_t)span;
     a.ntables = ntables;
     a.bandmask = bandmask;
     a.band = band;
@@ -667,6 +798,50 @@ int kt_consume(void *acc, int64_t tablesize, uint32_t magic, int ntables,
     if (mark) return launch_consume<kMark>(a, vec, st);
     if (nkept) return launch_consume<kAddCount>(a, vec, st);
     return launch_consume<kAdd>(a, vec, st);
+}
+
+// Bins n hashed k-mers by owner shard: for every k-mer with valid != 0 and
+// every table t, bucket g = (h1 + t * h2) mod 2^32 mod total goes to bin
+// (t, g / shard_size) of send [ntables, nshards, capacity] int32, as g mod
+// shard_size, where its slot is below `capacity`; pop [ntables, nshards]
+// int32 gains each bin's k-mers, slots beyond `capacity` included.  The
+// caller fills send with its sentinel and pop with 0; total <= nshards *
+// shard_size.  `magic` and `shard_magic` are floor(2^32 / d) of total and
+// shard_size, as for kt_gather_counts.
+int kt_route(const void *h1, const void *h2, const void *valid, int64_t n,
+             int64_t total, uint32_t magic, int64_t shard_size,
+             uint32_t shard_magic, int ntables, int nshards,
+             int64_t capacity, void *send, void *pop, void *stream) {
+    if (n == 0 || ntables == 0) return 0;
+    if (total < 1 || total >= (int64_t)1 << 31 || shard_size < 1 ||
+        shard_size >= (int64_t)1 << 31 || nshards < 1 ||
+        total > (int64_t)nshards * shard_size || capacity < 1 ||
+        ntables > kRouteMaxTables || ntables * nshards > kRouteMaxBins)
+        return (int)cudaErrorInvalidValue;
+    RouteArgs a;
+    a.h1 = (const int32_t *)h1;
+    a.h2 = (const int32_t *)h2;
+    a.valid = (const uint8_t *)valid;
+    a.n = n;
+    a.send = (int32_t *)send;
+    a.pop = (int32_t *)pop;
+    a.total = (uint32_t)total;
+    a.magic = magic;
+    a.shard_size = (uint32_t)shard_size;
+    a.shard_magic = shard_magic;
+    a.ntables = ntables;
+    a.nshards = nshards;
+    a.capacity = capacity;
+    int64_t per_block = (int64_t)kThreads * kRoutePer;
+    unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+    size_t smem = 2 * sizeof(unsigned) * (size_t)(ntables * nshards);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (ntables == 4) {
+        route_kernel<4><<<blocks, kThreads, smem, st>>>(a);
+    } else {
+        route_kernel<0><<<blocks, kThreads, smem, st>>>(a);
+    }
+    return (int)cudaGetLastError();
 }
 
 const char *kt_kmer_error_string(int err) {

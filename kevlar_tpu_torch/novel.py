@@ -12,7 +12,10 @@ Each read batch's base codes go to the sample sketches' device as they are
 :func:`kevlar_tpu_torch.ops.novel_ops.novel_screen` (K1 hashing, one K2
 gather for all samples, torch predicates and compaction); only the hits
 come back.  Banding: the user-facing `--band` is 1-based; internally band
-b of N keeps k-mers with ``h1 & (N-1) == b``, as in the count stage.
+b of N keeps k-mers with ``h1 & (N-1) == b``, as in the count stage.  With
+``--shards`` the sample sketches are hash-sharded over a mesh
+(:mod:`kevlar_tpu_torch.parallel`) and each batch goes through
+:func:`kevlar_tpu_torch.parallel.sharded_novel_screen`.
 """
 
 import numpy as np
@@ -22,6 +25,8 @@ import kevlar_tpu_torch
 from kevlar_tpu_torch import batch as batch_mod
 from kevlar_tpu_torch import sequence
 from kevlar_tpu_torch.ops import novel_ops
+from kevlar_tpu_torch.parallel import (ShardedSketch, make_mesh,
+                                       sharded_novel_screen)
 from kevlar_tpu_torch.support import ProgressIndicator, Timer
 
 
@@ -94,9 +99,10 @@ def native_read_batches(files, batch_size, max_len=1024):
 
 def load_samples(counttables=None, filelists=None, ksize=31, memory=1e6,
                  maxfpr=0.2, numbands=None, band=None, outfilelist=None,
-                 device='cuda'):
+                 device='cuda', mesh=None):
     """Sample sketches on ``device``: loaded from ``counttables``, or
-    counted from ``filelists`` (one list of files per sample)."""
+    counted from ``filelists`` (one list of files per sample); with
+    ``mesh``, sharded over it."""
     from kevlar_tpu_torch import count as count_mod
     from kevlar_tpu_torch import sketch as sketch_mod
     if not (counttables or filelists):
@@ -106,13 +112,16 @@ def load_samples(counttables=None, filelists=None, ksize=31, memory=1e6,
             len(counttables))
         message += ', any corresponding FASTA/FASTQ input will be ignored'
         kevlar_tpu_torch.plog('[kevlar::novel]    INFO:', message)
-        return sketch_mod.load_sketchfiles(counttables, maxfpr,
-                                           device=device)
+        samples = sketch_mod.load_sketchfiles(counttables, maxfpr,
+                                              device=device)
+        if mesh is not None:
+            samples = [ShardedSketch.from_sketch(mesh, s) for s in samples]
+        return samples
     samples = []
     for filelist in filelists:
         sample = count_mod.load_sample_seqfile(
             filelist, ksize, memory, maxfpr=maxfpr, numbands=numbands,
-            band=band, device=device)
+            band=band, device=device, mesh=mesh)
         samples.append(sample)
     if outfilelist:
         save_counts(outfilelist, samples)
@@ -142,11 +151,11 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
           batchstream=None, emit='records'):
     """Generator yielding annotated (augmented) records with novel k-mers.
 
-    The screen runs on the device of the sample sketches (all on one).
-    ``emit='text'`` yields preformatted augmented-FASTX text blocks (one
-    per screened batch) instead of Records: the hit arrays are serialised
-    columnar-to-text without per-read Python objects — the write path of
-    ``main``.
+    The screen runs on the device of the sample sketches (all on one), or
+    over the mesh of sharded ones.  ``emit='text'`` yields preformatted
+    augmented-FASTX text blocks (one per screened batch) instead of
+    Records: the hit arrays are serialised columnar-to-text without
+    per-read Python objects — the write path of ``main``.
     """
     numbands_unset = not numbands
     band_unset = not band and band != 0
@@ -157,12 +166,16 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
                    '1), inclusive'.format(numbands - 1))
         raise ValueError(message)
     samples = tuple(casecounts) + tuple(controlcounts)
+    sharded = isinstance(samples[0], ShardedSketch)
+    if sharded and numbands:
+        raise ValueError('banding is superseded by mesh sharding for '
+                         'ShardedSketch')
     devices = {s.device for s in samples}
     if len(devices) != 1:
         raise ValueError('sample sketches on several devices: {}'.format(
             sorted(map(str, devices))))
     device = devices.pop()
-    specs = [s.table_spec() for s in samples]
+    specs = None if sharded else [s.table_spec() for s in samples]
     ncase = len(casecounts)
 
     timer = Timer()
@@ -187,12 +200,17 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
     def screen(rbatch):
         """(hits, hit abundances, discard) of one batch, on the host."""
         np.copyto(stager.buffer(rbatch.bases.shape), rbatch.bases)
-        hits, hit_abunds, discard = novel_ops.novel_screen(
-            specs, ncase, stager.ship(),
-            torch.from_numpy(np.asarray(rbatch.lengths, np.int32)).to(
-                device),
-            ksize, casemin, ctrlmax, screen=abundscreen, numbands=numbands,
-            band=band)
+        codes = stager.ship()
+        lengths = torch.from_numpy(np.asarray(rbatch.lengths, np.int32)).to(
+            device)
+        if sharded:
+            hits, hit_abunds, discard = sharded_novel_screen(
+                samples[0].mesh, casecounts, controlcounts, codes, lengths,
+                casemin=casemin, ctrlmax=ctrlmax, screen=abundscreen)
+        else:
+            hits, hit_abunds, discard = novel_ops.novel_screen(
+                specs, ncase, codes, lengths, ksize, casemin, ctrlmax,
+                screen=abundscreen, numbands=numbands, band=band)
         return (hits.cpu().numpy(), hit_abunds.cpu().numpy(),
                 discard.cpu().numpy())
 
@@ -318,17 +336,25 @@ def main(args):
     if (not args.num_bands) is not (not args.band):
         raise ValueError('Must specify --num-bands and --band together')
     myband = args.band - 1 if args.band else None
+    mesh = None
+    if getattr(args, 'shards', None):
+        if args.num_bands:
+            raise ValueError('banding and --shards are mutually exclusive: '
+                             'hash-space sharding supersedes banding')
+        mesh = make_mesh(n_shard=args.shards, device=args.device)
+        kevlar_tpu_torch.plog('[kevlar::novel] sharding sample sketches over '
+                              'mesh', dict(mesh.shape))
 
     kevlar_tpu_torch.plog('[kevlar::novel] Loading control samples')
     controls = load_samples(
         args.control_counts, args.control, args.ksize, args.memory,
         args.max_fpr, args.num_bands, myband, args.save_ctrl_counts,
-        device=args.device)
+        device=args.device, mesh=mesh)
     kevlar_tpu_torch.plog('[kevlar::novel] Loading case samples')
     cases = load_samples(
         args.case_counts, args.case, args.ksize, args.memory,
         args.max_fpr, args.num_bands, myband, args.save_case_counts,
-        device=args.device)
+        device=args.device, mesh=mesh)
 
     infiles = [f for filelist in args.case for f in filelist]
     from kevlar_tpu_torch import seqio

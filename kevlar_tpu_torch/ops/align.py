@@ -272,16 +272,36 @@ def align_both_strands(target_seq, query_seq, match=1, mismatch=2, gapopen=5,
 
 
 def align_both_strands_batch(pairs, match=1, mismatch=2, gapopen=5,
-                             gapextend=0, device='cuda'):
+                             gapextend=0, device='cuda', mesh=None):
     """Both-strand alignment of many (target, query) pairs.
 
     Returns ``[(score, cigar, strand), ...]`` in input order.  The forward
     and reverse-complement rows of every pair go to the batched wavefront
     (:func:`kevlar_tpu_torch.ops.align_cuda.align_batch`) on ``device``:
-    the CUDA kernel on a GPU, its plain PyTorch version on the CPU.
+    the CUDA kernel on a GPU, its plain PyTorch version on the CPU.  With
+    ``mesh`` (:mod:`kevlar_tpu_torch.parallel`) the pairs are cut into
+    contiguous runs, one per mesh device, each aligned on its device
+    (``device`` is then unused); distinct cards run side by side.
     """
     if not pairs:
         return []
+    if mesh is not None:
+        devices = [dev for row in mesh.devices for dev in row]
+        step = -(-len(pairs) // len(devices))
+        runs = [(pairs[i * step:(i + 1) * step], dev)
+                for i, dev in enumerate(devices) if pairs[i * step:]]
+
+        def run(job):
+            return align_both_strands_batch(
+                job[0], match=match, mismatch=mismatch, gapopen=gapopen,
+                gapextend=gapextend, device=job[1])
+        if len(set(devices)) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(len(runs)) as pool:
+                parts = list(pool.map(run, runs))
+        else:
+            parts = [run(job) for job in runs]
+        return [picked for part in parts for picked in part]
     from kevlar_tpu_torch.dna import revcom
     from kevlar_tpu_torch.ops.align_cuda import align_batch
     targets, queries = [], []

@@ -25,6 +25,16 @@
   1 into a table of 8-bit counters instead.  :func:`scatter_add_cuda` takes
   given indices, as B10 does; plain version
   :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_plain`.
+- K2 and :func:`consume_cuda` also take a bucket range: a shard of a
+  :class:`kevlar_tpu_torch.parallel.ShardedSketch` holds the buckets
+  ``[lo, lo + span)`` of a hash space of ``total``; the gather reads 255
+  outside it and the consume adds only inside it.  Their launches count
+  under ``gather_counts_range`` and ``consume_range``.
+- :func:`route_cuda` (``kt_route``) — bins every table's bucket index of
+  hashed k-mers by owner shard into a ``[T, S, C]`` send buffer, for the
+  routed consume of a sharded sketch; replaces the binning half of
+  ``kevlar_tpu/parallel/sharded.py::_route_consume``.  Plain version:
+  :func:`kevlar_tpu_torch.ops.sketch_ops.route_plain`.
 
 Each launch function takes tensors its dispatcher has checked, launches on
 the current stream, raises on a CUDA error and adds one to its entry of
@@ -46,8 +56,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 
 # Kernel launches by kernel, for runs that must show the main path went
 # through the kernels.
-launches = {'kmer_hashes': 0, 'gather_counts': 0, 'consume': 0,
-            'scatter_add': 0}
+launches = {'kmer_hashes': 0, 'gather_counts': 0, 'gather_counts_range': 0,
+            'consume': 0, 'consume_range': 0, 'scatter_add': 0, 'route': 0}
 
 # Sketches one K2 launch serves (``kMaxSamples`` in the source).
 MAX_SAMPLES = 8
@@ -60,6 +70,7 @@ _lib = None
 class _GatherSample(ctypes.Structure):
     _fields_ = [('tables', ctypes.c_void_p), ('width', ctypes.c_int64),
                 ('tablesize', ctypes.c_uint32), ('magic', ctypes.c_uint32),
+                ('lo', ctypes.c_uint32), ('span', ctypes.c_uint32),
                 ('ntables', ctypes.c_int32), ('bits', ctypes.c_int32)]
 
 
@@ -114,10 +125,13 @@ def _load():
         lib.kt_gather_counts.argtypes = [vp, ci, vp, vp, cl, vp, vp]
         lib.kt_scatter_add.restype = ci
         lib.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
+        u32 = ctypes.c_uint32
         lib.kt_consume.restype = ci
-        lib.kt_consume.argtypes = [vp, cl, ctypes.c_uint32, ci, vp, vp, vp,
-                                   vp, cl, ctypes.c_uint32, ctypes.c_uint32,
-                                   ci, ci, ci, vp, vp]
+        lib.kt_consume.argtypes = [vp, cl, u32, cl, cl, ci, vp, vp, vp, vp,
+                                   cl, u32, u32, ci, ci, ci, vp, vp]
+        lib.kt_route.restype = ci
+        lib.kt_route.argtypes = [vp, vp, vp, cl, cl, u32, cl, u32, ci, ci,
+                                 cl, vp, vp, vp]
         lib.kt_kmer_error_string.restype = ctypes.c_char_p
         lib.kt_kmer_error_string.argtypes = [ci]
         _lib = lib
@@ -154,29 +168,37 @@ def kmer_hashes_cuda(codes, ksize):
 
 def gather_counts_cuda(samples, h1, h2):
     """K2 on checked tensors (see
-    :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_multi`): uint8
-    [S, N], one launch per :data:`MAX_SAMPLES` sketches."""
+    :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_multi`; each
+    sample ``(tables, counter_bits, tablesize)`` or ``(tables, counter_bits,
+    total, lo, span)``): uint8 [S, N], one launch per :data:`MAX_SAMPLES`
+    sketches."""
     lib = _load()
     dev = h1.device
     n = h1.numel()
     out = torch.empty((len(samples), n), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for lo in range(0, len(samples), MAX_SAMPLES):
-        chunk = samples[lo:lo + MAX_SAMPLES]
+    for first in range(0, len(samples), MAX_SAMPLES):
+        chunk = samples[first:first + MAX_SAMPLES]
         args = _GatherArgs()
-        for slot, (tables, bits, tablesize) in zip(args.s, chunk):
+        ranged = False
+        for slot, sample in zip(args.s, chunk):
+            tables, bits, total = sample[:3]
+            lo, span = sample[3:] if len(sample) == 5 else (0, total)
+            ranged = ranged or (lo, span) != (0, total)
             slot.tables = tables.data_ptr()
             slot.width = tables.shape[1]
-            slot.tablesize = tablesize
-            slot.magic = mod_magic(tablesize)
+            slot.tablesize = total
+            slot.magic = mod_magic(total)
+            slot.lo = lo
+            slot.span = span
             slot.ntables = tables.shape[0]
             slot.bits = bits
         with torch.cuda.device(dev):
             err = lib.kt_gather_counts(
                 ctypes.byref(args), len(chunk), h1.data_ptr(), h2.data_ptr(),
-                n, out[lo:].data_ptr(), stream)
+                n, out[first:].data_ptr(), stream)
         _raise_on(lib, 'kt_gather_counts', err)
-        launches['gather_counts'] += 1
+        launches['gather_counts_range' if ranged else 'gather_counts'] += 1
     return out
 
 
@@ -196,13 +218,15 @@ def scatter_add_cuda(acc, idx):
 
 
 def _launch_consume(target, h1, h2, valid, mcnt, mask_threshold,
-                    consume_masked, numbands, band, mark, nkept):
+                    consume_masked, numbands, band, mark, nkept, total, lo):
     lib = _load()
     dev = target.device
-    tablesize = target.shape[1]
+    span = target.shape[1]
+    if total is None:
+        total = span
     with torch.cuda.device(dev):
         err = lib.kt_consume(
-            target.data_ptr(), tablesize, mod_magic(tablesize),
+            target.data_ptr(), total, mod_magic(total), lo, span,
             target.shape[0], h1.data_ptr(), h2.data_ptr(), valid.data_ptr(),
             None if mcnt is None else mcnt.data_ptr(), h1.numel(),
             numbands - 1 if numbands else 0, band if numbands else 0,
@@ -210,18 +234,21 @@ def _launch_consume(target, h1, h2, valid, mcnt, mask_threshold,
             None if nkept is None else nkept.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, 'kt_consume', err)
-    launches['consume'] += 1
+    launches['consume' if (lo, span) == (0, total) else 'consume_range'] += 1
     return target
 
 
 def consume_cuda(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
-                 consume_masked=False, numbands=None, band=None, nkept=None):
+                 consume_masked=False, numbands=None, band=None, nkept=None,
+                 total=None, lo=0):
     """K3 from hashes, on checked tensors (see
-    :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes`): adds in place
-    (and the number of k-mers kept to ``nkept``, where given) and returns
-    ``acc``."""
+    :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes`; ``acc`` holds
+    the buckets ``[lo, lo + acc.shape[1])`` of a hash space of ``total``,
+    by default all of it): adds in place (and the number of k-mers kept to
+    ``nkept``, where given) and returns ``acc``."""
     return _launch_consume(acc, h1, h2, valid, mcnt, mask_threshold,
-                           consume_masked, numbands, band, False, nkept)
+                           consume_masked, numbands, band, False, nkept,
+                           total, lo)
 
 
 def mark_cuda(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
@@ -231,4 +258,26 @@ def mark_cuda(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
     kept k-mers' buckets of the 8-bit ``tables`` in place and returns
     them."""
     return _launch_consume(tables, h1, h2, valid, mcnt, mask_threshold,
-                           consume_masked, numbands, band, True, None)
+                           consume_masked, numbands, band, True, None, None,
+                           0)
+
+
+def route_cuda(h1, h2, valid, ntables, nshards, shard_size, total, capacity):
+    """``kt_route`` on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.route`): returns ``send``
+    [ntables, nshards, capacity] int32 (unfilled slots ``shard_size``) and
+    the bins' populations [ntables, nshards] int32."""
+    lib = _load()
+    dev = h1.device
+    send = torch.full((ntables, nshards, capacity), shard_size,
+                      dtype=torch.int32, device=dev)
+    pop = torch.zeros((ntables, nshards), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kt_route(
+            h1.data_ptr(), h2.data_ptr(), valid.data_ptr(), h1.numel(),
+            total, mod_magic(total), shard_size, mod_magic(shard_size),
+            ntables, nshards, capacity, send.data_ptr(), pop.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, 'kt_route', err)
+    launches['route'] += 1
+    return send, pop

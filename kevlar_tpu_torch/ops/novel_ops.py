@@ -40,17 +40,39 @@ def novel_screen(samples, ncase, codes, lengths, ksize, casemin, ctrlmax,
     P = h1.shape[1]
     if numbands:
         valid = valid & ((hashing.to_u32(h1) & (numbands - 1)) == band)
+    counts = sketch_ops.gather_counts_multi(
+        list(samples), h1.reshape(-1), h2.reshape(-1)).reshape(
+            len(samples), B, P)
+    interesting, discard, _ = screen_predicates(
+        counts, ncase, valid, codes, lengths, ksize, casemin, ctrlmax,
+        screen)
+    hits, hit_abunds = compact_hits(counts, interesting)
+    return hits, hit_abunds, discard
 
+
+def compact_hits(counts, interesting):
+    """``(hits, hit_abunds)`` of :func:`novel_screen` from the gathered
+    ``counts`` uint8 [S, B, P] and ``interesting`` bool [B, P], on their
+    device."""
+    hits = torch.nonzero(interesting.reshape(-1)).reshape(-1)
+    return hits, counts.reshape(counts.shape[0], -1)[:, hits]
+
+
+def screen_predicates(counts, ncase, valid, codes, lengths, ksize, casemin,
+                      ctrlmax, screen=None):
+    """The screen's predicates on gathered counts: ``counts`` uint8 [S, B,
+    P] (the ``ncase`` case samples first), ``valid`` bool [B, P], ``codes``
+    [B, L] and ``lengths`` [B] of the batch.  Returns ``(interesting [B,
+    P], discard [B], skip [B])``, bool, as described for
+    :func:`novel_screen` (skip: a non-ACGT base within the read's length,
+    or a read shorter than k)."""
+    B, L = codes.shape
     lengths = lengths.to(torch.int64)
     within = torch.arange(L, device=codes.device)[None, :] < lengths[:, None]
     skip = ((codes >= 4) & within).any(dim=1) | (lengths < ksize)
 
-    counts = sketch_ops.gather_counts_multi(
-        list(samples), h1.reshape(-1), h2.reshape(-1)).reshape(
-            len(samples), B, P)
     case_counts = counts[:ncase]
     ctrl_counts = counts[ncase:]
-
     below = case_counts < casemin                      # [C, B, P]
     any_below = below.any(dim=0)
     if screen is not None:
@@ -64,6 +86,4 @@ def novel_screen(samples, ncase, codes, lengths, ksize, casemin, ctrlmax,
     interesting = valid & ~any_below & ~skip[:, None]
     if ctrl_counts.shape[0]:
         interesting = interesting & (ctrl_counts <= ctrlmax).all(dim=0)
-    hits = torch.nonzero(interesting.reshape(-1)).reshape(-1)
-    hit_abunds = counts.reshape(len(samples), -1)[:, hits]
-    return hits, hit_abunds, discard
+    return interesting, discard, skip

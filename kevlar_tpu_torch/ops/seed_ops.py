@@ -13,6 +13,11 @@ as int64 with the sign bit flipped (:func:`ordered_int64`), which keeps
 their order.  The fold keys are uniform over 64 bits, so half of them are
 at or above 2^63: a plain cast (or ``torch.from_numpy`` of a uint64 view)
 would put those first and return wrong ranges with no error.
+
+The ``'sharded'`` backend cuts the sorted keys into one contiguous run per
+shard of a mesh (:func:`shard_keys`) and searches every shard
+(:func:`seed_ranges_sharded`), as ``kevlar_tpu``'s ``seed_ranges_sharded``
+does over its mesh.
 """
 
 import numpy as np
@@ -43,3 +48,68 @@ def seed_ranges(keys, queries):
     start = torch.searchsorted(keys, queries, side='left')
     stop = torch.searchsorted(keys, queries, side='right')
     return start, stop - start
+
+
+def shard_keys(keys, n_shard):
+    """Split a sorted uint64 key array into ``n_shard`` runs.
+
+    Returns ``(shards, n_valid, base)``: ``shards`` [n_shard, cap] int64,
+    the runs as order-preserving int64 (:func:`ordered_int64`), each padded
+    with int64 max; ``n_valid`` [n_shard], the real keys of each run; and
+    ``base`` [n_shard] int64, each run's offset in the whole array (it stays
+    on the host: genome-scale indexes pass 2^31 entries).  A search holds
+    each run to its ``n_valid`` prefix, so a real key of 2^64 - 1 (int64
+    max once ordered) never matches the padding."""
+    keys = np.asarray(keys, dtype=np.uint64)
+    n = len(keys)
+    cap = max(1, -(-n // n_shard))
+    shards = np.full((n_shard, cap), np.iinfo(np.int64).max, dtype=np.int64)
+    n_valid = np.zeros(n_shard, dtype=np.int64)
+    base = np.zeros(n_shard, dtype=np.int64)
+    for s in range(n_shard):
+        a, b = min(s * cap, n), min((s + 1) * cap, n)
+        shards[s, :b - a] = ordered_int64(keys[a:b])
+        n_valid[s] = b - a
+        base[s] = a
+    return shards, n_valid, base
+
+
+def seed_ranges_sharded(mesh, shards, queries, n_valid, base):
+    """Match ranges against keys sharded over the mesh's 'shard' axis.
+
+    ``shards``: one int64 tensor of a run's keys per shard, on
+    ``mesh.devices[0][s]`` (:func:`shard_keys`); ``queries``: int64 tensor
+    of :func:`ordered_int64` keys; ``n_valid`` and ``base`` as
+    :func:`shard_keys` returns them.  Every shard runs :func:`seed_ranges`
+    on its valid prefix (data row 0 of the mesh; the others would repeat
+    it); the count is a sum over the shards, and the first shard with a hit
+    and its local start come from minima over the shards with hits.
+    Returns numpy ``(start int64, count int64)`` in the whole array's index
+    space; start is int64 max where count is 0 (the global index math stays
+    on the host, as genome-scale indexes pass 2^31 entries)."""
+    from kevlar_tpu_torch.parallel import collectives
+    from kevlar_tpu_torch.parallel.mesh import Mesh
+    row = Mesh([mesh.devices[0]])
+    nohit = np.iinfo(np.int64).max
+    starts, counts, firsts = [], [], []
+    for s, dev in enumerate(row.devices[0]):
+        q = queries.to(dev)
+        if int(n_valid[s]):
+            start, cnt = seed_ranges(shards[s][:int(n_valid[s])], q)
+        else:
+            start = cnt = torch.zeros_like(q)
+        starts.append(start)
+        counts.append(cnt)
+        firsts.append(torch.where(cnt > 0, s, nohit))
+    count = collectives.psum(row, [counts], 'shard')[0]
+    first = collectives.pmin(row, [firsts], 'shard')[0]
+    local = collectives.pmin(row, [[
+        torch.where(first[s] == s, starts[s], nohit)
+        for s in range(len(starts))]], 'shard')[0]
+    count = count[0].cpu().numpy()
+    first = first[0].cpu().numpy()
+    local = local[0].cpu().numpy()
+    out = np.full(count.shape, nohit, dtype=np.int64)
+    hit = count > 0
+    out[hit] = np.asarray(base, dtype=np.int64)[first[hit]] + local[hit]
+    return out, count

@@ -25,10 +25,17 @@ the tables at its start and saturated and packed back at its end.
 Saturating once at the end gives the same counts as saturating per
 increment, because the adds are monotone.
 
+The gather and the consume also work on one range of buckets ``[lo, lo +
+span)`` of a hash space of ``total``, the shard of a
+:class:`kevlar_tpu_torch.parallel.ShardedSketch`: the gather reads 255
+outside it, the consume adds only inside it.  :func:`route` bins hashed
+k-mers by the shard that owns their bucket, for a sharded sketch's routed
+consume.
+
 Dispatch: on CUDA tensors :func:`gather_counts_multi`,
-:func:`consume_hashes`, :func:`mark_hashes` and :func:`scatter_add` launch
-their kernels; on CPU tensors they run the plain versions beside them.  No
-path falls back from one to the other.
+:func:`consume_hashes`, :func:`mark_hashes`, :func:`scatter_add` and
+:func:`route` launch their kernels; on CPU tensors they run the plain
+versions beside them.  No path falls back from one to the other.
 """
 
 import torch
@@ -76,18 +83,31 @@ def unpack_rows(packed, counter_bits, tablesize):
     return values.reshape(packed.shape[0], -1)[:, :tablesize]
 
 
-def _check_tables(tables, counter_bits, tablesize):
+def _bucket_range(sample):
+    """``(tables, counter_bits, total, lo, span)`` of a gather sample:
+    ``(tables, counter_bits, tablesize)`` holds the whole hash space."""
+    if len(sample) == 5:
+        return tuple(sample)
+    tables, counter_bits, tablesize = sample
+    return tables, counter_bits, tablesize, 0, tablesize
+
+
+def _check_tables(tables, counter_bits, total, lo=0, span=None):
+    if span is None:
+        span = total
     if tables.dtype != torch.uint8 or tables.dim() != 2 or \
             not tables.is_contiguous():
         raise ValueError('tables must be a contiguous 2-D uint8 tensor, got '
                          '{} {}'.format(tables.dtype, tuple(tables.shape)))
     if counter_bits not in COUNTERS_PER_BYTE:
         raise ValueError('counter_bits must be 1, 4 or 8')
-    if not 1 <= tablesize < (1 << 31) or \
-            tables.shape[1] != packed_width(tablesize, counter_bits):
+    if not 1 <= total < (1 << 31) or not 0 <= lo < (1 << 31) or \
+            not 1 <= span < (1 << 31):
+        raise ValueError('a hash space of {} buckets, range [{}, {} + {}): '
+                         'out of [1, 2^31)'.format(total, lo, lo, span))
+    if tables.shape[1] != packed_width(span, counter_bits):
         raise ValueError('{} bytes per row do not hold {} buckets at {} '
-                         'bits'.format(tables.shape[1], tablesize,
-                                       counter_bits))
+                         'bits'.format(tables.shape[1], span, counter_bits))
 
 
 def gather_counts_multi(samples, h1, h2):
@@ -95,9 +115,12 @@ def gather_counts_multi(samples, h1, h2):
     [S, N].
 
     ``samples`` are ``(tables, counter_bits, tablesize)`` triples, tables
-    [T, W] uint8 in the persistent layout; ``h1``/``h2`` [N] int32 holding
-    uint32 bits, on the tables' device.  CUDA tensors launch K2 once for
-    all sketches, CPU tensors run :func:`gather_counts_multi_plain`."""
+    [T, W] uint8 in the persistent layout, or ``(tables, counter_bits,
+    total, lo, span)``: rows that hold the buckets ``[lo, lo + span)`` of a
+    hash space of ``total``, where a bucket outside them counts 255.
+    ``h1``/``h2`` [N] int32 holding uint32 bits, on the tables' device.
+    CUDA tensors launch K2 once for all sketches, CPU tensors run
+    :func:`gather_counts_multi_plain`."""
     if not samples:
         raise ValueError('no sketch to gather from')
     for name, x in (('h1', h1), ('h2', h2)):
@@ -106,8 +129,9 @@ def gather_counts_multi(samples, h1, h2):
                              .format(name))
     if h1.shape != h2.shape or h1.device != h2.device:
         raise ValueError('h1 and h2 differ in shape or device')
-    for tables, counter_bits, tablesize in samples:
-        _check_tables(tables, counter_bits, tablesize)
+    for sample in samples:
+        tables = sample[0]
+        _check_tables(*_bucket_range(sample))
         if tables.device != h1.device:
             raise ValueError('h1 is on {}, tables on {}'.format(
                 h1.device, tables.device))
@@ -127,17 +151,27 @@ def gather_counts(tables, h1, h2, counter_bits, tablesize):
 
 def gather_counts_multi_plain(samples, h1, h2):
     """Plain PyTorch version of the K2 kernel, on any device."""
-    return torch.stack([gather_counts_plain(tables, h1, h2, bits, tablesize)
-                        for tables, bits, tablesize in samples])
+    counts = []
+    for sample in samples:
+        tables, bits, total, lo, span = _bucket_range(sample)
+        counts.append(gather_counts_plain(tables, h1, h2, bits, total, lo,
+                                          span))
+    return torch.stack(counts)
 
 
-def gather_counts_plain(tables, h1, h2, counter_bits, tablesize):
-    """One sketch of :func:`gather_counts_multi_plain`: uint8 [N]."""
+def gather_counts_plain(tables, h1, h2, counter_bits, tablesize, lo=0,
+                        span=None):
+    """One sketch of :func:`gather_counts_multi_plain`: uint8 [N]
+    (``tablesize`` is the hash space; the rows hold ``[lo, lo + span)``)."""
+    if span is None:
+        span = tablesize
     a = hashing.to_u32(h1)
     b = hashing.to_u32(h2)
     counts = None
     for t in range(tables.shape[0]):
-        idx = hashing.table_index(a, b, t, tablesize)
+        idx = hashing.table_index(a, b, t, tablesize) - lo
+        own = (idx >= 0) & (idx < span)
+        idx = torch.where(own, idx, 0)
         if counter_bits == 8:
             c = tables[t][idx]
         elif counter_bits == 4:
@@ -145,6 +179,7 @@ def gather_counts_plain(tables, h1, h2, counter_bits, tablesize):
                 & 0xF
         else:
             c = (tables[t][idx >> 3] >> (idx & 7).to(torch.uint8)) & 1
+        c = torch.where(own, c, 255)
         counts = c if counts is None else torch.minimum(counts, c)
     return counts
 
@@ -184,9 +219,11 @@ def scatter_add_plain(acc, idx):
     return acc
 
 
-def _check_consume(target, dtype, h1, h2, valid, mcnt, nkept=None):
-    """The checks a consume and a mark share: ``target`` [T, tablesize] of
-    ``dtype``, the hashed k-mers' vectors alike in shape, all on its
+def _check_consume(target, dtype, h1, h2, valid, mcnt, nkept=None,
+                   total=None, lo=0):
+    """The checks a consume and a mark share: ``target`` [T, span] of
+    ``dtype`` (the buckets ``[lo, lo + span)`` of a hash space of
+    ``total``), the hashed k-mers' vectors alike in shape, all on its
     device."""
     if target.dtype != dtype or target.dim() != 2 or \
             not target.is_contiguous():
@@ -195,6 +232,10 @@ def _check_consume(target, dtype, h1, h2, valid, mcnt, nkept=None):
                                             tuple(target.shape)))
     if not 1 <= target.shape[1] < (1 << 31):
         raise ValueError('tablesize must be in [1, 2^31)')
+    if total is not None and not (1 <= total < (1 << 31) and
+                                  0 <= lo < (1 << 31)):
+        raise ValueError('a hash space of {} buckets from {}: out of [1, '
+                         '2^31)'.format(total, lo))
     for name, x, want in (('h1', h1, torch.int32), ('h2', h2, torch.int32),
                           ('valid', valid, torch.uint8),
                           ('mcnt', mcnt, torch.uint8)):
@@ -219,23 +260,27 @@ def _check_consume(target, dtype, h1, h2, valid, mcnt, nkept=None):
 
 def consume_hashes(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
                    consume_masked=False, numbands=None, band=None,
-                   nkept=None):
+                   nkept=None, total=None, lo=0):
     """Count hashed k-mers into ``acc`` [T, tablesize] int32, in place:
     every k-mer n with ``valid[n] != 0``, inside the band (``h1 &
     (numbands-1) == band``, where ``numbands`` is given) and passing the
     mask (``mcnt[n] <= mask_threshold``, or ``>=`` with ``consume_masked``,
     where ``mcnt`` is given) adds 1 at bucket ``(h1 + t*h2) mod 2^32 mod
     tablesize`` of every table t.  The number of k-mers so counted is added
-    to ``nkept``, one int64 on the device, where given.
+    to ``nkept``, one int64 on the device, where given.  With ``total``,
+    ``acc`` holds the buckets ``[lo, lo + acc.shape[1])`` of a hash space
+    of ``total`` (a shard's): the modulus is ``total`` and a bucket outside
+    the range is not counted.
 
     ``h1``/``h2`` [N] int32 holding uint32 bits, ``valid`` and ``mcnt`` [N]
     uint8, all on ``acc``'s device.  CUDA tensors launch K3
     (``kt_consume``), CPU tensors run :func:`consume_hashes_plain`."""
-    kind = _check_consume(acc, torch.int32, h1, h2, valid, mcnt, nkept)
+    kind = _check_consume(acc, torch.int32, h1, h2, valid, mcnt, nkept,
+                          total, lo)
     engine = kmer_cuda.consume_cuda if kind == 'cuda' else \
         consume_hashes_plain
     return engine(acc, h1, h2, valid, mcnt, mask_threshold, consume_masked,
-                  numbands, band, nkept)
+                  numbands, band, nkept, total, lo)
 
 
 def mark_hashes(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
@@ -254,11 +299,11 @@ def mark_hashes(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
 
 
 def _kept_indices(ntables, tablesize, h1, h2, valid, mcnt, mask_threshold,
-                  consume_masked, numbands, band):
+                  consume_masked, numbands, band, lo=0):
     """Plain PyTorch: bool [N], the k-mers a consume counts (valid, inside
     the band, passing the mask), and int32 [T, N], their bucket index in
-    each table with -1 at the others; int64 tensors hold the uint32
-    arithmetic."""
+    each table (hash space ``tablesize``) less ``lo``, with -1 at the
+    others; int64 tensors hold the uint32 arithmetic."""
     keep = valid != 0
     if numbands:
         keep = keep & ((hashing.to_u32(h1) & (numbands - 1)) == band)
@@ -269,19 +314,20 @@ def _kept_indices(ntables, tablesize, h1, h2, valid, mcnt, mask_threshold,
             keep = keep & (mcnt <= mask_threshold)
     a = hashing.to_u32(h1)
     b = hashing.to_u32(h2)
-    idx = torch.stack([hashing.table_index(a, b, t, tablesize)
+    idx = torch.stack([hashing.table_index(a, b, t, tablesize) - lo
                        for t in range(ntables)])
     return keep, torch.where(keep, idx, -1).to(torch.int32)
 
 
 def consume_hashes_plain(acc, h1, h2, valid, mcnt=None, mask_threshold=0,
                          consume_masked=False, numbands=None, band=None,
-                         nkept=None):
+                         nkept=None, total=None, lo=0):
     """Plain PyTorch version of K3's consume entry, on any device: the
-    predicates and the bucket indices, then :func:`scatter_add_plain`."""
-    keep, idx = _kept_indices(acc.shape[0], acc.shape[1], h1, h2, valid,
-                              mcnt, mask_threshold, consume_masked, numbands,
-                              band)
+    predicates and the bucket indices, then :func:`scatter_add_plain`
+    (which skips the indices outside the range)."""
+    keep, idx = _kept_indices(acc.shape[0], total or acc.shape[1], h1, h2,
+                              valid, mcnt, mask_threshold, consume_masked,
+                              numbands, band, lo)
     if nkept is not None:
         nkept += keep.sum()
     return scatter_add_plain(acc, idx)
@@ -296,6 +342,69 @@ def mark_hashes_plain(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
     for t in range(tables.shape[0]):
         tables[t][idx[t][keep].to(torch.int64)] = 1
     return tables
+
+
+def route(h1, h2, valid, ntables, nshards, shard_size, total, capacity):
+    """Bin hashed k-mers by the shard that owns their buckets: for every
+    k-mer with ``valid != 0`` and every table t, bucket ``g = (h1 + t*h2)
+    mod 2^32 mod total`` goes to bin ``(t, g // shard_size)`` as ``g %
+    shard_size``.  Returns ``send`` [ntables, nshards, capacity] int32, each
+    bin's first ``min(population, capacity)`` slots filled and the others
+    ``shard_size`` (a bucket no shard holds), and the bins' populations
+    [ntables, nshards] int32, slots beyond ``capacity`` included.  The order
+    of the slots inside a bin is the kernel's own: compare bins sorted.
+
+    ``h1``/``h2`` [N] int32 holding uint32 bits, ``valid`` [N] uint8, on one
+    device.  CUDA tensors launch ``kt_route``, CPU tensors run
+    :func:`route_plain`."""
+    for name, x, want in (('h1', h1, torch.int32), ('h2', h2, torch.int32),
+                          ('valid', valid, torch.uint8)):
+        if x.dtype != want or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError('{} must be a contiguous 1-D {} tensor'.format(
+                name, want))
+        if x.shape != h1.shape or x.device != h1.device:
+            raise ValueError('{} differs from h1 in shape or device'.format(
+                name))
+    if not (1 <= total < (1 << 31) and 1 <= shard_size < (1 << 31) and
+            total <= nshards * shard_size and capacity >= 1 and
+            1 <= ntables <= 16 and ntables * nshards <= 4096):
+        raise ValueError('cannot route {} tables of {} buckets to {} shards '
+                         'of {} (capacity {})'.format(
+                             ntables, total, nshards, shard_size, capacity))
+    kind = h1.device.type
+    if kind == 'cuda':
+        return kmer_cuda.route_cuda(h1, h2, valid, ntables, nshards,
+                                    shard_size, total, capacity)
+    if kind == 'cpu':
+        return route_plain(h1, h2, valid, ntables, nshards, shard_size,
+                           total, capacity)
+    raise ValueError('no routing engine for device ' + str(h1.device))
+
+
+def route_plain(h1, h2, valid, ntables, nshards, shard_size, total,
+                capacity):
+    """Plain PyTorch version of ``kt_route``, on any device: a stable sort
+    by owner gives every kept k-mer its rank in its bin, in k-mer order."""
+    dev = h1.device
+    keep = valid != 0
+    a = hashing.to_u32(h1)[keep]
+    b = hashing.to_u32(h2)[keep]
+    send = torch.full((ntables, nshards, capacity), shard_size,
+                      dtype=torch.int32, device=dev)
+    pop = torch.zeros((ntables, nshards), dtype=torch.int32, device=dev)
+    for t in range(ntables):
+        g = hashing.table_index(a, b, t, total)
+        owner = g // shard_size
+        order = torch.sort(owner, stable=True).indices
+        owner = owner[order]
+        counts = torch.bincount(owner, minlength=nshards)
+        rank = torch.arange(owner.numel(), device=dev) - \
+            (torch.cumsum(counts, 0) - counts)[owner]
+        slot = rank < capacity
+        send[t, owner[slot], rank[slot]] = \
+            (g[order][slot] % shard_size).to(torch.int32)
+        pop[t] = counts.to(torch.int32)
+    return send, pop
 
 
 class Accumulator:

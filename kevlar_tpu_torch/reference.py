@@ -109,11 +109,7 @@ def _seed_backend(backend):
     """``backend``, else ``KEVLAR_SEED_BACKEND``, else ``'host'``."""
     import os
     backend = backend or os.environ.get('KEVLAR_SEED_BACKEND', 'host')
-    if backend == 'sharded':
-        raise ValueError('seed backend "sharded" (keys sharded over several '
-                         'devices) is not supported by kevlar_tpu_torch yet; '
-                         'it runs on one device (backend "device")')
-    if backend not in ('host', 'device'):
+    if backend not in ('host', 'device', 'sharded'):
         raise ValueError('unknown seed backend {!r}; expected host, device, '
                          'or sharded'.format(backend))
     return backend
@@ -130,10 +126,13 @@ class SeedIndex:
       at the first lookup, and the whole seed batch is one pair of
       ``torch.searchsorted`` calls
       (:func:`kevlar_tpu_torch.ops.seed_ops.seed_ranges`).
+    - ``'sharded'``: the keys are cut into one run per shard of
+      ``make_mesh(device=device)`` (every card, all shard; the CPU: one
+      shard) and every shard searches its run
+      (:func:`kevlar_tpu_torch.ops.seed_ops.seed_ranges_sharded`).
 
-    The env var ``KEVLAR_SEED_BACKEND`` overrides the default; ``'sharded'``
-    (``kevlar_tpu``'s key array over a device mesh) is refused by name.
-    Exact sequence verification always runs on the host, so every backend
+    The env var ``KEVLAR_SEED_BACKEND`` overrides the default.  Exact
+    sequence verification always runs on the host, so every backend
     returns identical matches.
     """
 
@@ -143,6 +142,7 @@ class SeedIndex:
         self.backend = _seed_backend(backend)
         self.device = device
         self._device_index = None
+        self._sharded = None
         self._seqids = sorted(refrseqs)
         keys_all, seqidx_all, pos_all = [], [], []
         for si, seqid in enumerate(self._seqids):
@@ -206,6 +206,7 @@ class SeedIndex:
         obj.backend = _seed_backend(backend)
         obj.device = device
         obj._device_index = None
+        obj._sharded = None
         obj._seqids = [str(s) for s in data['seqids']]
         obj._keys = data['keys']
         obj._seqidx = data['seqidx']
@@ -224,11 +225,33 @@ class SeedIndex:
                 seed_ops.ordered_int64(self._keys)).to(self.device)
         return self._device_index
 
+    def sharded_keys(self):
+        """``(mesh, shards, n_valid, base)`` of the ``'sharded'`` search:
+        the keys cut over the mesh's shards, each run on its device, made
+        once per index."""
+        if self._sharded is None:
+            import torch
+            from kevlar_tpu_torch.ops import seed_ops
+            from kevlar_tpu_torch.parallel import make_mesh
+            mesh = make_mesh(device=self.device)
+            runs, n_valid, base = seed_ops.shard_keys(self._keys,
+                                                      mesh.shape['shard'])
+            shards = [torch.from_numpy(runs[s]).to(mesh.devices[0][s])
+                      for s in range(mesh.shape['shard'])]
+            self._sharded = (mesh, shards, n_valid, base)
+        return self._sharded
+
     def _search_device(self, qkeys):
-        """(lo, hi) numpy index ranges per query key via the device search."""
+        """(lo, hi) numpy index ranges per query key via the device search
+        (or the sharded one)."""
         import torch
         from kevlar_tpu_torch.ops import seed_ops
         queries = torch.from_numpy(seed_ops.ordered_int64(qkeys))
+        if self.backend == 'sharded':
+            mesh, shards, n_valid, base = self.sharded_keys()
+            start, count = seed_ops.seed_ranges_sharded(
+                mesh, shards, queries, n_valid, base)
+            return start, start + count
         start, count = seed_ops.seed_ranges(self.device_keys(),
                                             queries.to(self.device))
         start = start.cpu().numpy()
@@ -247,7 +270,7 @@ class SeedIndex:
         qbases, _ = dna.encode_batch(seedlist)
         qcodes, qvalid = dna.seed_codes(qbases, self.seedsize)
         qkeys = _fold_codes(qcodes[:, 0, :])
-        if self.backend == 'device':
+        if self.backend in ('device', 'sharded'):
             lo, hi = self._search_device(qkeys)
         else:
             lo = np.searchsorted(self._keys, qkeys, side='left')

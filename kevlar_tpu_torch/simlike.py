@@ -1,12 +1,13 @@
 """``simlike`` stage: trio likelihood scoring of variant calls.
 
-Port of ``kevlar_tpu.simlike`` (a copy with the imports rewritten; the
-mesh-sharded sketches that select the batched gather by themselves there
-are not ported).  ``KEVLAR_SIMLIKE_BATCH=1`` gathers every call's window
-counts in a few ``Sketch.query_batch`` calls on the device (K1, K2) instead
-of per-call host gathers, and ``KEVLAR_SIMLIKE_DEVICE=1`` adds float32
-scoring on the device (:mod:`kevlar_tpu_torch.ops.simlike_ops`); both are
-off by default.  For each call, the abundances of every variant-spanning (ALTWINDOW) k-mer in
+Port of ``kevlar_tpu.simlike`` (a copy with the imports rewritten).
+``KEVLAR_SIMLIKE_BATCH=1`` gathers every call's window counts in a few
+``Sketch.query_batch`` calls on the device (K1, K2) instead of per-call host
+gathers, and ``KEVLAR_SIMLIKE_DEVICE=1`` adds float32 scoring on the device
+(:mod:`kevlar_tpu_torch.ops.simlike_ops`); both are off by default, but the
+batched gather is on by itself when a sketch is mesh-sharded
+(:class:`kevlar_tpu_torch.parallel.ShardedSketch`), as in ``kevlar_tpu``.
+For each call, the abundances of every variant-spanning (ALTWINDOW) k-mer in
 case/controls form a columnar bundle (k-mers already present in the
 reference genome are masked out); three log-likelihood models score the
 bundle and LIKESCORE = LLDN - max(LLFP, LLIH):
@@ -276,20 +277,24 @@ class _AbundanceBundle:
                    for ctrl in self.controls)
 
 
-def _use_batched_gather():
+def _use_batched_gather(case, controls, refr):
     """Whether to batch every call's window queries into device calls.
 
-    Off by default (``kevlar_tpu`` turns it on by itself for mesh-sharded
-    sketches, which the port does not have).  ``KEVLAR_SIMLIKE_BATCH=1/0``
-    forces/disables.  ``KEVLAR_SIMLIKE_DEVICE=1`` implies batch mode
-    (device scoring rides the batched-gather path; without this it would
-    be silently inert).
+    Default: only when a sketch is mesh-sharded (its point queries are
+    device calls, so per-call gathers would pay one per call).
+    ``KEVLAR_SIMLIKE_BATCH=1/0`` forces/disables.
+    ``KEVLAR_SIMLIKE_DEVICE=1`` implies batch mode (device scoring rides
+    the batched-gather path; without this it would be silently inert).
     """
     import os
     forced = os.environ.get('KEVLAR_SIMLIKE_BATCH')
     if forced is not None:
         return forced == '1'
-    return os.environ.get('KEVLAR_SIMLIKE_DEVICE') == '1'
+    if os.environ.get('KEVLAR_SIMLIKE_DEVICE') == '1':
+        return True
+    from kevlar_tpu_torch.parallel import ShardedSketch
+    return any(isinstance(s, ShardedSketch)
+               for s in [case] + list(controls) + [refr])
 
 
 def gather_bundles_batched(windowpairs, case, controls, refr,
@@ -510,7 +515,7 @@ def simlike(variants, case, controls, refr, mu=30.0, sigma=8.0, epsilon=0.001,
         _annotate_sample_data(call, bundle, samplelabels)
         by_partition[call.attribute('PART')].append(call)
 
-    if _use_batched_gather():
+    if _use_batched_gather(case, controls, refr):
         # device-batch path: every scoreable call's window queries ride a
         # handful of bucketed query_batch calls
         calls = list(variants)

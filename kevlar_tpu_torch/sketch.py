@@ -426,23 +426,12 @@ class Sketch:
                     self.tablesize).cpu().numpy()
 
     def save(self, filename):
-        """Write the npz file row by row to an uncompressed zip member."""
-        meta = dict(ksize=self._ksize, tablesize=self.tablesize,
-                    ntables=self.ntables, counter_bits=self.counter_bits,
-                    n_occupied=self.n_occupied())
-        with zipfile.ZipFile(filename, 'w', zipfile.ZIP_STORED) as zf:
-            for name, val in meta.items():
-                buf = io.BytesIO()
-                np.save(buf, np.asarray(val))
-                zf.writestr(name + '.npy', buf.getvalue())
-            info = zipfile.ZipInfo('tables.npy',
-                                   date_time=(1980, 1, 1, 0, 0, 0))
-            with zf.open(info, 'w', force_zip64=True) as fh:
-                header = {'descr': '|u1', 'fortran_order': False,
-                          'shape': (self.ntables, self.tablesize)}
-                np.lib.format.write_array_header_1_0(fh, header)
-                for row in self._rows():
-                    fh.write(np.ascontiguousarray(row).tobytes())
+        """Write the npz file row by row (see :func:`write_npz`)."""
+        write_npz(filename, dict(ksize=self._ksize, tablesize=self.tablesize,
+                                 ntables=self.ntables,
+                                 counter_bits=self.counter_bits,
+                                 n_occupied=self.n_occupied()),
+                  (self.ntables, self.tablesize), self._rows())
 
     @classmethod
     def load_file(cls, filename, device='cuda', backend='device'):
@@ -458,6 +447,25 @@ class Sketch:
         if 'n_occupied' in data:
             sketch._n_occupied = int(data['n_occupied'])
         return sketch
+
+
+def write_npz(filename, meta, shape, rows):
+    """A sketch file: the scalars of ``meta`` and a uint8 ``tables`` member
+    of ``shape`` written from ``rows`` (numpy arrays in order) to an
+    uncompressed zip member, so that no full-table host copy is made and a
+    load can memory-map it."""
+    with zipfile.ZipFile(filename, 'w', zipfile.ZIP_STORED) as zf:
+        for name, val in meta.items():
+            buf = io.BytesIO()
+            np.save(buf, np.asarray(val))
+            zf.writestr(name + '.npy', buf.getvalue())
+        info = zipfile.ZipInfo('tables.npy', date_time=(1980, 1, 1, 0, 0, 0))
+        with zf.open(info, 'w', force_zip64=True) as fh:
+            header = {'descr': '|u1', 'fortran_order': False,
+                      'shape': tuple(shape)}
+            np.lib.format.write_array_header_1_0(fh, header)
+            for row in rows:
+                fh.write(np.ascontiguousarray(row).tobytes())
 
 
 def estimate_fpr(sketch):
@@ -550,6 +558,8 @@ def _cached_load(filename, device, backend):
     if key is None or key != _stat_key(path):
         del _process_cache[path]  # file changed on disk since we wrote it
         return None
+    if getattr(sketch, 'mesh', None) is not None:
+        return None  # a sharded sketch: the caller gets the file's
     # a khmer-format sketch lives on the host whatever the caller asks
     same_place = not isinstance(sketch, Sketch) or (
         sketch.backend == backend and (

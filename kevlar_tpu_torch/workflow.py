@@ -36,7 +36,10 @@ Config (JSON) mirrors the reference's mark-I config.json vocabulary, plus
 
 ``profile`` names a directory: the run is traced with ``torch.profiler``,
 one ``workflow::<stage>`` span per stage, and the chrome trace is written
-there.  ``shards`` (multi-device sketches) is not ported and is refused.
+there.  ``shards`` hash-shards every sample sketch over that many shards of
+a mesh (:mod:`kevlar_tpu_torch.parallel`: every card of ``device``, or the
+CPU standing in for each) and runs the counts, the novel screen and
+simlike's queries over it, as in ``kevlar_tpu``.
 
     python -m kevlar_tpu_torch.workflow config.json
 """
@@ -81,9 +84,6 @@ def run_mark1(config, logstream=None):
     from kevlar_tpu_torch import seqio, sketch as sketch_mod, vcf as vcf_mod
     from kevlar_tpu_torch.batch import DEFAULT_BATCH_SIZE
 
-    if config.get('shards'):
-        raise ValueError('the "shards" key (sketches sharded over several '
-                         'devices) is not supported by kevlar_tpu_torch yet')
     ksize = config.get('ksize', 31)
     outdir = config.get('outdir', '.')
     device = config.get('device', 'cuda')
@@ -149,21 +149,31 @@ def run_mark1(config, logstream=None):
         outfile=path('refr.sct'), device=device, save_async=True)
 
     # -- step 1: per-sample masked counting -------------------------------
+    # config key 'shards': hash-shard every sample sketch across that many
+    # mesh devices and run counting + the novel screen over the mesh
+    # (supersedes the reference's banding workflow)
+    mesh = None
+    sample_mask = mask
+    if config.get('shards'):
+        from kevlar_tpu_torch.parallel import ShardedSketch, make_mesh
+        mesh = make_mesh(n_shard=int(config['shards']), device=device)
+        stage('sharding sketches over mesh {}'.format(dict(mesh.shape)))
+        sample_mask = ShardedSketch.from_sketch(mesh, mask)
     case_cfg = config['case']
     ctrl_cfgs = config.get('controls', [])
     stage('counting case sample')
     case_counts = count_mod.load_sample_seqfile(
         case_cfg['fastx'], ksize, _mem(case_cfg.get('memory'), 1e6),
-        maxfpr=case_cfg.get('max_fpr', 0.6), mask=mask,
-        outfile=path('case.ct'), device=device, save_async=True)
+        maxfpr=case_cfg.get('max_fpr', 0.6), mask=sample_mask,
+        outfile=path('case.ct'), device=device, save_async=True, mesh=mesh)
     ctrl_counts = []
     for i, ctrl in enumerate(ctrl_cfgs):
         stage('counting control sample {}'.format(i))
         ctrl_counts.append(count_mod.load_sample_seqfile(
             ctrl['fastx'], ksize, _mem(ctrl.get('memory'), 1e6),
-            maxfpr=ctrl.get('max_fpr', 0.05), mask=mask,
+            maxfpr=ctrl.get('max_fpr', 0.05), mask=sample_mask,
             outfile=path('control{}.ct'.format(i)), device=device,
-            save_async=True))
+            save_async=True, mesh=mesh))
 
     # -- step 2: novel k-mer screen ---------------------------------------
     stage('novel k-mer screen')
@@ -243,14 +253,20 @@ def run_mark1(config, logstream=None):
          for i, c in enumerate(ctrl_cfgs)]
     # score from the on-disk checkpoints as host-backend mmaps (still in
     # the page cache): the live device sketches would answer the point
-    # queries by pulling full-table host mirrors off the card
-    for sk in [case_counts, refr_counts] + ctrl_counts:
-        sketch_mod.join_save(sk)
-    sl_case = sketch_mod.load(path('case.ct'), backend='host', cache=False)
-    sl_ctrls = [sketch_mod.load(path('control{}.ct'.format(i)),
-                                backend='host', cache=False)
-                for i in range(len(ctrl_counts))]
-    sl_refr = sketch_mod.load(path('refr.sct'), backend='host', cache=False)
+    # queries by pulling full-table host mirrors off the card.  Sharded
+    # sketches stay on the mesh: simlike batches their queries.
+    if mesh is None:
+        for sk in [case_counts, refr_counts] + ctrl_counts:
+            sketch_mod.join_save(sk)
+        sl_case = sketch_mod.load(path('case.ct'), backend='host',
+                                  cache=False)
+        sl_ctrls = [sketch_mod.load(path('control{}.ct'.format(i)),
+                                    backend='host', cache=False)
+                    for i in range(len(ctrl_counts))]
+        sl_refr = sketch_mod.load(path('refr.sct'), backend='host',
+                                  cache=False)
+    else:
+        sl_case, sl_ctrls, sl_refr = case_counts, ctrl_counts, refr_counts
     finalfile = path('calls.scored.sorted.vcf.gz')
     reader = vcf_mod.vcfstream([vcf_for_scoring])
     with kevlar_tpu_torch.open(finalfile, 'w') as fh:

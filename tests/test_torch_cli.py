@@ -369,14 +369,23 @@ def test_khmer_format_refuses_a_native_mask(novel_case, tmp_path):
     ['alac', '--shards', '2', 'reads.augfastq', 'refr.fa'],
     ['call', '--shards', '2', 'contigs.fa', 'targets.fa']],
     ids=lambda argv: argv[0])
-def test_shards_is_refused_by_name(argv, capsys):
-    jax_cli.parser().parse_args(argv)      # kevlar_tpu takes the flag
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main(argv)
-    assert exit_info.value.code == 2
-    err = capsys.readouterr().err
-    assert 'argument --shards' in err and 'one device' in err
-    assert 'unrecognized arguments' not in err
+def test_shards_is_refused_by_name(argv, capsys, monkeypatch):
+    """``--shards S`` is taken as ``kevlar_tpu`` takes it (with ``--device
+    cpu`` too), and a shard count the devices cannot fill is refused by
+    both with the mesh's error before any work: 3 on 2 cards here, on 8
+    virtual devices there."""
+    import torch
+    want = jax_cli.parser().parse_args(argv)
+    got = cli.parser().parse_args(argv[:1] + ['--device', 'cpu'] + argv[1:])
+    assert got.shards == want.shards == 2
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
+    three = [arg if arg != '2' else '3' for arg in argv]
+    for main in (jax_cli.main, cli.main):
+        with pytest.raises(SystemExit) as exit_info:
+            main(three)
+        assert exit_info.value.code == 1
+        err = capsys.readouterr().err
+        assert 'cannot build a' in err and 'mesh from' in err, err
 
 
 def test_run_mark1_takes_a_logstream_like_jax():
@@ -386,9 +395,11 @@ def test_run_mark1_takes_a_logstream_like_jax():
     got = inspect.signature(workflow.run_mark1).parameters
     assert list(got) == list(want) == ['config', 'logstream']
     assert got['logstream'].default is None
-    # the argument is taken before anything runs: what fails is the key
-    with pytest.raises(ValueError, match='"shards" key'):
-        workflow.run_mark1({'shards': 2}, logstream=io.StringIO())
+    # the argument is taken before anything runs: what fails is the
+    # config's missing reference, in both
+    for run in (workflow.run_mark1, jax_workflow.run_mark1):
+        with pytest.raises(KeyError, match='reference'):
+            run({'shards': 2}, logstream=io.StringIO())
 
 
 def test_banded_view_load_takes_a_backend_like_jax(novel_case, tmp_path):

@@ -524,3 +524,87 @@ def test_consume_kernel_matches_plain_on_card(cuda_device, mode):
     want = sketch_ops.consume_hashes_plain(acc.clone(), h1, h2, valid, **kw)
     assert torch.equal(got, want)
     assert int((got - acc).sum()) > 0
+
+
+# -- the sharded sketch's kernels on a card: kt_route, and K2 and K3 with a
+# bucket range (kevlar_tpu_torch.parallel) ----------------------------------
+
+def _hashes_on(rng, n, device):
+    h = rng.integers(-2**31, 2**31, (2, n), dtype=np.int64).astype(np.int32)
+    h = torch.from_numpy(h).to(device)
+    valid = torch.from_numpy((rng.random(n) < 0.9).astype(np.uint8))
+    return h[0], h[1], valid.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T,S,total,capacity', [
+    (4, 4, 1_000_003, 80_000), (4, 8, 999_999, 40_000),
+    (3, 2, 77_777, 200_000), (4, 4, 1_000_003, 1000)])
+def test_route_kernel_matches_plain_on_card(cuda_device, T, S, total,
+                                            capacity):
+    rng = np.random.default_rng(T * S)
+    h1, h2, valid = _hashes_on(rng, 300_001, cuda_device)
+    ss = -(-total // S)
+    ss += (-ss) % 8
+    got, got_pop = kmer_cuda.route_cuda(h1, h2, valid, T, S, ss, total,
+                                        capacity)
+    want, want_pop = sketch_ops.route_plain(h1, h2, valid, T, S, ss, total,
+                                            capacity)
+    assert torch.equal(got_pop, want_pop)
+    if int(want_pop.max()) <= capacity:
+        assert torch.equal(got.sort(dim=2).values, want.sort(dim=2).values)
+    else:   # which k-mers fill an overflowing bin differs; how many does not
+        filled = want_pop.clamp(max=capacity)
+        assert torch.equal((got < ss).sum(dim=2), filled.to(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bits', [1, 4, 8])
+def test_range_gather_kernel_matches_plain_on_card(cuda_device, bits):
+    rng = np.random.default_rng(bits)
+    h1, h2, _ = _hashes_on(rng, 200_001, cuda_device)
+    total, ss = 1_000_003, 250_008
+    samples = []
+    for s in range(4):
+        width = sketch_ops.packed_width(ss, bits)
+        tables = torch.from_numpy(rng.integers(0, 256, (4, width),
+                                               dtype=np.uint8))
+        samples.append((tables.to(cuda_device), bits, total, s * ss, ss))
+    got = kmer_cuda.gather_counts_cuda(samples, h1, h2)
+    want = sketch_ops.gather_counts_multi_plain(samples, h1, h2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_range_consume_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(5)
+    h1, h2, valid = _hashes_on(rng, 300_001, cuda_device)
+    mcnt = torch.from_numpy(rng.integers(0, 3, 300_001).astype(
+        np.uint8)).to(cuda_device)
+    total, ss = 1_000_003, 250_008
+    for s in range(4):
+        for kw in ({}, dict(mcnt=mcnt, mask_threshold=1)):
+            acc = torch.zeros((4, ss), dtype=torch.int32, device=cuda_device)
+            got = kmer_cuda.consume_cuda(acc.clone(), h1, h2, valid,
+                                         total=total, lo=s * ss, **kw)
+            want = sketch_ops.consume_hashes_plain(acc.clone(), h1, h2, valid,
+                                                   total=total, lo=s * ss,
+                                                   **kw)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_count_on_one_card_matches_single(cuda_device):
+    """Four shards on one card (the mesh names it four times): routed and
+    replicate consumes give the single-device sketch's tables."""
+    from kevlar_tpu_torch.parallel import ShardedSketch, make_mesh
+    from kevlar_tpu_torch.sketch import Sketch
+    KSIZE = 21
+    bases = _bases(np.random.default_rng(9), 4096, 160)
+    mesh = make_mesh(devices=['cuda:0'] * 4)
+    single = Sketch(KSIZE, 1_000_003, 4, device=cuda_device)
+    single.consume_batch(bases)
+    for route in ('alltoall', 'replicate'):
+        sk = ShardedSketch(mesh, KSIZE, 1_000_003, exact=True)
+        sk.consume_batch(bases, route=route)
+        np.testing.assert_array_equal(sk._host(), single._host())

@@ -160,17 +160,27 @@ def test_seed_backend_env_override(genome_case, monkeypatch):
 @pytest.mark.parametrize('how', ['argument', 'environment', 'from_file'])
 def test_sharded_backend_is_refused_by_name(genome_case, monkeypatch,
                                             tmp_path, how):
-    refrseqs, _ = genome_case
-    with pytest.raises(ValueError, match='"sharded".*one device'):
-        if how == 'argument':
-            SeedIndex(refrseqs, 51, backend='sharded')
-        elif how == 'environment':
-            monkeypatch.setenv('KEVLAR_SEED_BACKEND', 'sharded')
-            SeedIndex(refrseqs, 51)
-        else:
-            path = str(tmp_path / 'index.npz')
-            SeedIndex(refrseqs, 51).save(path)
-            SeedIndex.from_file(path, refrseqs, backend='sharded')
+    """The ``'sharded'`` backend, chosen by argument, by
+    ``KEVLAR_SEED_BACKEND`` or on a loaded index, matches what
+    ``kevlar_tpu``'s sharded backend matches (the keys cut over the CPU
+    mesh here, over JAX's 8 virtual devices there)."""
+    refrseqs, seeds = genome_case
+    if how == 'argument':
+        index = SeedIndex(refrseqs, 51, backend='sharded', device='cpu')
+    elif how == 'environment':
+        monkeypatch.setenv('KEVLAR_SEED_BACKEND', 'sharded')
+        index = SeedIndex(refrseqs, 51, device='cpu')
+    else:
+        path = str(tmp_path / 'index.npz')
+        SeedIndex(refrseqs, 51).save(path)
+        index = SeedIndex.from_file(path, refrseqs, backend='sharded',
+                                    device='cpu')
+    assert index.backend == 'sharded'
+    got = index.lookup(seeds)
+    assert got == JaxSeedIndex(refrseqs, 51, backend='sharded').lookup(seeds)
+    assert got == JaxSeedIndex(refrseqs, 51).lookup(seeds)
+    mesh, shards, n_valid, base = index.sharded_keys()
+    assert sum(n_valid) == len(index._keys) and base[0] == 0
 
 
 @pytest.mark.parametrize('flags', [['-z', '25'], ['-z', '25', '-p', '2']],

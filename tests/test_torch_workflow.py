@@ -5,7 +5,8 @@ packages must write the same final VCF, bar its ``##fileDate`` line, and
 byte-identical ``callmask.nt``.  The port runs with ``device: cpu``: the
 plain PyTorch version of every kernel on its path.  Also: the ``profile``
 key writes a ``torch.profiler`` trace with one span per stage, and the
-``shards`` key is refused.
+``shards`` key takes a mesh the devices can fill (tests/test_torch_cli_
+sharded.py runs the workflow sharded).
 """
 
 import gzip
@@ -13,6 +14,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 
 import pytest
 
@@ -104,20 +106,47 @@ def test_run_mark1_profile_writes_trace(tmp_path):
         assert '"workflow::{}"'.format(stage) in trace
 
 
-def test_run_mark1_refuses_shards(tmp_path):
-    with pytest.raises(ValueError, match='shards'):
-        workflow.run_mark1({'shards': 4, 'outdir': str(tmp_path),
-                            'reference': {'fasta': 'unused.fa'}})
+def test_run_mark1_refuses_shards(tmp_path, monkeypatch):
+    """``shards`` the cards cannot fill is refused with the mesh's error,
+    as ``kevlar_tpu`` refuses it, once the reference counts are done (on 2
+    cards here; a missing card's CUDA error would come first, so the
+    counts run on the CPU while the mesh is asked of 'cuda')."""
+    import torch
+    config = _trio(tmp_path, seed=77)
+    for sample in [config['case'], config['mask']] + config['controls']:
+        sample['memory'] = '100K'
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
+    from kevlar_tpu_torch.parallel import mesh as mesh_mod
+    make_mesh = mesh_mod.make_mesh
+    asked = []
+
+    def on_cuda(n_data=None, n_shard=None, devices=None, device='cuda'):
+        asked.append(device)
+        return make_mesh(n_data, n_shard, devices, 'cuda')
+    monkeypatch.setattr('kevlar_tpu_torch.parallel.make_mesh', on_cuda)
+    with pytest.raises(ValueError, match='cannot build a 0x3 .* mesh from '
+                       '2 available'):
+        workflow.run_mark1(dict(config, shards=3, device='cpu',
+                                outdir=str(tmp_path / 'out')))
+    assert asked == ['cpu']
+    # the reference counts were saved (on their background threads)
+    for thread in threading.enumerate():
+        if thread.name == 'kevlar-save':
+            thread.join()
+    assert os.path.exists(str(tmp_path / 'out' / 'refr.sct'))
 
 
 def test_workflow_module_entry_point(tmp_path):
     """``python -m kevlar_tpu_torch.workflow config.json`` runs and refuses
-    like ``run_mark1`` (here: an unsupported key, before any work)."""
+    like ``run_mark1`` (here: a device torch does not know, before any
+    work)."""
     config = tmp_path / 'config.json'
-    config.write_text('{"shards": 2, "reference": {"fasta": "x.fa"}}')
+    config.write_text('{"device": "tpu", "outdir": "%s", '
+                      '"reference": {"fasta": "x.fa"}}' % (tmp_path / 'out'))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
         [sys.executable, '-m', 'kevlar_tpu_torch.workflow', str(config)],
         cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert 'shards' in proc.stderr
+    assert 'tpu' in proc.stderr
+    assert not os.listdir(str(tmp_path / 'out'))
