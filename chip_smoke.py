@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # needs one CUDA GPU; about 14 minutes
     python3 chip_smoke.py --compare-parent DIR
-                                 # the aligner, the consume step and a
-                                 # helium sample count of this tree against
-                                 # an older checkout in DIR
+                                 # the aligner, the consume step, the routed
+                                 # consume's kernels and a helium sample
+                                 # count (unsharded and routed) of this tree
+                                 # against an older checkout in DIR
     python3 chip_smoke.py --profile-workflow
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
@@ -116,7 +117,8 @@ Phases (any failure raises, and the script exits non-zero):
    the device search's) and its pairs through B1 on a (2, 1) mesh (==
    unsharded); after phase 9, on the helium trio at ``-M 500M``: the
    proband counted on a (1, 4) mesh down the routed consume (``kt_route``,
-   one all_to_all, ``kt_scatter_add``; tables == an unsharded count), the
+   the all_to_all's parts, ``kt_scatter_add`` on each received bin's
+   filled prefix; tables == an unsharded count), the
    case on a (2, 2) mesh with the workflow's mask re-sharded (the replicate
    consume: K2 and ``kt_consume`` with bucket ranges; tables == the
    workflow's ``case.ct``), the novel screen over the workflow's three
@@ -124,12 +126,15 @@ Phases (any failure raises, and the script exits non-zero):
    ``novel --shards 1`` through the CLI (== phase 6's), and a forced
    overflow (capacity 1,024: the batch re-runs down the replicate path,
    tables equal).  The routed and replicated batches, the walls and the
-   launches are printed; K1, ``kt_route``, ``kt_scatter_add`` and both
-   range variants must launch.  ``kt_route``, the range variants and
-   ``kt_scatter_add`` on the routed count's received bins (one owner's
-   [4, 4 x capacity] from a (1, 4) mesh's all_to_all, into its 4 x
-   31,250,000 int32 accumulator) are held to their plain versions and
-   timed after phase 5.
+   launches are printed, and one batch's all_to_all is timed in both forms
+   (parts and stacked) with the bytes each moved; K1, ``kt_route``,
+   ``kt_scatter_add`` over parts and both range variants must launch.
+   ``kt_route`` (every bin's filled prefix slot by slot, unsorted, and the
+   populations: 4 and 8 shards, a whole batch, overflowing bins), the
+   range variants and ``kt_scatter_add`` on the routed count's received
+   parts (one owner's four [4, capacity] views from a (1, 4) mesh, into
+   its 4 x 31,250,000 int32 accumulator) are held to their plain versions
+   and timed after phase 5.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the
 two XLA programs ported as plain torch (B7 ``seed_ranges``, B8
@@ -138,8 +143,8 @@ the bound.  The last two lines of standard output are the kernels record
 (JSON: B1,
 K1, K2, K3's three entries (the consume from hashes; ``kt_scatter_add``
 from indices at phase 5's shape, launched by the trio's device recount, and
-at the routed count's shape, launched by the sharded phase's routed
-count), K4, ``kt_route`` and the range variants of K2 and K3's consume,
+over the received parts at the routed count's shape, launched by the
+sharded phase's routed count), K4, ``kt_route`` and the range variants of K2 and K3's consume,
 each with its launches on its path's run,
 max_abs_err, ms,
 plain_ms, its bound on this run's inputs (``bound_ms``, ``bound_by``: the
@@ -953,9 +958,11 @@ def phase_kmer_kernels(device):
               for n, S in times)), flush=True)
     del samples
 
-    # K3: heavy duplicates, negative indices, an odd bucket count
+    # K3: heavy duplicates, negative indices, an odd bucket count, rows of
+    # a length that is no multiple of 4
     err = 0
-    for C, n, span in ((1001, 131072, 37), (999_999, 2_000_000, 999_999)):
+    for C, n, span in ((1001, 131072, 37), (1001, 99_999, 1001),
+                       (999_999, 2_000_000, 999_999)):
         idx = rng.integers(-5, span, (4, n)).astype(np.int32)
         acc0 = rng.integers(0, 100, (4, C)).astype(np.int32)
         got = kmer_cuda.scatter_add_cuda(
@@ -2246,24 +2253,47 @@ def _sync(mesh):
 
 
 def _all_to_all_ms(mesh, capacity, reps=10):
-    """ms of one ``all_to_all`` of a count batch's bins (4 tables, a
-    [4, S, C] int32 send buffer on every device) by the host clock, the
-    mesh's devices synchronised around each."""
+    """One ``all_to_all`` of a count batch's bins (4 tables, a [4, S, C]
+    int32 send buffer on every device) in both forms, the mesh's devices
+    synchronised around each call, by the host clock: the parts the
+    routed consume takes (the bins and their [4, S] populations, unstacked)
+    and the stacked copy.  Returns {form: (ms of each call, bytes moved)};
+    a received part that is a view of its sender's buffer moved none."""
     import torch
     from kevlar_tpu_torch.parallel import collectives
     n_shard = mesh.shape['shard']
     send = [[torch.randint(0, 1 << 20, (4, n_shard, capacity),
                            dtype=torch.int32, device=dev) for dev in row]
             for row in mesh.devices]
-    collectives.all_to_all(mesh, send)
-    times = []
-    for _ in range(reps):
-        _sync(mesh)
-        t0 = time.time()
-        collectives.all_to_all(mesh, send)
-        _sync(mesh)
-        times.append(1e3 * (time.time() - t0))
-    return times
+    pops = [[torch.full((4, n_shard), capacity, dtype=torch.int32,
+                        device=dev) for dev in row] for row in mesh.devices]
+    sources = {x.untyped_storage().data_ptr() for grid in (send, pops)
+               for row in grid for x in row}
+
+    def parts():
+        return (collectives.all_to_all_parts(mesh, send),
+                collectives.all_to_all_parts(mesh, pops))
+
+    def stacked():
+        return (collectives.all_to_all(mesh, send),)
+
+    out = {}
+    for name, fn in (('parts', parts), ('stacked', stacked)):
+        got = fn()
+        moved = sum(x.numel() * x.element_size() for grid in got
+                    for row in grid for cell in row
+                    for x in (cell if isinstance(cell, list) else [cell])
+                    if x.untyped_storage().data_ptr() not in sources)
+        del got
+        times = []
+        for _ in range(reps):
+            _sync(mesh)
+            t0 = time.time()
+            fn()
+            _sync(mesh)
+            times.append(1e3 * (time.time() - t0))
+        out[name] = (times, moved)
+    return out
 
 
 def _shard_equal(sharded, tables, label):
@@ -2282,12 +2312,25 @@ def _shard_equal(sharded, tables, label):
                     label, d, s))
 
 
-def _route_bound(n, ntables, nshards, capacity):
-    """kt_route: h1, h2 and valid read once, the send buffer (its fill
-    included) and the populations written once; ~20 integer operations a
-    table and k-mer."""
-    return _bound(n * 9 + ntables * nshards * (capacity + 1) * 4,
+def _route_bound(n, ntables, nshards, filled):
+    """kt_route: h1, h2 and valid read once, the ``filled`` slots of the
+    send buffer and the populations written once; ~20 integer operations
+    a table and k-mer."""
+    return _bound(n * 9 + (filled + ntables * nshards) * 4,
                   n * ntables * 20)
+
+
+def _route_err(got, want, capacity, label):
+    """Max abs difference of ``kt_route``'s (send, pop) and
+    ``route_plain``'s: the populations, and every bin's filled prefix slot
+    by slot, unsorted (raises unless equal)."""
+    import torch
+    err = _max_diff(got[1], want[1], label + ' populations')
+    filled = want[1].clamp(max=capacity).to(torch.int64)
+    slots = torch.arange(capacity, device=filled.device)
+    inside = slots[None, None, :] < filled[:, :, None]
+    return max(err, _max_diff(got[0][inside], want[0][inside],
+                              label + ' filled slots'))
 
 
 def _capacity(nrows, L, n_dev):
@@ -2300,54 +2343,63 @@ def _capacity(nrows, L, n_dev):
 def _routed_scatter_add_check(device, rng, ss):
     """K3 at the routed count's shape: what the owner of shard 0 receives
     on a (1, 4) mesh, the four devices' 8,192-row shares of a batch routed
-    by kt_route and moved by one all_to_all ([4, 4 x capacity] int32, the
-    sentinel ``ss`` in unfilled slots), added into its 4 x ``ss`` int32
-    accumulator; against its plain version, then timed."""
+    by kt_route and handed over by one ``all_to_all_parts`` (four [4,
+    capacity] views of the senders' buffers and their populations), added
+    into its 4 x ``ss`` int32 accumulator; against its plain version,
+    then timed."""
     import torch
     from kevlar_tpu_torch.ops import kmer_cuda, sketch_ops
     from kevlar_tpu_torch.parallel import collectives
     cap = _capacity(32768, 160, SHARDS)
-    send = []
+    routed = []
     for _ in range(SHARDS):
         codes = torch.from_numpy(_read_bases(rng, 32768 // SHARDS, 160,
                                              150)).to(device)
         h1, h2, valid = (x.reshape(-1) for x in
                          kmer_cuda.kmer_hashes_cuda(codes, KSIZE))
-        send.append(kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss,
-                                         SHARD_TOTAL, cap)[0])
+        routed.append(kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss,
+                                           SHARD_TOTAL, cap))
     del codes, h1, h2, valid
-    recv = collectives.all_to_all(_mesh(device, 1, SHARDS), [send])[0][0]
-    recv = recv.reshape(4, SHARDS * cap)
-    del send
+    mesh = _mesh(device, 1, SHARDS)
+    parts = collectives.all_to_all_parts(mesh, [[r[0] for r in routed]])
+    pops = collectives.all_to_all_parts(mesh, [[r[1] for r in routed]])
+    parts, pops = parts[0][0], pops[0][0]
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     acc = torch.randint(0, 100, (4, ss), dtype=torch.int32, device=device,
                         generator=gen)
-    got = kmer_cuda.scatter_add_cuda(acc.clone(), recv)
-    want = sketch_ops.scatter_add_plain(acc.clone(), recv)
-    err = _max_diff(got, want, 'K3 on the received bins')
+    got = kmer_cuda.scatter_add_parts_cuda(acc.clone(), parts, pops)
+    want = sketch_ops.scatter_add_parts_plain(acc.clone(), parts, pops)
+    err = _max_diff(got, want, 'K3 on the received parts')
     del got, want
-    kept = recv < ss
-    nkept = int(kept.sum())
-    _, ms = _timed(kmer_cuda.scatter_add_cuda, acc, recv, reps=20, spin=True)
-    _, plain_ms = _timed(sketch_ops.scatter_add_plain, acc, recv, reps=5)
+    filled = [pop.clamp(max=cap).tolist() for pop in pops]
+    nkept = sum(map(sum, filled))
+    _, ms = _timed(kmer_cuda.scatter_add_parts_cuda, acc, parts, pops,
+                   reps=20, spin=True)
+    _, plain_ms = _timed(sketch_ops.scatter_add_parts_plain, acc, parts,
+                         pops, reps=5)
     # one library call for the same function: index_add_ on the flat
-    # accumulator, its kept flat indices prepared outside the timing
-    flat = (recv.long() + torch.arange(4, device=device)[:, None] * ss)[kept]
+    # accumulator, the filled prefixes' flat indices prepared outside the
+    # timing
+    flat = torch.cat([part[t, :n[t]].long() + t * ss
+                      for part, n in zip(parts, filled) for t in range(4)])
     ones = torch.ones_like(flat, dtype=torch.int32)
     _, library_ms = _timed(acc.view(-1).index_add_, 0, flat, ones, reps=5,
                            spin=True)
-    del flat, ones, kept, acc
-    # every received index read once; a kept update reads and writes its
-    # sector
-    bound_ms, bound_by = _bound(recv.numel() * 4 + nkept * 2 * SECTOR, nkept)
-    shape = ('4 x {:,} received indices ({:.1%} sentinels), 4 x {:,} '
-             'int32'.format(SHARDS * cap, 1 - nkept / recv.numel(), ss))
-    print('[smoke] K3 scatter_add on the routed count\'s bins: identical to '
-          'plain; {}: kernel {:.4f} ms ({:.1f} G updates/s), plain {:.3f} '
-          'ms, one index_add_ {:.4f} ms, bound {:.4f} ms by {}'.format(
-              shape, ms, nkept / ms / 1e6, plain_ms, library_ms, bound_ms,
-              bound_by), flush=True)
+    del flat, ones, acc, routed
+    # the filled prefixes and the populations read once; a kept update
+    # reads and writes its sector
+    bound_ms, bound_by = _bound(nkept * 4 + 4 * SHARDS * 4 +
+                                nkept * 2 * SECTOR, nkept)
+    shape = ('{:,} received indices in 4 x {} parts of capacity {:,} '
+             '(filled prefixes only; the unfilled {:.1%} is not read), 4 x '
+             '{:,} int32'.format(nkept, SHARDS, cap,
+                                 1 - nkept / (4 * SHARDS * cap), ss))
+    print('[smoke] K3 scatter_add on the routed count\'s received parts: '
+          'identical to plain; {}: kernel {:.4f} ms ({:.1f} G updates/s), '
+          'plain {:.3f} ms, one index_add_ {:.4f} ms, bound {:.4f} ms by {}'
+          .format(shape, ms, nkept / ms / 1e6, plain_ms, library_ms,
+                  bound_ms, bound_by), flush=True)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, shape=shape)
 
@@ -2364,55 +2416,64 @@ def sharded_kernel_checks(device):
     ss = SHARD_TOTAL // SHARDS + 1
 
     # kt_route: one device's share of a count batch (8,192 of 32,768 reads
-    # on a (1, 4) mesh), then the whole batch; and a batch that overflows
-    # a small capacity (populations exact, each bin full)
+    # on a (1, 4) mesh, the main path's launch), a whole batch on one
+    # device, one device's share on a (1, 8) mesh, and the whole batch at a
+    # small capacity (overflowing bins keep their first k-mers); every
+    # bin's filled prefix slot by slot against route_plain, unsorted
     err = 0
     times = {}
-    for nrows in (32768 // SHARDS, 32768):
+    for nrows, nshards in ((32768 // SHARDS, SHARDS), (32768, SHARDS),
+                           (32768 // 8, 8)):
         codes = torch.from_numpy(_read_bases(rng, nrows, 160, 150)).to(
             device)
         h1, h2, valid = (x.reshape(-1) for x in
                          kmer_cuda.kmer_hashes_cuda(codes, KSIZE))
-        cap = _capacity(32768 if nrows < 32768 else 4 * 32768, 160, SHARDS)
-        got = kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss, SHARD_TOTAL,
-                                   cap)
-        want = sketch_ops.route_plain(h1, h2, valid, 4, SHARDS, ss,
-                                      SHARD_TOTAL, cap)
-        err = max(err, _max_diff(got[1], want[1], 'kt_route populations'),
-                  _max_diff(got[0].sort(dim=2).values,
-                            want[0].sort(dim=2).values, 'kt_route bins'))
-        _, ms = _timed(kmer_cuda.route_cuda, h1, h2, valid, 4, SHARDS, ss,
-                       SHARD_TOTAL, cap, reps=20, spin=True)
-        _, plain_ms = _timed(sketch_ops.route_plain, h1, h2, valid, 4, SHARDS,
-                             ss, SHARD_TOTAL, cap, reps=3)
-        nbytes = h1.numel() * 9 + 4 * SHARDS * (cap + 1) * 4
-        times[nrows] = (h1.numel(), cap, ms, plain_ms, nbytes) + \
-            _route_bound(h1.numel(), 4, SHARDS, cap)
+        size = -(-SHARD_TOTAL // nshards)
+        cap = _capacity(nrows * nshards, 160, nshards)
+        args = (h1, h2, valid, 4, nshards, size, SHARD_TOTAL, cap)
+        got = kmer_cuda.route_cuda(*args)
+        want = sketch_ops.route_plain(*args)
+        err = max(err, _route_err(got, want, cap, 'kt_route {:,} k-mers to '
+                                  '{} shards'.format(h1.numel(), nshards)))
+        if nshards != SHARDS:
+            continue
+        _, ms = _timed(kmer_cuda.route_cuda, *args, reps=20, spin=True)
+        _, plain_ms = _timed(sketch_ops.route_plain, *args, reps=3)
+        filled = int(want[1].clamp(max=cap).sum())
+        fill_bytes = 4 * SHARDS * (cap + 1) * 4
+        times[nrows] = (h1.numel(), cap, ms, plain_ms, filled) + \
+            _route_bound(h1.numel(), 4, SHARDS, filled) + \
+            _bound(h1.numel() * 9 + fill_bytes, 0)[:1]
         fill = int(got[1].max()) / cap
     small = 4096
-    tight = kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss, SHARD_TOTAL,
-                                 small)
-    err = max(err, _max_diff(tight[1], want[1], 'kt_route overflow pops'),
-              _max_diff((tight[0] < ss).sum(dim=2),
-                        torch.full((4, SHARDS), small, dtype=torch.int64,
-                                   device=device), 'kt_route full bins'))
-    n, cap, ms, plain_ms, nbytes, bound_ms, bound_by = times[32768 // SHARDS]
+    want = sketch_ops.route_plain(h1, h2, valid, 4, 8, size, SHARD_TOTAL,
+                                  small)
+    if int(want[1].max()) <= small:
+        raise AssertionError('kt_route: the small capacity did not overflow')
+    err = max(err, _route_err(
+        kmer_cuda.route_cuda(h1, h2, valid, 4, 8, size, SHARD_TOTAL, small),
+        want, small, 'kt_route overflowing'))
+    n, cap, ms, plain_ms, filled, bound_ms, bound_by, _ = \
+        times[32768 // SHARDS]
     out['route'] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=None,
                         shape='{:,} hashed k-mers x 4 tables to {} shards of '
                         '{:,} buckets, capacity {:,}'.format(n, SHARDS, ss,
                                                             cap))
-    print('[smoke] kt_route: identical to plain (populations; bins sorted; '
-          'an overflowing batch keeps exact populations and full bins); {}'
-          .format('; '.join(
+    print('[smoke] kt_route: identical to plain, slot by slot (populations '
+          'and every bin\'s filled prefix, unsorted: 4 and 8 shards, and '
+          'overflowing bins at capacity {:,}); {}'.format(small, '; '.join(
               '{:,} k-mers (capacity {:,}): kernel {:.4f} ms ({:.1f} GB/s of '
-              '{:,} bytes), plain {:.3f} ms, bound {:.4f} ms by {}'.format(
-                  t[0], t[1], t[2], t[4] / t[2] / 1e6, t[4], t[3], t[5],
-                  t[6]) for t in times.values())), flush=True)
+              '{:,} bytes), plain {:.3f} ms, bound {:.4f} ms by {} ({:.4f} '
+              'ms with a sentinel fill of the whole send buffer)'.format(
+                  t[0], t[1], t[2],
+                  (9 * t[0] + 4 * (t[4] + 4 * SHARDS)) / t[2] / 1e6,
+                  9 * t[0] + 4 * (t[4] + 4 * SHARDS), t[3], t[5], t[6],
+                  t[7]) for t in times.values())), flush=True)
     print('[smoke] kt_route: the fullest bin of the whole batch holds {:.3f} '
           'of its capacity (1.25x the expected population)'.format(fill),
           flush=True)
-    del h1, h2, valid, codes, got, want, tight
+    del h1, h2, valid, codes, got, want
     out['K3 routed'] = _routed_scatter_add_check(device, rng, ss)
 
     # K2 with a range: the screen's launch on one shard of a (1, 4) mesh,
@@ -2584,7 +2645,7 @@ def phase_sharded_align(device, rows):
 
 
 # the kernels the sharded phase's main path must launch
-SHARDED_PATH_KERNELS = ('kmer_hashes', 'route', 'scatter_add',
+SHARDED_PATH_KERNELS = ('kmer_hashes', 'route', 'scatter_add_parts',
                         'gather_counts_range', 'consume_range')
 
 
@@ -2714,13 +2775,16 @@ def phase_sharded(device, workdir, reads, memory='500M'):
         if not torch.equal(forced.tables[0][s], plain.tables[0][s]):
             raise AssertionError('overflow: shard {} differs'.format(s))
     del forced, plain
-    a2a = _all_to_all_ms(mesh14, _capacity(32768, 160, SHARDS))
+    cap = _capacity(32768, 160, SHARDS)
+    a2a = _all_to_all_ms(mesh14, cap)
     print('[smoke] sharded: all_to_all of one count batch\'s bins (4 x {} x '
-          '{:,} int32 a device, {:.1f} MB in all) over {}: {}'.format(
-              SHARDS, _capacity(32768, 160, SHARDS),
-              16 * SHARDS * _capacity(32768, 160, SHARDS) * 4 / 1e6,
-              ', '.join(str(d) for d in mesh14.devices[0]), _spread(a2a)),
-          flush=True)
+          '{:,} int32 a device, {:.1f} MB in all) over {}: parts (the '
+          'routed consume\'s, with the populations) {}, {:,} bytes moved; '
+          'stacked {}, {:,} bytes moved'.format(
+              SHARDS, cap, 16 * SHARDS * cap * 4 / 1e6,
+              ', '.join(str(d) for d in mesh14.devices[0]),
+              _spread(a2a['parts'][0]), a2a['parts'][1],
+              _spread(a2a['stacked'][0]), a2a['stacked'][1]), flush=True)
     print('[smoke] sharded: {}; batches {}; the forced overflow (capacity '
           '1,024) re-ran down the replicate path, tables equal; the routed '
           'and masked counts == the unsharded and workflow tables, the '
@@ -2784,38 +2848,50 @@ extern "C" int kt_parent_traceback(const void* tlens, const void* qlens,
 '''
 
 
-def _parent_libs(parent, builddir):
+def _parent_libs(parent, builddir, align=True):
     """The older tree's ``csrc/align.cu`` and ``csrc/kmer.cu`` built apart
     and bound with the signatures they had: a block per pair with the
     wavefront in shared memory and one direction byte per cell in row-major
     order (its DP and traceback kernels reached through a shim appended to
-    the source), and ``kt_scatter_add`` over given indices."""
+    the source), ``kt_scatter_add`` over a ``[T, N]`` index tensor, and
+    ``kt_route`` into a send buffer its caller fills with the sentinel and
+    populations it zeroes (slots in the order of shared-memory atomics).
+    Without ``align`` only the kmer library is built (the align one is
+    None)."""
     import ctypes
     from kevlar_tpu_torch import native
     csrc = os.path.join(parent, 'kevlar_tpu_torch', 'csrc')
-    shimmed = os.path.join(builddir, 'align_parent.cu')
-    with open(os.path.join(csrc, 'align.cu')) as fh, \
-            open(shimmed, 'w') as out:
-        out.write(fh.read() + _PARENT_ALIGN_SHIM)
+    sources = [('kmer', os.path.join(csrc, 'kmer.cu'))]
+    if align:
+        shimmed = os.path.join(builddir, 'align_parent.cu')
+        with open(os.path.join(csrc, 'align.cu')) as fh, \
+                open(shimmed, 'w') as out:
+            out.write(fh.read() + _PARENT_ALIGN_SHIM)
+        sources.insert(0, ('align', shimmed))
     libs = []
-    for name, source in (('align', shimmed),
-                         ('kmer', os.path.join(csrc, 'kmer.cu'))):
+    for name, source in sources:
         lib = os.path.join(builddir, 'libkevlar_{}_parent.so'.format(name))
         subprocess.run(
             [native.nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
              '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o',
              lib, source], check=True)
         libs.append(ctypes.CDLL(lib))
-    align, kmer = libs
+    align, kmer = libs if align else [None] + libs
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    kmer.kt_scatter_add.restype = ci
+    kmer.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
+    u32 = ctypes.c_uint32
+    kmer.kt_route.restype = ci
+    kmer.kt_route.argtypes = [vp, vp, vp, cl, cl, u32, cl, u32, ci, ci, cl,
+                              vp, vp, vp]
+    if align is None:
+        return align, kmer
     align.kt_parent_dp.restype = ci
     align.kt_parent_dp.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
                                    vp, ci, ci, ci, ci, ci, vp]
     align.kt_parent_traceback.restype = ci
     align.kt_parent_traceback.argtypes = [vp, vp, ci, vp, vp, vp, ci, vp, vp,
                                           vp]
-    kmer.kt_scatter_add.restype = ci
-    kmer.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
     return align, kmer
 
 
@@ -2986,6 +3062,163 @@ def compare_consume(old, device, reps=30):
           flush=True)
 
 
+def _route_sorted(send, pop, sentinel):
+    """``send`` with every slot past its bin's population set to
+    ``sentinel``, each bin sorted: the older ``kt_route``'s slot order is
+    its own."""
+    import torch
+    slots = torch.arange(send.shape[2], device=send.device)
+    outside = slots[None, None, :] >= pop.to(torch.int64)[:, :, None]
+    return torch.where(outside, sentinel, send).sort(dim=2).values
+
+
+def compare_routed(old, device, reps=30):
+    """The routed consume's two kernels of the older tree and of this one
+    at the sharded phase's shapes (a (1, 4) mesh over a 500M table), in
+    turns (old, new, new, old) by CUDA events behind the spin kernel:
+    ``kt_route`` on one device's share of a count batch and on a whole
+    batch (the older call: the sentinel fill, the zeroed populations and
+    its kernel; also its kernel with the zeroing alone); and the owner of
+    shard 0's add, the older ``kt_scatter_add`` over the stacked,
+    sentinel-filled bins against this tree's over the parts where they
+    lie, each also with its all_to_all.  Results must agree: the same
+    populations and bins (sorted), the same accumulator."""
+    import torch
+    from kevlar_tpu_torch.ops import kmer_cuda
+    from kevlar_tpu_torch.parallel import collectives
+    rng = np.random.default_rng(SEED + 17)
+    ss = SHARD_TOTAL // SHARDS + 1
+    stream = torch.cuda.current_stream().cuda_stream
+    magic, shard_magic = (kmer_cuda.mod_magic(x) for x in (SHARD_TOTAL, ss))
+    sends = []
+    for nrows in [32768 // SHARDS] * SHARDS + [32768]:
+        codes = torch.from_numpy(_read_bases(rng, nrows, 160, 150)).to(
+            device)
+        h1, h2, valid = (x.reshape(-1) for x in
+                         kmer_cuda.kmer_hashes_cuda(codes, KSIZE))
+        n = h1.numel()
+        cap = _capacity(nrows * SHARDS, 160, SHARDS)
+        send = torch.empty((4, SHARDS, cap), dtype=torch.int32,
+                           device=device)
+        pop = torch.empty((4, SHARDS), dtype=torch.int32, device=device)
+
+        def old_kernel():
+            pop.zero_()
+            if old.kt_route(h1.data_ptr(), h2.data_ptr(), valid.data_ptr(),
+                            n, SHARD_TOTAL, magic, ss, shard_magic, 4,
+                            SHARDS, cap, send.data_ptr(), pop.data_ptr(),
+                            stream):
+                raise RuntimeError('parent kt_route failed')
+
+        def old_call():
+            send.fill_(ss)
+            old_kernel()
+
+        def new_call():
+            return kmer_cuda.route_cuda(h1, h2, valid, 4, SHARDS, ss,
+                                        SHARD_TOTAL, cap)
+
+        old_call()
+        got = new_call()
+        _max_diff(got[1], pop, 'kt_route new vs old populations')
+        _max_diff(_route_sorted(got[0], got[1], ss), send.sort(dim=2).values,
+                  'kt_route new vs old bins (sorted)')
+        if nrows < 32768:
+            sends.append((send.clone(), got))
+            if len(sends) > 1:      # the other devices' shares: not timed
+                continue
+        times = [_launch_times(fn, reps) for fn in (
+            old_call, old_kernel, new_call, new_call, old_kernel, old_call)]
+        print('[compare] kt_route, {:,} k-mers x 4 tables to {} shards, '
+              'capacity {:,}: old (fill + kernel) {}; old kernel alone {}; '
+              'new {}'.format(n, SHARDS, cap, _spread(times[0] + times[5]),
+                              _spread(times[1] + times[4]),
+                              _spread(times[2] + times[3])), flush=True)
+        del codes, h1, h2, valid, send, pop, got
+
+    mesh = _mesh(device, 1, SHARDS)
+    old_send = [[x[0] for x in sends]]
+    new_send = [[x[1][0] for x in sends]]
+    new_pop = [[x[1][1] for x in sends]]
+    recv = collectives.all_to_all(mesh, old_send)[0][0].reshape(4, -1)
+    parts = collectives.all_to_all_parts(mesh, new_send)[0][0]
+    pops = collectives.all_to_all_parts(mesh, new_pop)[0][0]
+    acc = torch.zeros((4, ss), dtype=torch.int32, device=device)
+    want = acc.clone()
+    if old.kt_scatter_add(want.data_ptr(), ss, recv.data_ptr(), 4,
+                          recv.shape[1], stream):
+        raise RuntimeError('parent kt_scatter_add failed')
+    _max_diff(kmer_cuda.scatter_add_parts_cuda(acc.clone(), parts, pops),
+              want, 'kt_scatter_add new (parts) vs old (stacked)')
+    del want
+
+    def old_scatter():
+        if old.kt_scatter_add(acc.data_ptr(), ss, recv.data_ptr(), 4,
+                              recv.shape[1], stream):
+            raise RuntimeError('parent kt_scatter_add failed')
+
+    def new_scatter():
+        kmer_cuda.scatter_add_parts_cuda(acc, parts, pops)
+
+    def old_path():
+        stacked = collectives.all_to_all(mesh, old_send)[0][0]
+        if old.kt_scatter_add(acc.data_ptr(), ss, stacked.data_ptr(), 4,
+                              stacked.shape[1] * stacked.shape[2], stream):
+            raise RuntimeError('parent kt_scatter_add failed')
+
+    def new_path():
+        kmer_cuda.scatter_add_parts_cuda(
+            acc, collectives.all_to_all_parts(mesh, new_send)[0][0],
+            collectives.all_to_all_parts(mesh, new_pop)[0][0])
+
+    times = [_launch_times(fn, reps) for fn in (
+        old_scatter, old_path, new_scatter, new_path, new_path, new_scatter,
+        old_path, old_scatter)]
+    nkept = sum(int(p.clamp(max=recv.shape[1] // SHARDS).sum())
+                for p in pops)
+    print('[compare] kt_scatter_add on the owner\'s received bins ({:,} '
+          'updates of 4 x {:,} slots into 4 x {:,} int32): old kernel '
+          '(stacked bins, sentinels read) {}; new kernel (parts, filled '
+          'prefixes) {}; with the all_to_all: old (stack + kernel) {}, new '
+          '(parts + kernel) {}'.format(
+              nkept, recv.shape[1], ss, _spread(times[0] + times[7]),
+              _spread(times[2] + times[5]), _spread(times[1] + times[6]),
+              _spread(times[3] + times[4])), flush=True)
+
+
+_ROUTED_COUNT = r"""
+import hashlib, sys, time
+import torch
+from kevlar_tpu_torch import count
+from kevlar_tpu_torch.cli import memory_setting
+from kevlar_tpu_torch.parallel import make_mesh
+small, fastq, ksize = sys.argv[1], sys.argv[2], int(sys.argv[3])
+mesh = make_mesh(1, 4, devices=['cuda:0'] * 4)
+count.load_sample_seqfile([small], ksize, memory_setting('8M'), maxfpr=1.0,
+                          mesh=mesh)
+torch.cuda.synchronize()
+t0 = time.time()
+sketch = count.load_sample_seqfile([fastq], ksize, memory_setting('500M'),
+                                   maxfpr=0.6, mesh=mesh)
+torch.cuda.synchronize()
+wall = time.time() - t0
+print(wall, sketch.batches['routed'],
+      hashlib.sha256(sketch._host().tobytes()).hexdigest())
+"""
+
+
+def _routed_count(tree, small, fastq):
+    """The helium proband counted on a (1, 4) mesh over this card (the
+    routed consume) by the checkout ``tree``, in a process of its own after
+    a small warm-up count: (wall in seconds, routed batches, a digest of
+    the tables)."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _ROUTED_COUNT, small, fastq, str(KSIZE)],
+        cwd=tree, check=True, capture_output=True, text=True)
+    wall, routed, digest = proc.stdout.split()[-3:]
+    return float(wall), int(routed), digest
+
+
 def _cli_count(tree, argv, logpath):
     """``python -m kevlar_tpu_torch -l logpath count argv`` in a process
     of its own, from the checkout ``tree``; returns (the stage's own
@@ -3002,7 +3235,8 @@ def _cli_count(tree, argv, logpath):
 def compare_counts(parent, device, workdir):
     """The helium proband's masked count through the CLI of the older tree
     and of this one, each run a process of its own, in the order parent,
-    change, change, parent; then the producer's share in both."""
+    change, change, parent; then its routed count on a (1, 4) mesh over
+    the card in the same order; then the producer's share in both."""
     here = os.path.dirname(os.path.abspath(__file__))
     refr, reads, _ = make_trio_case(workdir)
     base = ['-k', str(KSIZE), '--device', device]
@@ -3035,6 +3269,18 @@ def compare_counts(parent, device, workdir):
         raise AssertionError('the trees\' proband tables differ')
     print('[compare] the four runs\' tables are identical', flush=True)
 
+    digests = set()
+    for tree in (parent, here, here, parent):
+        wall, routed, digest = _routed_count(tree, small, reads['proband'])
+        digests.add(digest)
+        print('[compare] routed count proband on (1, 4), {}: {:.2f} s, {} '
+              'batches routed'.format('parent' if tree == parent else
+                                      'change', wall, routed), flush=True)
+    if len(digests) != 1:
+        raise AssertionError('the trees\' routed proband tables differ')
+    print('[compare] the four routed runs\' tables are identical',
+          flush=True)
+
     print('[compare] producer alone over the proband: reader {:.2f} s; '
           'reader into pinned memory + copies {:.2f} s'.format(
               *_producer_split(reads['proband'], device)), flush=True)
@@ -3061,10 +3307,21 @@ def compare_parent(parent):
     parent = os.path.abspath(parent)
     print(_nvidia_smi(), flush=True)
     build_all()
+    here = os.path.dirname(os.path.abspath(__file__))
+    source = os.path.join('kevlar_tpu_torch', 'csrc', 'align.cu')
+    with open(os.path.join(parent, source), 'rb') as fh, \
+            open(os.path.join(here, source), 'rb') as gh:
+        same_b1 = fh.read() == gh.read()
     with tempfile.TemporaryDirectory() as workdir:
-        old_align, old_kmer = _parent_libs(parent, workdir)
+        old_align, old_kmer = _parent_libs(parent, workdir,
+                                           align=not same_b1)
         compare_consume(old_kmer, 'cuda')
-        compare_align(old_align, 'cuda', workdir)
+        compare_routed(old_kmer, 'cuda')
+        if same_b1:
+            print('[compare] B1: csrc/align.cu is the same in both trees, '
+                  'not compared', flush=True)
+        else:
+            compare_align(old_align, 'cuda', workdir)
     with tempfile.TemporaryDirectory() as workdir:
         compare_counts(parent, 'cuda', workdir)
     return 0
@@ -3156,7 +3413,8 @@ def main():
              'the trio\'s device recount)', 'scatter_add',
              'tools/scatter_probe.py:76', trio),
             ('K3 routed', 'scatter_add (the owners\' add of the routed '
-             'sharded consume, on its received bins)', 'scatter_add',
+             'sharded consume, on its received bins where they lie)',
+             'scatter_add_parts',
              'tools/scatter_probe.py:76', shard),
             ('route', 'route (kt_route: bins the bucket indices of hashed '
              'k-mers by owner shard)', 'route',

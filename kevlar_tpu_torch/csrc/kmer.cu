@@ -56,26 +56,43 @@
 //   a table of 8-bit counters and a kept k-mer stores 1 at its buckets (a
 //   presence sketch: plain byte stores of one value, no atomics), where it
 //   can be read by K2 at once, with no accumulator to unpack and pack.
-//   kt_scatter_add takes given indices (what B10 computes): a 2-D grid
-//   gives the table from blockIdx.y, without a division.  kt_consume also
-//   takes a bucket range, as K2 does: the accumulator then holds the
-//   buckets [lo, lo + span) of a hash space of `total` (a shard's), and a
-//   kept k-mer adds only where its bucket falls inside (the replicate
-//   consume of kevlar_tpu/parallel/sharded.py :: _local_consume).
+//   kt_scatter_add takes given indices (what B10 computes) as segments,
+//   each a [T, n] block of int32 indices as it lies in memory (a row
+//   stride a segment), passed by value: the whole of a [T, N] index tensor
+//   (-1 skips), or the S bins an owner of the routed consume receives,
+//   each read only up to its population, where they lie (on one card, in
+//   the senders' send buffers: no stacked copy, no sentinel read).  A
+//   3-D grid gives the table and the segment without a division; a thread
+//   takes one index of its row's filled prefix (eight a thread with
+//   16-byte loads measured no faster at phase 5's shape and slower on the
+//   received bins) and adds with one RED.  kt_consume also takes a bucket
+//   range, as K2 does: the accumulator then holds the buckets [lo, lo +
+//   span) of a hash space of `total` (a shard's), and a kept k-mer adds
+//   only where its bucket falls inside (the replicate consume of
+//   kevlar_tpu/parallel/sharded.py :: _local_consume).
 // kt_route replaces the binning half of
 //   kevlar_tpu/parallel/sharded.py :: _route_consume (an XLA program: a
 //   one-hot block cumsum over [T, K, S] ranks every k-mer's slot in its
 //   owner's bin).  It writes each kept k-mer's local bucket index
 //   (bucket mod shard_size) into bin (table, owner shard) of a [T, S, C]
-//   send buffer the wrapper fills with the sentinel shard_size, and counts
-//   every bin's population, slots beyond C included (the overflow test).
-//   Only T x S counters take every k-mer's slot, so a global atomic a
-//   k-mer would queue on a few L2 addresses: a block counts its k-mers
-//   into shared-memory bins first, reserves each bin's range with one
-//   global atomic, then writes.  The order of the slots inside a bin is
-//   not JAX's (the shared atomics hand them out in no set order); the
-//   owner's adds commute, so the counts are the same.  Bound by bytes: 9
-//   bytes a k-mer read, the send buffer written.
+//   send buffer, at the slot of its rank in the bin in k-mer order (JAX's
+//   order, and route_plain's stable sort's), and counts every bin's
+//   population, slots beyond C included (the overflow test); slots past
+//   the population are not written (nothing reads them).  A stable
+//   partition with no atomic on a slot: each warp takes a run of 256
+//   k-mers, 32 a step with coalesced loads, and ranks a step's lanes per
+//   owner with one ballot an owner bit and __popc(peers & lanemask_lt);
+//   lane s keeps owner s's count, which a k-mer reads by a shuffle.  Up to
+//   32 shards it is one launch: a block of 16 warps sums its warps' counts
+//   and finds its base in every bin by a decoupled look-back over the
+//   earlier blocks, then every k-mer is stored from registers straight to
+//   its slot (a warp's k-mers of a bin land in consecutive slots; staging
+//   them in shared memory first measured slower).  Beyond 32 shards,
+//   __match_any_sync and shared-memory counters, in three launches: count,
+//   scan over the warps, write.  Bound by bytes: 9 bytes a k-mer read, the
+//   filled slots and the populations written; what holds it is the rate
+//   of integer instructions (the bucket, its owner and the ranks, ~40
+//   operations a k-mer and table).
 //
 // Plain C entry points (bound with ctypes): each launches on the given
 // stream and returns the cudaError_t of the launch (0 = success); no entry
@@ -404,16 +421,36 @@ __global__ void gather_counts_any_kernel(
 
 // ------------------------------------------------------------------- K3
 
-// acc[t, idx[t, n]] += 1 where 0 <= idx < C; the table is blockIdx.y.
-__global__ void scatter_add_kernel(int32_t *__restrict__ acc, int64_t C,
-                                   const int32_t *__restrict__ idx,
-                                   int64_t n) {
-    int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= n) return;
-    int64_t t = blockIdx.y;
-    int32_t j = idx[t * n + g];
-    if (j < 0 || j >= C) return;
-    atomicAdd(acc + t * C + j, 1);       // result unused: a RED
+constexpr int kMaxSegs = 64;     // segments one scatter launch takes
+
+// A [ntables, n] block of bucket indices as it lies in memory: table t's
+// row starts at idx + t * stride.  Where pop is not null the row holds
+// only its first min(pop[t * pop_stride], n) indices (a received bin's
+// filled prefix); the rest is never added.
+struct ScatterSeg {
+    const int32_t *idx;
+    const int32_t *pop;
+    int64_t stride, pop_stride, n;
+};
+
+struct ScatterArgs {
+    int32_t *acc;             // [ntables, span]
+    int64_t span;
+    ScatterSeg s[kMaxSegs];
+};
+
+// acc[t, j] += 1 for every index j in [0, span) of row t of every segment;
+// any other index (-1 by convention) is skipped.  blockIdx.y is the table,
+// blockIdx.z the segment; a thread takes one index, inside its row's
+// filled prefix only, and adds with a RED (atomicAdd, result unused).
+__global__ void scatter_add_kernel(const __grid_constant__ ScatterArgs a) {
+    const ScatterSeg &sg = a.s[blockIdx.z];
+    const int t = blockIdx.y;
+    const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= sg.n) return;
+    if (sg.pop && g >= __ldg(sg.pop + t * sg.pop_stride)) return;
+    const uint32_t j = (uint32_t)__ldg(sg.idx + t * sg.stride + g);
+    if (j < (uint32_t)a.span) atomicAdd(a.acc + t * a.span + j, 1);
 }
 
 // what a kept k-mer does, and whether the kept k-mers are counted
@@ -553,19 +590,31 @@ int launch_consume(const ConsumeArgs &a, bool vec, cudaStream_t st) {
 
 // -------------------------------------------------------------- kt_route
 
-constexpr int kRoutePer = 4;          // k-mers a thread
-constexpr int kRouteMaxTables = 16;
-constexpr int kRouteMaxBins = 4096;   // tables x shards
+constexpr int kRouteMaxBins = 4096;        // tables x shards
+constexpr int kRouteSteps = 8;             // 32-k-mer steps of a round
+constexpr int kRouteRound = 32 * kRouteSteps;
+constexpr int kRouteWarps = 16;            // warps a block, at most
+constexpr int kRouteLaneShards = 32;       // more shards: __match_any_sync
+constexpr int kRouteBinsPerRound = 64;     // a warp takes a round per 64 bins
+constexpr int kRouteScanThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct RouteArgs {
     const int32_t *h1, *h2;   // [n], uint32 bits
     const uint8_t *valid;     // [n]
     int64_t n;
     int32_t *send;            // [ntables, nshards, capacity]
-    int32_t *pop;             // [ntables, nshards], += each bin's k-mers
+    int32_t *pop;             // [ntables, nshards]
+    int32_t *counts;          // [ntables * nshards, nwarps]: each warp's
+                              // k-mers in each bin, then (scanned) its base
+    unsigned long long *status;   // [nblocks, ntables * nshards], zeroed
+    unsigned *ticket;             // the blocks' order of start, zeroed
+    int64_t nwarps;           // warps over the k-mers, rounds k-mer runs each
+    int32_t rounds;
     uint32_t total, magic;    // the hash space and mod_by's magic
     uint32_t shard_size, shard_magic;
     int32_t ntables, nshards;
+    int32_t owner_bits;       // bits of an owner (nshards <= kRouteLaneShards)
     int64_t capacity;
 };
 
@@ -583,61 +632,320 @@ __device__ __forceinline__ uint32_t divmod_by(uint32_t x, uint32_t d,
     return q;
 }
 
-// A block takes kRoutePer x blockDim.x consecutive k-mers, thread i the
-// k-mers i, i + blockDim.x, ... (coalesced loads).  T > 0 unrolls the
-// tables; T == 0 loops over a.ntables (at most kRouteMaxTables).
-template <int T>
-__global__ void route_kernel(const __grid_constant__ RouteArgs a) {
-    extern __shared__ unsigned s_bins[];   // counts, then each bin's base
-    const int nbins = a.ntables * a.nshards;
-    unsigned *s_count = s_bins, *s_base = s_bins + nbins;
-    for (int j = threadIdx.x; j < nbins; j += blockDim.x) s_count[j] = 0u;
-    __syncthreads();
+__device__ __forceinline__ int32_t warp_inclusive_scan(int32_t x) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        int32_t y = __shfl_up_sync(kFull, x, d);
+        if (lane >= d) x += y;
+    }
+    return x;
+}
 
-    constexpr int TT = T > 0 ? T : kRouteMaxTables;
-    const int ntab = T > 0 ? T : a.ntables;
-    uint32_t bin[kRoutePer][TT], rank[kRoutePer][TT], lidx[kRoutePer][TT];
-    const int64_t g0 = (int64_t)blockIdx.x * blockDim.x * kRoutePer +
-                       threadIdx.x;
+// One round of a warp's k-mers: lane l holds k-mer base + 32 k + l of
+// every step k (each step's loads coalesced, all of them in flight
+// together); bit k of `valid` says whether that k-mer is kept.
+struct RouteRound {
+    uint32_t a[kRouteSteps], b[kRouteSteps];
+    uint32_t valid;
+};
+
+__device__ __forceinline__ void route_load(const RouteArgs &r, int64_t base,
+                                           RouteRound &in) {
+    const int lane = threadIdx.x & 31;
+    in.valid = 0;
 #pragma unroll
-    for (int k = 0; k < kRoutePer; ++k) {
-        int64_t g = g0 + (int64_t)k * blockDim.x;
-        bool keep = g < a.n && __ldg(a.valid + g) != 0;
-        uint32_t x = keep ? (uint32_t)__ldg(a.h1 + g) : 0u;
-        uint32_t y = keep ? (uint32_t)__ldg(a.h2 + g) : 0u;
+    for (int k = 0; k < kRouteSteps; ++k) {
+        int64_t g = base + k * 32 + lane;
+        bool ok = g < r.n;
+        in.a[k] = ok ? (uint32_t)__ldg(r.h1 + g) : 0u;
+        in.b[k] = ok ? (uint32_t)__ldg(r.h2 + g) : 0u;
+        in.valid |= (ok && __ldg(r.valid + g) != 0) ? 1u << k : 0u;
+    }
+}
+
+// The owner shard of step k's k-mer in table t (nshards where it is not
+// kept) and its bucket local to that shard.
+__device__ __forceinline__ uint32_t route_owner(const RouteArgs &r, int t,
+                                                const RouteRound &in, int k,
+                                                uint32_t *lidx) {
+    *lidx = 0;
+    if (!((in.valid >> k) & 1u)) return (uint32_t)r.nshards;
+    uint32_t g = mod_by(in.a[k] + (uint32_t)t * in.b[k], r.total, r.magic);
+    return divmod_by(g, r.shard_size, r.shard_magic, lidx);
+}
+
+// Up to kRouteLaneShards shards, lane s keeps the counts of owner s.  One
+// ballot an owner bit gives both masks of a step: the lanes whose kept
+// k-mer has this lane's owner (`peers`, kept = this step's ballot of the
+// kept k-mers) and, for lane s, the lanes whose kept k-mer is owned by s
+// (`mine`).
+__device__ __forceinline__ void route_ballots(uint32_t owner, unsigned kept,
+                                              int bits, unsigned *peers,
+                                              unsigned *mine) {
+    const unsigned lane = threadIdx.x & 31;
+    unsigned p = kept, m = kept;
 #pragma unroll
-        for (int t = 0; t < TT; ++t) {
-            bin[k][t] = 0xffffffffu;
-            if (t < ntab && keep) {
-                uint32_t gidx = mod_by(x + (uint32_t)t * y, a.total, a.magic);
-                uint32_t owner = divmod_by(gidx, a.shard_size, a.shard_magic,
-                                           &lidx[k][t]);
-                bin[k][t] = (uint32_t)t * a.nshards + owner;
-                rank[k][t] = atomicAdd(s_count + bin[k][t], 1u);
+    for (int i = 0; i < 5; ++i) {
+        if (i < bits) {             // uniform over the warp
+            unsigned b = __ballot_sync(kFull, (owner >> i) & 1u);
+            p &= ((owner >> i) & 1u) ? b : ~b;
+            m &= ((lane >> i) & 1u) ? b : ~b;
+        }
+    }
+    *peers = p;
+    *mine = m;
+}
+
+__device__ __forceinline__ void route_kept(const RouteRound &in,
+                                           unsigned kept[kRouteSteps]) {
+#pragma unroll
+    for (int k = 0; k < kRouteSteps; ++k) {
+        kept[k] = __ballot_sync(kFull, (in.valid >> k) & 1u);
+    }
+}
+
+constexpr unsigned long long kFlagCount = 1ull << 32;
+constexpr unsigned long long kFlagPrefix = 2ull << 32;
+
+// Block blk's base in a bin, by one warp: publish the block's count, then
+// read the earlier blocks' words 32 at a time (lane l the l-th nearest,
+// waiting for it to be published) until one holds an inclusive prefix:
+// the base is that prefix plus the nearer blocks' counts.  Then publish
+// the block's own inclusive prefix.
+__device__ __forceinline__ int32_t route_lookback(
+        unsigned long long *status, int64_t blk, int nbins, int bin,
+        int32_t count) {
+    const int lane = threadIdx.x & 31;
+    unsigned long long *mine = status + blk * nbins + bin;
+    if (blk == 0) {
+        if (lane == 0) atomicExch(mine, kFlagPrefix | (uint32_t)count);
+        return 0;
+    }
+    if (lane == 0) atomicExch(mine, kFlagCount | (uint32_t)count);
+    int32_t prefix = 0;
+    for (int64_t top = blk - 1;; top -= 32) {
+        const int64_t p = top - lane;
+        unsigned long long v = kFlagPrefix;      // before block 0: prefix 0
+        if (p >= 0) {
+            const volatile unsigned long long *at = status + p * nbins + bin;
+            do {
+                v = *at;
+            } while ((v >> 32) == 0);
+        }
+        const unsigned done =
+            __ballot_sync(kFull, (v >> 32) == (kFlagPrefix >> 32));
+        int32_t x = (int32_t)(uint32_t)v;
+        if (done) {
+            x = lane <= __ffs(done) - 1 ? x : 0;
+            prefix += __reduce_add_sync(kFull, x);
+            break;
+        }
+        prefix += __reduce_add_sync(kFull, x);
+    }
+    if (lane == 0) {
+        atomicExch(mine, kFlagPrefix | (uint32_t)(prefix + count));
+    }
+    return prefix;
+}
+
+// Up to kRouteLaneShards shards, one launch: a block takes 16 warps' runs
+// of 256 consecutive k-mers (a block index from a ticket, so that every
+// block it waits on has started).  A table at a time, each warp ranks its
+// k-mers and keeps, in registers, each k-mer's local bucket and its owner
+// with its offset among the warp's k-mers of the bin (lane s counts owner
+// s's k-mers: the count so far read by a shuffle, plus the lower peers);
+// the block turns the warps' counts into their bases in the block and
+// finds its own base in each bin by a decoupled look-back over the earlier
+// blocks, a warp a bin, 32 blocks a step (each block publishes its count,
+// then its inclusive prefix, as flag and value in one 64-bit word); then
+// every k-mer is stored at its slot, a warp's k-mers of a bin in
+// consecutive slots.  The last block writes the populations.  A table at
+// a time and at most 64 registers keep 2 blocks of 16 warps on an SM,
+// whose compute hides each other's look-back.
+__global__ void __launch_bounds__(kRouteWarps * 32, 2)
+route_lanes_kernel(const __grid_constant__ RouteArgs r) {
+    __shared__ int32_t s_warp[kRouteWarps][kRouteLaneShards];
+    __shared__ int32_t s_block[kRouteLaneShards];
+    __shared__ int64_t s_blk;
+    if (threadIdx.x == 0) s_blk = atomicAdd(r.ticket, 1u);
+    __syncthreads();
+    const int64_t blk = s_blk;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int S = r.nshards, nbins = r.ntables * r.nshards;
+    const unsigned lower = (1u << lane) - 1u;
+    RouteRound in;
+    route_load(r, (blk * kRouteWarps + warp) * kRouteRound, in);
+    unsigned kept[kRouteSteps];
+    route_kept(in, kept);
+    for (int t = 0; t < r.ntables; ++t) {
+        uint32_t lidx[kRouteSteps];
+        uint32_t at[kRouteSteps];        // owner << 16 | offset in the warp
+        int32_t before = 0;              // lane s: owner s's k-mers so far
+#pragma unroll
+        for (int k = 0; k < kRouteSteps; ++k) {
+            uint32_t owner = route_owner(r, t, in, k, &lidx[k]);
+            unsigned peers, mine;
+            route_ballots(owner, kept[k], r.owner_bits, &peers, &mine);
+            at[k] = owner << 16 |
+                (uint32_t)(__shfl_sync(kFull, before, owner & 31u) +
+                           __popc(peers & lower));
+            before += __popc(mine);
+        }
+        if (lane < S) s_warp[warp][lane] = before;
+        __syncthreads();
+        for (int s = warp; s < S; s += kRouteWarps) {
+            // the warps' counts of owner s: their bases in the block, its sum
+            const int32_t c = lane < kRouteWarps ? s_warp[lane][s] : 0;
+            const int32_t incl = warp_inclusive_scan(c);
+            const int32_t count = __shfl_sync(kFull, incl, 31);
+            if (lane < kRouteWarps) s_warp[lane][s] = incl - c;
+            const int32_t base = route_lookback(r.status, blk, nbins,
+                                                t * S + s, count);
+            if (lane == 0) {
+                s_block[s] = base;
+                if (blk == gridDim.x - 1) r.pop[t * S + s] = base + count;
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kRouteSteps; ++k) {
+            const uint32_t owner = at[k] >> 16;
+            if (owner < (uint32_t)S) {
+                const int64_t slot = (int64_t)s_block[owner] +
+                    s_warp[warp][owner] + (at[k] & 0xffffu);
+                if (slot < r.capacity) {
+                    r.send[(int64_t)(t * S + (int)owner) * r.capacity +
+                           slot] = (int32_t)lidx[k];
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Beyond kRouteLaneShards shards, three launches.  Pass 1: the lanes of an
+// owner find each other with __match_any_sync, and the lowest of them adds
+// their number to the warp's shared-memory counter of the bin; the counts
+// go to r.counts[bin][warp].
+__global__ void route_count_many_kernel(const __grid_constant__ RouteArgs r) {
+    extern __shared__ int32_t s_count[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t gw = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+    if (gw >= r.nwarps) return;              // the whole warp
+    const int S = r.nshards, nbins = r.ntables * r.nshards;
+    int32_t *cnt = s_count + warp * nbins;
+    for (int j = lane; j < nbins; j += 32) cnt[j] = 0;
+    __syncwarp();
+    const unsigned lower = (1u << lane) - 1u;
+    for (int q = 0; q < r.rounds; ++q) {
+        RouteRound in;
+        route_load(r, (gw * r.rounds + q) * kRouteRound, in);
+        for (int t = 0; t < r.ntables; ++t) {
+#pragma unroll
+            for (int k = 0; k < kRouteSteps; ++k) {
+                uint32_t lidx;
+                uint32_t owner = route_owner(r, t, in, k, &lidx);
+                unsigned peers = __match_any_sync(kFull, owner);
+                if (owner < (uint32_t)S && !(peers & lower)) {
+                    cnt[t * S + owner] += __popc(peers);
+                }
+                __syncwarp();
             }
         }
     }
+    for (int j = lane; j < nbins; j += 32) {
+        r.counts[(int64_t)j * r.nwarps + gw] = cnt[j];
+    }
+}
+
+// Pass 2: a block a bin turns the warps' counts into their exclusive
+// prefix sums, in place (the base of each warp's run in the bin), and
+// writes the bin's population.
+__global__ void route_scan_kernel(int32_t *counts, int64_t nwarps,
+                                  int32_t *pop) {
+    __shared__ int32_t warp_base[32];
+    int32_t *col = counts + (int64_t)blockIdx.x * nwarps;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t per = (nwarps + blockDim.x - 1) / blockDim.x;
+    const int64_t lo = threadIdx.x * per;
+    const int64_t hi = lo + per < nwarps ? lo + per : nwarps;
+    int32_t sum = 0;
+    for (int64_t i = lo; i < hi; ++i) sum += col[i];
+    int32_t incl = warp_inclusive_scan(sum);
+    if (lane == 31) warp_base[warp] = incl;
     __syncthreads();
-    // one global atomic a bin and block reserves the block's slots
-    for (int j = threadIdx.x; j < nbins; j += blockDim.x) {
-        unsigned c = s_count[j];
-        s_base[j] = c ? atomicAdd(reinterpret_cast<unsigned *>(a.pop) + j, c)
-                      : 0u;
+    if (warp == 0) {
+        int32_t w = lane < (int)(blockDim.x >> 5) ? warp_base[lane] : 0;
+        warp_base[lane] = warp_inclusive_scan(w) - w;
     }
     __syncthreads();
+    int32_t run = warp_base[warp] + incl - sum;
+    for (int64_t i = lo; i < hi; ++i) {
+        int32_t c = col[i];
+        col[i] = run;
+        run += c;
+    }
+    if (threadIdx.x == blockDim.x - 1) pop[blockIdx.x] = run;
+}
+
+// Pass 3: every warp ranks its run's k-mers again, in k-mer order, and
+// stores each at its slot: the warp's base in the bin (pass 2) plus the
+// earlier rounds plus its offset, the round's earlier k-mers of the bin (a
+// shared-memory counter) and its lower peers.
+__global__ void route_write_many_kernel(const __grid_constant__ RouteArgs r) {
+    extern __shared__ int32_t s_run[];
+    const int nw = blockDim.x >> 5;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t gw = (int64_t)blockIdx.x * nw + warp;
+    if (gw >= r.nwarps) return;              // the whole warp
+    const int S = r.nshards, nbins = r.ntables * r.nshards;
+    int32_t *run = s_run + warp * nbins;     // the next slot of each bin
+    for (int j = lane; j < nbins; j += 32) {
+        run[j] = r.counts[(int64_t)j * r.nwarps + gw];
+    }
+    __syncwarp();
+    const unsigned lower = (1u << lane) - 1u;
+    for (int q = 0; q < r.rounds; ++q) {
+        RouteRound in;
+        route_load(r, (gw * r.rounds + q) * kRouteRound, in);
+        for (int t = 0; t < r.ntables; ++t) {
 #pragma unroll
-    for (int k = 0; k < kRoutePer; ++k) {
-#pragma unroll
-        for (int t = 0; t < TT; ++t) {
-            if (bin[k][t] != 0xffffffffu) {
-                int64_t slot = (int64_t)s_base[bin[k][t]] + rank[k][t];
-                if (slot < a.capacity) {
-                    a.send[(int64_t)bin[k][t] * a.capacity + slot] =
-                        (int32_t)lidx[k][t];
+            for (int k = 0; k < kRouteSteps; ++k) {
+                uint32_t lidx;
+                uint32_t owner = route_owner(r, t, in, k, &lidx);
+                unsigned peers = __match_any_sync(kFull, owner);
+                bool kept = owner < (uint32_t)S;
+                int64_t slot = kept ? (int64_t)run[t * S + owner] +
+                                      __popc(peers & lower) : 0;
+                __syncwarp();
+                if (kept && !(peers & lower)) {
+                    run[t * S + owner] += __popc(peers);
+                }
+                __syncwarp();
+                if (kept && slot < r.capacity) {
+                    r.send[(int64_t)(t * S + (int)owner) * r.capacity +
+                           slot] = (int32_t)lidx;
                 }
             }
         }
     }
+}
+
+// Warps a block of the count and write passes beyond kRouteLaneShards
+// shards, by their shared memory.
+inline int route_warps(int64_t per_warp) {
+    int64_t w = (200 * 1024) / per_warp;
+    return (int)(w < 1 ? 1 : (w > kRouteWarps ? kRouteWarps : w));
+}
+
+inline int64_t route_rounds(int nbins) {
+    return (nbins + kRouteBinsPerRound - 1) / kRouteBinsPerRound;
+}
+
+inline int64_t route_nwarps(int64_t n, int nbins) {
+    int64_t per = route_rounds(nbins) * kRouteRound;
+    return (n + per - 1) / per;
 }
 
 inline unsigned blocks_for(int64_t total) {
@@ -743,16 +1051,38 @@ int kt_gather_counts(const void *args, int nsamples, const void *h1,
     }
 }
 
-// acc [ntables, C] int32 += 1 at idx [ntables, n] int32 (indices outside
-// [0, C) are skipped).
-int kt_scatter_add(void *acc, int64_t C, const void *idx, int64_t ntables,
-                   int64_t n, void *stream) {
-    if (ntables * n == 0) return 0;
-    if (ntables > 65535) return (int)cudaErrorInvalidValue;
-    dim3 grid(blocks_for(n), (unsigned)ntables);
-    scatter_add_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (int32_t *)acc, C, (const int32_t *)idx, n);
-    return (int)cudaGetLastError();
+// acc [ntables, span] int32 += 1 at every index in [0, span) of the
+// segments' rows (any other index is skipped).  `segs` points to nsegs
+// ScatterSeg on the host, each a [ntables, n] block of int32 indices with
+// its row stride and, where pop is not null, its rows' filled lengths
+// (see ScatterSeg).  One launch takes up to kMaxSegs segments; more are
+// launched kMaxSegs at a time.
+int kt_scatter_add(void *acc, int64_t span, int ntables, const void *segs,
+                   int nsegs, void *stream) {
+    if (ntables == 0 || nsegs == 0) return 0;
+    if (ntables < 0 || ntables > 65535 || nsegs < 0 || span < 1 ||
+        span >= (int64_t)1 << 31)
+        return (int)cudaErrorInvalidValue;
+    const ScatterSeg *sg = (const ScatterSeg *)segs;
+    cudaStream_t st = (cudaStream_t)stream;
+    for (int first = 0; first < nsegs; first += kMaxSegs) {
+        int m = nsegs - first < kMaxSegs ? nsegs - first : kMaxSegs;
+        ScatterArgs a;
+        a.acc = (int32_t *)acc;
+        a.span = span;
+        int64_t most = 0;
+        for (int i = 0; i < m; ++i) {
+            a.s[i] = sg[first + i];
+            if (a.s[i].n < 0) return (int)cudaErrorInvalidValue;
+            most = a.s[i].n > most ? a.s[i].n : most;
+        }
+        if (most == 0) continue;
+        dim3 grid(blocks_for(most), (unsigned)ntables, (unsigned)m);
+        scatter_add_kernel<<<grid, kThreads, 0, st>>>(a);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }
 
 // The consume of n hashed k-mers into acc [ntables, span] int32, the
@@ -800,24 +1130,42 @@ int kt_consume(void *acc, int64_t total, uint32_t magic, int64_t lo,
     return launch_consume<kAdd>(a, vec, st);
 }
 
+// The int32 scratch kt_route needs for n k-mers, ntables tables and
+// nshards shards: up to kRouteLaneShards shards the blocks' ticket and
+// look-back words, beyond a count a bin and warp.
+int64_t kt_route_scratch(int64_t n, int ntables, int nshards) {
+    const int nbins = ntables * nshards;
+    if (nshards <= kRouteLaneShards) {
+        int64_t per_block = (int64_t)kRouteWarps * kRouteRound;
+        return 2 + 2 * (int64_t)nbins * ((n + per_block - 1) / per_block);
+    }
+    return (int64_t)nbins * route_nwarps(n, nbins);
+}
+
 // Bins n hashed k-mers by owner shard: for every k-mer with valid != 0 and
 // every table t, bucket g = (h1 + t * h2) mod 2^32 mod total goes to bin
 // (t, g / shard_size) of send [ntables, nshards, capacity] int32, as g mod
-// shard_size, where its slot is below `capacity`; pop [ntables, nshards]
-// int32 gains each bin's k-mers, slots beyond `capacity` included.  The
-// caller fills send with its sentinel and pop with 0; total <= nshards *
-// shard_size.  `magic` and `shard_magic` are floor(2^32 / d) of total and
-// shard_size, as for kt_gather_counts.
+// shard_size, at the slot of its rank among the bin's k-mers in k-mer
+// order, where that slot is below `capacity`; the other slots are not
+// written.  pop [ntables, nshards] int32 gets each bin's k-mers, slots
+// beyond `capacity` included.  `scratch` is kt_route_scratch(n, ntables,
+// nshards) int32 (8-byte aligned); total <= nshards * shard_size.
+// `magic` and `shard_magic` are floor(2^32 / d) of total and shard_size,
+// as for kt_gather_counts.  Up to kRouteLaneShards shards: a memset and
+// one launch; beyond: count, scan and write launches.
 int kt_route(const void *h1, const void *h2, const void *valid, int64_t n,
              int64_t total, uint32_t magic, int64_t shard_size,
              uint32_t shard_magic, int ntables, int nshards,
-             int64_t capacity, void *send, void *pop, void *stream) {
-    if (n == 0 || ntables == 0) return 0;
-    if (total < 1 || total >= (int64_t)1 << 31 || shard_size < 1 ||
+             int64_t capacity, void *send, void *pop, void *scratch,
+             void *stream) {
+    if (ntables == 0) return 0;
+    if (n < 0 || total < 1 || total >= (int64_t)1 << 31 || shard_size < 1 ||
         shard_size >= (int64_t)1 << 31 || nshards < 1 ||
         total > (int64_t)nshards * shard_size || capacity < 1 ||
-        ntables > kRouteMaxTables || ntables * nshards > kRouteMaxBins)
+        ntables < 0 || ntables * nshards > kRouteMaxBins ||
+        n >= (int64_t)1 << 31)
         return (int)cudaErrorInvalidValue;
+    const int nbins = ntables * nshards;
     RouteArgs a;
     a.h1 = (const int32_t *)h1;
     a.h2 = (const int32_t *)h2;
@@ -825,22 +1173,55 @@ int kt_route(const void *h1, const void *h2, const void *valid, int64_t n,
     a.n = n;
     a.send = (int32_t *)send;
     a.pop = (int32_t *)pop;
+    a.counts = (int32_t *)scratch;
+    a.ticket = (unsigned *)scratch;
+    a.status = (unsigned long long *)scratch + 1;
+    a.nwarps = route_nwarps(n, nbins);
+    a.rounds = (int32_t)route_rounds(nbins);
     a.total = (uint32_t)total;
     a.magic = magic;
     a.shard_size = (uint32_t)shard_size;
     a.shard_magic = shard_magic;
     a.ntables = ntables;
     a.nshards = nshards;
+    a.owner_bits = 0;
+    while ((1 << a.owner_bits) < nshards) ++a.owner_bits;
     a.capacity = capacity;
-    int64_t per_block = (int64_t)kThreads * kRoutePer;
-    unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
-    size_t smem = 2 * sizeof(unsigned) * (size_t)(ntables * nshards);
     cudaStream_t st = (cudaStream_t)stream;
-    if (ntables == 4) {
-        route_kernel<4><<<blocks, kThreads, smem, st>>>(a);
-    } else {
-        route_kernel<0><<<blocks, kThreads, smem, st>>>(a);
+    cudaError_t err;
+    if (n == 0) {
+        err = cudaMemsetAsync(pop, 0, sizeof(int32_t) * nbins, st);
+        return (int)err;
     }
+    if (nshards <= kRouteLaneShards) {
+        int64_t per_block = (int64_t)kRouteWarps * kRouteRound;
+        int64_t blocks = (n + per_block - 1) / per_block;
+        err = cudaMemsetAsync(
+            scratch, 0, sizeof(int32_t) * kt_route_scratch(n, ntables, nshards),
+            st);
+        if (err != cudaSuccess) return (int)err;
+        route_lanes_kernel<<<(unsigned)blocks, kRouteWarps * 32, 0, st>>>(a);
+        return (int)cudaGetLastError();
+    }
+    int64_t per_warp = 4 * (int64_t)nbins;
+    int w = route_warps(per_warp);
+    size_t smem = (size_t)w * per_warp;
+    unsigned blocks = (unsigned)((a.nwarps + w - 1) / w);
+    if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(
+            route_count_many_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(
+                route_write_many_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        }
+        if (err != cudaSuccess) return (int)err;
+    }
+    route_count_many_kernel<<<blocks, 32 * w, smem, st>>>(a);
+    route_scan_kernel<<<(unsigned)nbins, kRouteScanThreads, 0, st>>>(
+        a.counts, a.nwarps, a.pop);
+    route_write_many_kernel<<<blocks, 32 * w, smem, st>>>(a);
     return (int)cudaGetLastError();
 }
 

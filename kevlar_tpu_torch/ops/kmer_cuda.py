@@ -22,17 +22,22 @@
   :func:`kevlar_tpu_torch.ops.sketch_ops.consume_hashes_plain`.  The same
   kernel can add the number of k-mers it kept to a device counter, and in
   mark mode (:func:`mark_cuda`, plain version ``mark_hashes_plain``) stores
-  1 into a table of 8-bit counters instead.  :func:`scatter_add_cuda` takes
-  given indices, as B10 does; plain version
-  :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_plain`.
+  1 into a table of 8-bit counters instead.  ``kt_scatter_add`` takes
+  given indices, as B10 does, in two forms: :func:`scatter_add_cuda`, a
+  ``[T, N]`` index tensor (plain version
+  :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_plain`), and
+  :func:`scatter_add_parts_cuda`, the received bins of a routed consume
+  where they lie, each read up to its population (plain version
+  :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_parts_plain`).
 - K2 and :func:`consume_cuda` also take a bucket range: a shard of a
   :class:`kevlar_tpu_torch.parallel.ShardedSketch` holds the buckets
   ``[lo, lo + span)`` of a hash space of ``total``; the gather reads 255
   outside it and the consume adds only inside it.  Their launches count
   under ``gather_counts_range`` and ``consume_range``.
 - :func:`route_cuda` (``kt_route``) — bins every table's bucket index of
-  hashed k-mers by owner shard into a ``[T, S, C]`` send buffer, for the
-  routed consume of a sharded sketch; replaces the binning half of
+  hashed k-mers by owner shard into a ``[T, S, C]`` send buffer, each bin's
+  slots in k-mer order, for the routed consume of a sharded sketch;
+  replaces the binning half of
   ``kevlar_tpu/parallel/sharded.py::_route_consume``.  Plain version:
   :func:`kevlar_tpu_torch.ops.sketch_ops.route_plain`.
 
@@ -57,7 +62,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 # Kernel launches by kernel, for runs that must show the main path went
 # through the kernels.
 launches = {'kmer_hashes': 0, 'gather_counts': 0, 'gather_counts_range': 0,
-            'consume': 0, 'consume_range': 0, 'scatter_add': 0, 'route': 0}
+            'consume': 0, 'consume_range': 0, 'scatter_add': 0,
+            'scatter_add_parts': 0, 'route': 0}
 
 # Sketches one K2 launch serves (``kMaxSamples`` in the source).
 MAX_SAMPLES = 8
@@ -76,6 +82,15 @@ class _GatherSample(ctypes.Structure):
 
 class _GatherArgs(ctypes.Structure):
     _fields_ = [('s', _GatherSample * MAX_SAMPLES)]
+
+
+class _ScatterSeg(ctypes.Structure):
+    """A ``[T, n]`` block of int32 bucket indices for ``kt_scatter_add``:
+    row t at ``idx + t * stride``, holding ``min(pop[t * pop_stride], n)``
+    indices where ``pop`` is not null (``ScatterSeg`` in the source)."""
+    _fields_ = [('idx', ctypes.c_void_p), ('pop', ctypes.c_void_p),
+                ('stride', ctypes.c_int64), ('pop_stride', ctypes.c_int64),
+                ('n', ctypes.c_int64)]
 
 
 def mod_magic(tablesize):
@@ -124,14 +139,16 @@ def _load():
         lib.kt_gather_counts.restype = ci
         lib.kt_gather_counts.argtypes = [vp, ci, vp, vp, cl, vp, vp]
         lib.kt_scatter_add.restype = ci
-        lib.kt_scatter_add.argtypes = [vp, cl, vp, cl, cl, vp]
+        lib.kt_scatter_add.argtypes = [vp, cl, ci, vp, ci, vp]
         u32 = ctypes.c_uint32
         lib.kt_consume.restype = ci
         lib.kt_consume.argtypes = [vp, cl, u32, cl, cl, ci, vp, vp, vp, vp,
                                    cl, u32, u32, ci, ci, ci, vp, vp]
         lib.kt_route.restype = ci
         lib.kt_route.argtypes = [vp, vp, vp, cl, cl, u32, cl, u32, ci, ci,
-                                 cl, vp, vp, vp]
+                                 cl, vp, vp, vp, vp]
+        lib.kt_route_scratch.restype = cl
+        lib.kt_route_scratch.argtypes = [cl, ci, ci]
         lib.kt_kmer_error_string.restype = ctypes.c_char_p
         lib.kt_kmer_error_string.argtypes = [ci]
         _lib = lib
@@ -202,19 +219,37 @@ def gather_counts_cuda(samples, h1, h2):
     return out
 
 
-def scatter_add_cuda(acc, idx):
-    """K3 on checked tensors (see
-    :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add`): adds in place and
-    returns ``acc``."""
+def _launch_scatter(acc, segs, counter):
     lib = _load()
     dev = acc.device
+    array = (_ScatterSeg * len(segs))(*segs)
     with torch.cuda.device(dev):
         err = lib.kt_scatter_add(
-            acc.data_ptr(), acc.shape[1], idx.data_ptr(), idx.shape[0],
-            idx.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+            acc.data_ptr(), acc.shape[1], acc.shape[0], array, len(segs),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, 'kt_scatter_add', err)
-    launches['scatter_add'] += 1
+    launches[counter] += 1
     return acc
+
+
+def scatter_add_cuda(acc, idx):
+    """K3 from a ``[T, N]`` index tensor, on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add`): adds in place and
+    returns ``acc``."""
+    n = idx.shape[1]
+    return _launch_scatter(acc, [_ScatterSeg(idx.data_ptr(), None, n, 0, n)],
+                           'scatter_add')
+
+
+def scatter_add_parts_cuda(acc, parts, pops):
+    """K3 over received bins where they lie, on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.scatter_add_parts`): each part
+    ``[T, C]`` (rows at any stride) is read up to its population in
+    ``pops`` (``[T]`` at any stride); adds in place and returns ``acc``."""
+    return _launch_scatter(acc, [
+        _ScatterSeg(part.data_ptr(), pop.data_ptr(), part.stride(0),
+                    pop.stride(0), part.shape[1])
+        for part, pop in zip(parts, pops)], 'scatter_add_parts')
 
 
 def _launch_consume(target, h1, h2, valid, mcnt, mask_threshold,
@@ -265,19 +300,22 @@ def mark_cuda(tables, h1, h2, valid, mcnt=None, mask_threshold=0,
 def route_cuda(h1, h2, valid, ntables, nshards, shard_size, total, capacity):
     """``kt_route`` on checked tensors (see
     :func:`kevlar_tpu_torch.ops.sketch_ops.route`): returns ``send``
-    [ntables, nshards, capacity] int32 (unfilled slots ``shard_size``) and
-    the bins' populations [ntables, nshards] int32."""
+    [ntables, nshards, capacity] int32, each bin's first ``min(population,
+    capacity)`` slots filled in k-mer order and the others left as they
+    were allocated, and the bins' populations [ntables, nshards] int32."""
     lib = _load()
     dev = h1.device
-    send = torch.full((ntables, nshards, capacity), shard_size,
-                      dtype=torch.int32, device=dev)
-    pop = torch.zeros((ntables, nshards), dtype=torch.int32, device=dev)
+    send = torch.empty((ntables, nshards, capacity), dtype=torch.int32,
+                       device=dev)
+    pop = torch.empty((ntables, nshards), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.kt_route_scratch(h1.numel(), ntables, nshards),
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kt_route(
             h1.data_ptr(), h2.data_ptr(), valid.data_ptr(), h1.numel(),
             total, mod_magic(total), shard_size, mod_magic(shard_size),
             ntables, nshards, capacity, send.data_ptr(), pop.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, 'kt_route', err)
     launches['route'] += 1
     return send, pop

@@ -17,7 +17,9 @@ a card, :func:`consume_hashes_plain` (int64 index arithmetic, then
 :func:`scatter_add_plain`) on the CPU.  :func:`mark_hashes` is the same
 kernel writing 1 into 8-bit tables instead (a presence sketch).
 :func:`scatter_add` is K3's other entry, from given indices, where -1 means
-skip.  The :class:`Accumulator` is bucket-ordered (``[ntables,
+skip; :func:`scatter_add_parts` is the same kernel over the bins an owner
+of a routed consume receives, each read up to its population where it
+lies.  The :class:`Accumulator` is bucket-ordered (``[ntables,
 tablesize]``): the planar layout of the JAX package exists for the TPU's
 tiling and is not carried over.  It lives for one consume (a
 ``consume_seqfile`` call, a ``Sketch.consuming()`` block), unpacked from
@@ -29,13 +31,14 @@ The gather and the consume also work on one range of buckets ``[lo, lo +
 span)`` of a hash space of ``total``, the shard of a
 :class:`kevlar_tpu_torch.parallel.ShardedSketch`: the gather reads 255
 outside it, the consume adds only inside it.  :func:`route` bins hashed
-k-mers by the shard that owns their bucket, for a sharded sketch's routed
-consume.
+k-mers by the shard that owns their bucket, each bin in k-mer order, for a
+sharded sketch's routed consume.
 
 Dispatch: on CUDA tensors :func:`gather_counts_multi`,
-:func:`consume_hashes`, :func:`mark_hashes`, :func:`scatter_add` and
-:func:`route` launch their kernels; on CPU tensors they run the plain
-versions beside them.  No path falls back from one to the other.
+:func:`consume_hashes`, :func:`mark_hashes`, :func:`scatter_add`,
+:func:`scatter_add_parts` and :func:`route` launch their kernels; on CPU
+tensors they run the plain versions beside them.  No path falls back from
+one to the other.
 """
 
 import torch
@@ -219,6 +222,54 @@ def scatter_add_plain(acc, idx):
     return acc
 
 
+def scatter_add_parts(acc, parts, pops):
+    """``acc[t, j] += 1`` for every ``j`` in the filled prefix of row t of
+    every part: ``parts[k]`` [T, C_k] int32 (its rows at any stride, its
+    columns contiguous) holds ``min(pops[k][t], C_k)`` indices in row t,
+    ``pops[k]`` [T] int32 at any stride; the rest of a row is never read.
+    An index outside ``[0, acc.shape[1])`` is skipped.  These are the bins
+    an owner of a routed consume receives, where they lie
+    (:func:`kevlar_tpu_torch.parallel.collectives.all_to_all_parts`), with
+    their populations (:func:`route`).  ``acc`` [T, span] int32 is updated
+    in place and returned.  CUDA tensors launch K3 (``kt_scatter_add``),
+    CPU tensors run :func:`scatter_add_parts_plain`."""
+    if acc.dtype != torch.int32 or acc.dim() != 2 or \
+            not acc.is_contiguous():
+        raise ValueError('acc must be a contiguous 2-D int32 tensor')
+    if len(parts) != len(pops):
+        raise ValueError('{} parts, {} populations'.format(len(parts),
+                                                         len(pops)))
+    for part, pop in zip(parts, pops):
+        if part.dtype != torch.int32 or part.dim() != 2 or \
+                part.shape[0] != acc.shape[0] or \
+                (part.shape[1] > 1 and part.stride(1) != 1):
+            raise ValueError('a part must be a [T, C] int32 tensor with '
+                             'contiguous rows')
+        if pop.dtype != torch.int32 or tuple(pop.shape) != (acc.shape[0],):
+            raise ValueError('a population must be a [T] int32 tensor')
+        if part.device != acc.device or pop.device != acc.device:
+            raise ValueError('a part or population is on another device '
+                             'than acc ({})'.format(acc.device))
+    kind = acc.device.type
+    if kind == 'cuda':
+        return kmer_cuda.scatter_add_parts_cuda(acc, parts, pops)
+    if kind == 'cpu':
+        return scatter_add_parts_plain(acc, parts, pops)
+    raise ValueError('no scatter engine for device ' + str(acc.device))
+
+
+def scatter_add_parts_plain(acc, parts, pops):
+    """Plain PyTorch version of K3 over received bins, on any device: per
+    part and table, ``index_add_`` of its filled prefix."""
+    C = acc.shape[1]
+    for part, pop in zip(parts, pops):
+        for t in range(acc.shape[0]):
+            j = part[t, :max(0, min(int(pop[t]), part.shape[1]))]
+            j = j[(j >= 0) & (j < C)].to(torch.int64)
+            acc[t].index_add_(0, j, torch.ones_like(j, dtype=torch.int32))
+    return acc
+
+
 def _check_consume(target, dtype, h1, h2, valid, mcnt, nkept=None,
                    total=None, lo=0):
     """The checks a consume and a mark share: ``target`` [T, span] of
@@ -349,10 +400,12 @@ def route(h1, h2, valid, ntables, nshards, shard_size, total, capacity):
     k-mer with ``valid != 0`` and every table t, bucket ``g = (h1 + t*h2)
     mod 2^32 mod total`` goes to bin ``(t, g // shard_size)`` as ``g %
     shard_size``.  Returns ``send`` [ntables, nshards, capacity] int32, each
-    bin's first ``min(population, capacity)`` slots filled and the others
-    ``shard_size`` (a bucket no shard holds), and the bins' populations
-    [ntables, nshards] int32, slots beyond ``capacity`` included.  The order
-    of the slots inside a bin is the kernel's own: compare bins sorted.
+    bin's first ``min(population, capacity)`` slots filled with its k-mers
+    in k-mer order (``kevlar_tpu``'s block cumsum order: an overflowing bin
+    keeps its first ``capacity`` k-mers), and the bins' populations
+    [ntables, nshards] int32, slots beyond ``capacity`` included.  The
+    other slots are undefined (the kernel does not write them; the plain
+    version leaves ``shard_size``): read a bin only up to its population.
 
     ``h1``/``h2`` [N] int32 holding uint32 bits, ``valid`` [N] uint8, on one
     device.  CUDA tensors launch ``kt_route``, CPU tensors run
@@ -384,7 +437,8 @@ def route(h1, h2, valid, ntables, nshards, shard_size, total, capacity):
 def route_plain(h1, h2, valid, ntables, nshards, shard_size, total,
                 capacity):
     """Plain PyTorch version of ``kt_route``, on any device: a stable sort
-    by owner gives every kept k-mer its rank in its bin, in k-mer order."""
+    by owner gives every kept k-mer its rank in its bin, in k-mer order;
+    unfilled slots hold ``shard_size``."""
     dev = h1.device
     keep = valid != 0
     a = hashing.to_u32(h1)[keep]

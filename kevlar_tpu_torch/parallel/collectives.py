@@ -15,7 +15,8 @@ reads it (the port launches every kernel on
 copy is a peer copy over NVLink, 450 GB/s each way on an H100; a device
 that appears twice in the mesh copies nothing (``to`` returns the tensor
 itself), which is all one card can show.  Results on one device may be one
-tensor: treat them as read-only.
+tensor, or views of the senders' (:func:`all_to_all_parts`): treat them as
+read-only.
 """
 
 import torch
@@ -59,18 +60,25 @@ def pmax(mesh, values, axis):
     return _reduce(mesh, values, axis, torch.maximum)
 
 
+def all_to_all_parts(mesh, send):
+    """``lax.all_to_all`` over ``'shard'`` (``split_axis=1``), its parts
+    unstacked: ``send[d][s]`` is ``[T, S, ...]``, and the result at ``(d,
+    s)`` is the list over senders ``j`` of ``send[d][j][:, s]`` on device
+    ``(d, s)``.  Where sender and receiver are one device a part is that
+    view of the sender's buffer and no byte moves; between cards it is one
+    copy a part."""
+    n_shard = mesh.shape['shard']
+    return [[[send[d][j][:, s].to(mesh.devices[d][s], non_blocking=True)
+              for j in range(n_shard)] for s in range(n_shard)]
+            for d in range(mesh.shape['data'])]
+
+
 def all_to_all(mesh, send):
     """``lax.all_to_all`` over ``'shard'`` with ``split_axis=1,
     concat_axis=1, tiled=True``: ``send[d][s]`` is ``[T, S, C]``, and the
     result at ``(d, s)`` is ``[T, S, C]`` with ``out[d][s][:, j] =
     send[d][j][:, s]``: every shard gets slice ``s`` of every sender of its
-    data row."""
-    n_shard = mesh.shape['shard']
-    out = [[None] * n_shard for _ in range(mesh.shape['data'])]
-    for d in range(mesh.shape['data']):
-        for s in range(n_shard):
-            dev = mesh.devices[d][s]
-            out[d][s] = torch.stack(
-                [send[d][j][:, s].to(dev, non_blocking=True)
-                 for j in range(n_shard)], dim=1)
-    return out
+    data row, stacked (a copy, on one card too; the routed consume takes
+    :func:`all_to_all_parts` instead)."""
+    return [[torch.stack(parts, dim=1) for parts in row]
+            for row in all_to_all_parts(mesh, send)]

@@ -26,11 +26,14 @@ monotone, so saturating once gives the counts of saturating every batch, as
 
 - routed (default when unmasked): each device hashes its own slice of the
   batch once (K1); ``kt_route`` bins every table's bucket by owner shard
-  into a ``[T, S, C]`` send buffer; if the largest bin population (a
+  into a ``[T, S, C]`` send buffer, each bin's slots in k-mer order and
+  filled only up to its population; if the largest bin population (a
   ``pmax`` over the mesh) fits the capacity ``C``, one ``all_to_all`` over
-  'shard' delivers the bins and each owner adds what it received with
-  ``kt_scatter_add`` (the sentinel ``shard_size`` falls outside its
-  accumulator); otherwise the batch goes down the replicate path, as in
+  'shard' hands each owner its ``S`` received bins and their populations
+  as parts (views of the senders' buffers where they share a device: no
+  stacked copy) and the owner adds each bin's filled prefix with
+  ``kt_scatter_add`` (no slot past a population is read, or written);
+  otherwise the batch goes down the replicate path, as in
   ``kevlar_tpu`` (whose routed program adds first and throws the batch away;
   here the test comes before any add);
 - replicate (``route='replicate'``, and every masked consume): each data
@@ -406,12 +409,14 @@ class ShardedSketch:
         top = collectives.pmax(mesh, top, 'data')
         if int(top[0][0]) > cap:
             return False
-        recv = collectives.all_to_all(
+        parts = collectives.all_to_all_parts(
             mesh, _grid(mesh, lambda d, s: routed[d][s][0]))
+        pops = collectives.all_to_all_parts(
+            mesh, _grid(mesh, lambda d, s: routed[d][s][1]))
         self._acc.make_room(self._windows(codes))
         for d, s in mesh.cells():
-            sketch_ops.scatter_add(self._acc.acc[d][s], recv[d][s].reshape(
-                self.ntables, n_shard * cap))
+            sketch_ops.scatter_add_parts(self._acc.acc[d][s], parts[d][s],
+                                         pops[d][s])
         return True
 
     def _consume_replicate(self, codes, mask, threshold, consume_masked):

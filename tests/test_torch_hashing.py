@@ -397,6 +397,43 @@ def test_scatter_add_skips_out_of_range_and_checks_inputs():
         sketch_ops.scatter_add(acc.to('meta'), idx.to('meta'))
 
 
+@pytest.mark.parametrize('T', [1, 4])
+def test_scatter_add_parts_plain_matches_stacked(T):
+    """The owner's add over its received bins in place (strided views of
+    the senders' send buffers, read up to each bin's population) equals
+    the add over the stacked buffer whose unfilled slots hold the
+    sentinel: empty bins, full and overflowing bins, garbage past the
+    populations."""
+    rng = np.random.default_rng(T)
+    S, C, span = 3, 50, 1000
+    parts, pops, stacked = [], [], []
+    for j in range(S):
+        send = torch.from_numpy(rng.integers(-5, span + 9, (T, S, C)).astype(
+            np.int32))
+        pop = torch.from_numpy(rng.integers(0, C + 20, (T, S)).astype(
+            np.int32))
+        pop[0, 1] = 0 if j else C
+        filled = torch.arange(C) < pop.clamp(max=C)[:, :, None]
+        clean = torch.where(filled, send.clamp(0, span - 1), span)
+        send = torch.where(filled, clean, send)    # garbage past the fill
+        parts.append(send[:, 1])
+        pops.append(pop[:, 1])
+        stacked.append(clean[:, 1])
+    acc = torch.from_numpy(rng.integers(0, 9, (T, span)).astype(np.int32))
+    got = sketch_ops.scatter_add_parts(acc.clone(), parts, pops)
+    want = sketch_ops.scatter_add_plain(
+        acc.clone(), torch.stack(stacked, dim=1).reshape(T, S * C))
+    assert torch.equal(got, want)
+    assert int((got - acc).sum()) == int(sum(p.clamp(max=C).sum()
+                                             for p in pops))
+    with pytest.raises(ValueError):
+        sketch_ops.scatter_add_parts(acc, parts, pops[:-1])
+    with pytest.raises(ValueError):
+        sketch_ops.scatter_add_parts(acc, [p.long() for p in parts], pops)
+    with pytest.raises(ValueError):
+        sketch_ops.scatter_add_parts(acc, [p.t() for p in parts], pops)
+
+
 def test_dispatch_runs_plain_on_cpu_and_refuses_other_devices():
     rng = np.random.default_rng(7)
     codes = torch.from_numpy(_bases(rng, 3, 40))
@@ -478,15 +515,69 @@ def test_gather_kernel_multi_matches_plain_on_card(cuda_device, nsamples):
 
 
 @pytest.mark.cuda
-def test_scatter_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize('form', ['vector', 'scalar', 'unaligned'])
+def test_scatter_kernel_matches_plain_on_card(cuda_device, form):
+    """K3 from a [T, N] index tensor: rows on the 16-byte grid, a count that
+    is no multiple of 4 and a tensor that starts 4 bytes off the grid."""
     rng = np.random.default_rng(11)
-    idx = torch.from_numpy(rng.integers(-4, 1003, (4, 300_000)).astype(
+    n = 300_000 if form == 'vector' else 299_999
+    flat = torch.from_numpy(rng.integers(-4, 1003, 4 * n + 1).astype(
         np.int32)).to(cuda_device)
+    idx = flat[1:].view(4, n) if form == 'unaligned' else \
+        flat[:4 * n].view(4, n)
     acc = torch.from_numpy(rng.integers(0, 9, (4, 1001)).astype(
         np.int32)).to(cuda_device)
-    got = kmer_cuda.scatter_add_cuda(acc.clone(), idx)
+    before = kmer_cuda.launches['scatter_add']
+    got = sketch_ops.scatter_add(acc.clone(), idx)
+    torch.cuda.synchronize()
+    assert kmer_cuda.launches['scatter_add'] == before + 1
     want = sketch_ops.scatter_add_plain(acc.clone(), idx)
     assert torch.equal(got, want)
+
+
+def _received_parts(rng, device, nsenders, T, capacity, offset=0):
+    """Parts as an owner of a routed consume receives them: row s of
+    ``nsenders`` [T, S, capacity] send buffers seen in place (rows at a
+    stride of S * capacity), starting ``offset`` int32 into their storage,
+    with populations [T] at a stride of S: some bins empty, some full or
+    overflowing, the rest in between; slots past a population hold
+    garbage that must not be read."""
+    S = 3
+    parts, pops = [], []
+    for _ in range(nsenders):
+        buf = torch.from_numpy(rng.integers(-7, 2000, T * S * capacity +
+                                            offset).astype(np.int32))
+        send = buf.to(device)[offset:].view(T, S, capacity)
+        pop = torch.from_numpy(rng.integers(0, capacity + 50, (T, S)).astype(
+            np.int32))
+        pop[0, 1] = 0
+        pop[-1, 1] = capacity
+        parts.append(send[:, 1])
+        pops.append(pop.to(device)[:, 1])
+    return parts, pops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nsenders,capacity,offset', [
+    (4, 332_800, 0), (8, 40_000, 0), (3, 9_999, 0), (4, 20_000, 1),
+    (70, 1_000, 0)])
+def test_scatter_parts_kernel_matches_plain_on_card(cuda_device, nsenders,
+                                                    capacity, offset):
+    """K3 over received parts where they lie: strided views, empty, full
+    and overflowing bins, parts off the 16-byte grid, more parts than one
+    launch takes."""
+    rng = np.random.default_rng(nsenders + capacity)
+    parts, pops = _received_parts(rng, cuda_device, nsenders, 4, capacity,
+                                  offset)
+    acc = torch.from_numpy(rng.integers(0, 9, (4, 1999)).astype(
+        np.int32)).to(cuda_device)
+    before = kmer_cuda.launches['scatter_add_parts']
+    got = sketch_ops.scatter_add_parts(acc.clone(), parts, pops)
+    torch.cuda.synchronize()
+    assert kmer_cuda.launches['scatter_add_parts'] == before + 1
+    want = sketch_ops.scatter_add_parts_plain(acc.clone(), parts, pops)
+    assert torch.equal(got, want)
+    assert int((got - acc).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -539,23 +630,29 @@ def _hashes_on(rng, n, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('T,S,total,capacity', [
     (4, 4, 1_000_003, 80_000), (4, 8, 999_999, 40_000),
-    (3, 2, 77_777, 200_000), (4, 4, 1_000_003, 1000)])
+    (3, 2, 77_777, 200_000), (4, 4, 1_000_003, 1000),
+    (2, 16, 999_999, 40_000), (4, 64, 1_000_003, 4_000),
+    (1, 300, 3_000_001, 5_000)])
 def test_route_kernel_matches_plain_on_card(cuda_device, T, S, total,
                                             capacity):
+    """Every bin's filled prefix slot by slot, unsorted, and the
+    populations: ballots (up to 8 shards) and __match_any_sync (16, 64,
+    300 shards; more than 64 bins give a warp several rounds), and
+    overflowing bins, which keep their first k-mers in k-mer order."""
     rng = np.random.default_rng(T * S)
     h1, h2, valid = _hashes_on(rng, 300_001, cuda_device)
     ss = -(-total // S)
     ss += (-ss) % 8
-    got, got_pop = kmer_cuda.route_cuda(h1, h2, valid, T, S, ss, total,
-                                        capacity)
+    before = kmer_cuda.launches['route']
+    got, got_pop = sketch_ops.route(h1, h2, valid, T, S, ss, total, capacity)
+    torch.cuda.synchronize()
+    assert kmer_cuda.launches['route'] == before + 1
     want, want_pop = sketch_ops.route_plain(h1, h2, valid, T, S, ss, total,
                                             capacity)
     assert torch.equal(got_pop, want_pop)
-    if int(want_pop.max()) <= capacity:
-        assert torch.equal(got.sort(dim=2).values, want.sort(dim=2).values)
-    else:   # which k-mers fill an overflowing bin differs; how many does not
-        filled = want_pop.clamp(max=capacity)
-        assert torch.equal((got < ss).sum(dim=2), filled.to(torch.int64))
+    filled = want_pop.clamp(max=capacity).to(torch.int64)
+    inside = torch.arange(capacity, device=cuda_device) < filled[:, :, None]
+    assert torch.equal(got[inside], want[inside])
 
 
 @pytest.mark.cuda

@@ -310,6 +310,56 @@ def test_route_plain_bins_each_bucket_once():
     assert torch.equal(tight, send[:, :, :100])
 
 
+def _block_cumsum_route(h1, h2, valid, T, S, ss, total, capacity, blk=127):
+    """``kevlar_tpu/parallel/sharded.py:_route_consume``'s send buffer and
+    populations, re-derived in numpy: every k-mer's slot in its owner's bin
+    is its rank inside a block of ``blk`` k-mers (a cumsum of the one-hot
+    owner) plus the exclusive sum of the earlier blocks' totals; a slot
+    past the capacity is dropped; unfilled slots hold ``ss``."""
+    a = h1.view(np.uint32).astype(np.int64)
+    b = h2.view(np.uint32).astype(np.int64)
+    K = a.size
+    nblk = -(-K // blk)
+    send = np.full((T, S, capacity), ss, np.int64)
+    pop = np.zeros((T, S), np.int64)
+    for t in range(T):
+        g = ((a + t * b) & 0xFFFFFFFF) % total
+        owner = np.full(nblk * blk, S)
+        owner[:K] = np.where(valid != 0, g // ss, S)
+        onehot = owner.reshape(nblk, blk)[..., None] == np.arange(S)
+        within = np.cumsum(onehot, axis=1)                # [nblk, blk, S]
+        totals = within[:, -1, :]
+        base = np.cumsum(totals, axis=0) - totals         # exclusive
+        ob = np.clip(owner, 0, S - 1).reshape(nblk, blk)
+        w = np.take_along_axis(within, ob[..., None], axis=2)[..., 0]
+        bb = np.take_along_axis(base, ob, axis=1)
+        slot = (bb + w - 1).reshape(-1)[:K]
+        keep = (owner[:K] < S) & (slot < capacity)
+        send[t, owner[:K][keep], slot[keep]] = (g % ss)[keep]
+        pop[t] = totals.sum(axis=0)
+    return send, pop
+
+
+@pytest.mark.parametrize('capacity', [2000, 300])
+def test_route_plain_matches_jax_block_cumsum_order(capacity):
+    """``route_plain``'s bins are in k-mer order: its whole send buffer and
+    its populations equal the block cumsum of ``kevlar_tpu``'s routed
+    consume, slot by slot; at capacity 300 every bin overflows and keeps
+    its first 300 k-mers."""
+    rng = np.random.default_rng(17)
+    n, T, S, ss, total = 5000, 4, 3, 4000, 11_999
+    h = rng.integers(-2**31, 2**31, (2, n), dtype=np.int64).astype(np.int32)
+    valid = (rng.random(n) < 0.8).astype(np.uint8)
+    send, pop = sketch_ops.route_plain(
+        torch.from_numpy(h[0]), torch.from_numpy(h[1]),
+        torch.from_numpy(valid), T, S, ss, total, capacity)
+    want_send, want_pop = _block_cumsum_route(h[0], h[1], valid, T, S, ss,
+                                              total, capacity)
+    np.testing.assert_array_equal(pop.numpy(), want_pop)
+    np.testing.assert_array_equal(send.numpy(), want_send)
+    assert (int(pop.max()) > capacity) == (capacity == 300)
+
+
 def test_range_gather_and_consume_plain():
     """K2 and K3 on a range of buckets: the shards' gathers, minimised,
     are the whole table's; the shards' consumes, laid side by side, are
@@ -363,6 +413,28 @@ def test_collectives_over_each_axis():
         for s in range(3):
             for j in range(3):
                 assert torch.equal(recv[d][s][:, j], send[d][j][:, s])
+
+
+def test_all_to_all_parts_matches_stacking():
+    """The parts form hands each shard the slices the stacking form
+    stacks, as views of the senders' buffers (no copy on one device), the
+    populations' slices alike."""
+    mesh = make_mesh(2, 3, device='cpu')
+    send = [[torch.arange(24, dtype=torch.int32).reshape(2, 3, 4) +
+             100 * (3 * d + s) for s in range(3)] for d in range(2)]
+    pops = [[torch.arange(6, dtype=torch.int32).reshape(2, 3) + 10 * s
+             for s in range(3)] for d in range(2)]
+    parts = collectives.all_to_all_parts(mesh, send)
+    stacked = collectives.all_to_all(mesh, send)
+    pop_parts = collectives.all_to_all_parts(mesh, pops)
+    for d in range(2):
+        for s in range(3):
+            assert len(parts[d][s]) == 3
+            for j in range(3):
+                assert torch.equal(parts[d][s][j], stacked[d][s][:, j])
+                assert parts[d][s][j].data_ptr() == \
+                    send[d][j][:, s].data_ptr()
+                assert torch.equal(pop_parts[d][s][j], pops[d][j][:, s])
 
 
 def _keys_and_queries(seed):
