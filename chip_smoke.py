@@ -10,6 +10,9 @@
     python3 chip_smoke.py --profile-workflow
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
+    python3 chip_smoke.py --rank RANK WORLD PORT BACKEND SPEC
+                                 # one rank of phase 12 (the smoke starts
+                                 # them itself)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -135,6 +138,23 @@ Phases (any failure raises, and the script exits non-zero):
    parts (one owner's four [4, capacity] views from a (1, 4) mesh, into
    its 4 x 31,250,000 int32 accumulator) are held to their plain versions
    and timed after phase 5.
+12. distributed (``kevlar_tpu_torch.parallel.init_distributed``), after
+   phase 11, each rank a process the smoke starts once the libraries are
+   built: two ranks over gloo on this card (every crossing through pinned
+   host memory) count the helium proband routed on a (1, 4) mesh, two
+   shards a rank (each rank's shards == phase 11's one-process (1, 4)
+   count, saved to a file), then masked on a (2, 2) mesh, one data row a
+   rank (shards == the workflow's ``case.ct``), then screen the first
+   500,000 reads and query one batch on (2, 2) (== the same on a
+   one-process (2, 2) mesh in the rank); then one NCCL rank
+   (``world_size`` 1: the process-group path with NCCL's collectives on
+   the card) counts routed on (1, 4) (shards == phase 11's).  K1,
+   ``kt_route`` and ``kt_scatter_add`` over parts (routed), K1 and the
+   range variants (masked) must launch in every rank.  Each rank's walls,
+   batches, launches, the bytes it sent across ranks (a batch and in all)
+   and the routed exchange's time a batch are printed beside the
+   one-process (1, 4) wall of phase 11 and the card's name and power
+   limit.  A failed or late rank fails the smoke.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the
 two XLA programs ported as plain torch (B7 ``seed_ranges``, B8
@@ -1622,6 +1642,15 @@ def _dist_cli(device, workdir, name, memory, mask, fastq):
         return out.getvalue().strip(), fh.read(), wall
 
 
+def _head_fastq(fastq, path, nreads):
+    """The first ``nreads`` records of a FASTQ file, written to ``path``;
+    returns ``path``."""
+    with open(fastq, 'rb') as src, open(path, 'wb') as dst:
+        for _ in range(4 * nreads):
+            dst.write(src.readline())
+    return path
+
+
 def phase_dist(device, workdir, reads, memory='500M', head_memory='40M'):
     """The ``dist`` path on phase 6's helium files: the abundance
     distribution of the proband's k-mers inside the trio's 1-bit reference
@@ -1673,10 +1702,8 @@ def phase_dist(device, workdir, reads, memory='500M', head_memory='40M'):
               tsv.count('\n') - 1, launches), flush=True)
 
     # the card against the CPU (the kernels' plain versions) on the head
-    head = os.path.join(workdir, 'head.fq')
-    with open(reads['proband'], 'rb') as src, open(head, 'wb') as dst:
-        for _ in range(4 * DIST_HEAD_READS):
-            dst.write(src.readline())
+    head = _head_fastq(reads['proband'], os.path.join(workdir, 'head.fq'),
+                       DIST_HEAD_READS)
     got = _dist_cli(device, workdir, 'head_card', head_memory, mask, head)
     want = _dist_cli('cpu', workdir, 'head_cpu', head_memory, mask, head)
     if got[:2] != want[:2]:
@@ -2271,8 +2298,7 @@ def _all_to_all_ms(mesh, capacity, reps=10):
                for row in grid for x in row}
 
     def parts():
-        return (collectives.all_to_all_parts(mesh, send),
-                collectives.all_to_all_parts(mesh, pops))
+        return collectives.all_to_all_parts(mesh, send, pops)
 
     def stacked():
         return (collectives.all_to_all(mesh, send),)
@@ -2297,19 +2323,18 @@ def _all_to_all_ms(mesh, capacity, reps=10):
 
 
 def _shard_equal(sharded, tables, label):
-    """Raise unless ``sharded``'s shards are ``tables`` ([T, tablesize]
-    8-bit counters on its device) cut at its shard size."""
+    """Raise unless ``sharded``'s shards on this rank are ``tables`` ([T,
+    tablesize] 8-bit counters on its device) cut at its shard size."""
     import torch
     ss = sharded.shard_size
-    for s in range(sharded.mesh.shape['shard']):
+    for d, s in sharded.mesh.local_cells():
         held = min(ss, sharded.tablesize - s * ss)
-        for d in range(sharded.mesh.shape['data']):
-            got = sharded.tables[d][s]
-            want = tables[:, s * ss:s * ss + held].to(got.device)
-            if not (torch.equal(got[:, :held], want) and
-                    not got[:, held:].any()):
-                raise AssertionError('{}: shard ({}, {}) differs'.format(
-                    label, d, s))
+        got = sharded.tables[d][s]
+        want = tables[:, s * ss:s * ss + held].to(got.device)
+        if not (torch.equal(got[:, :held], want) and
+                not got[:, held:].any()):
+            raise AssertionError('{}: shard ({}, {}) differs'.format(
+                label, d, s))
 
 
 def _route_bound(n, ntables, nshards, filled):
@@ -2361,8 +2386,8 @@ def _routed_scatter_add_check(device, rng, ss):
                                            SHARD_TOTAL, cap))
     del codes, h1, h2, valid
     mesh = _mesh(device, 1, SHARDS)
-    parts = collectives.all_to_all_parts(mesh, [[r[0] for r in routed]])
-    pops = collectives.all_to_all_parts(mesh, [[r[1] for r in routed]])
+    parts, pops = collectives.all_to_all_parts(
+        mesh, [[r[0] for r in routed]], [[r[1] for r in routed]])
     parts, pops = parts[0][0], pops[0][0]
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -2692,6 +2717,8 @@ def phase_sharded(device, workdir, reads, memory='500M'):
         walls['count proband, (1, 4) routed'] = time.time() - t0
         batches['routed count'] = dict(routed.batches)
         _shard_equal(routed, single.tables, 'routed proband count')
+        # the distributed phase holds its ranks' shards to these tables
+        routed.save(os.path.join(workdir, 'routed14.ct'))
         del routed, single
         # 2. masked, replicate: (2, 2) with the workflow's 1-bit mask
         mesh22 = _mesh(device, 2, 2)
@@ -2794,6 +2821,285 @@ def phase_sharded(device, workdir, reads, memory='500M'):
               batches, {k: launches[k] for k in launches},
               time.time() - t_phase), flush=True)
     return dict(launches=launches, walls=walls, batches=batches)
+
+
+# ------------------------------------------------ the distributed slice
+
+
+RANK_TIMEOUT = {'gloo': 420, 'nccl': 240}   # seconds for a phase's ranks
+SCREEN_SLICE_READS = 500_000
+DISTRIBUTED_PATH_KERNELS = {
+    'routed count (1, 4)': ('kmer_hashes', 'route', 'scatter_add_parts'),
+    'masked count (2, 2)': ('kmer_hashes', 'gather_counts_range',
+                            'consume_range')}
+
+
+def _free_port():
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _count_traffic():
+    """Wrap this process's ``torch.distributed`` collectives and the
+    port's ``all_to_all_parts``; returns a dict that adds up the bytes
+    this rank handed to groups of two ranks or more (``bytes``), the calls
+    (``calls``), and the exchanges of the routed consume with their host
+    seconds, staging and unpacking included (synchronous under gloo)."""
+    import torch.distributed as dist
+    from kevlar_tpu_torch.parallel import collectives
+    traffic = {'bytes': 0, 'calls': 0, 'exchanges': 0, 'exchange_s': 0.0}
+
+    def wrap(name, sent):
+        fn = getattr(dist, name)
+
+        def wrapped(*args, **kwargs):
+            if dist.get_world_size(kwargs.get('group')) > 1:
+                x = sent(args, kwargs)
+                traffic['bytes'] += 0 if x is None else \
+                    x.numel() * x.element_size()
+            traffic['calls'] += 1
+            return fn(*args, **kwargs)
+        setattr(dist, name, wrapped)
+    wrap('all_to_all_single', lambda args, kw: args[1])
+    wrap('all_reduce', lambda args, kw: args[0])
+    wrap('broadcast', lambda args, kw: args[0] if kw['src'] ==
+         dist.get_rank() else None)
+    exchange = collectives.all_to_all_parts
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        out = exchange(*args, **kwargs)
+        traffic['exchange_s'] += time.time() - t0
+        traffic['exchanges'] += 1
+        return out
+    collectives.all_to_all_parts = timed
+    return traffic
+
+
+def rank_main(argv):
+    """One rank of the distributed phase: ``chip_smoke.py --rank RANK
+    WORLD PORT BACKEND SPEC``.  Joins the group, builds the (1, 4) and (2,
+    2) meshes whose cells the ranks share in rank order (every cell on the
+    spec's ``device``), counts the proband routed on (1, 4) and holds its shards
+    to the one-process count's file; with ``masked`` in the spec's parts,
+    the masked count on (2, 2) (shards == the workflow's ``case.ct``) and
+    the screen and a query over the head of the reads on (2, 2), equal to
+    the same on a one-process (2, 2) mesh.  Writes walls, batches,
+    launches and traffic to the spec's ``out``; any mismatch raises."""
+    import datetime
+    import torch
+    from kevlar_tpu_torch import count, novel, sketch
+    from kevlar_tpu_torch.batch import DEFAULT_BATCH_SIZE, native_base_batches
+    from kevlar_tpu_torch.cli import memory_setting
+    from kevlar_tpu_torch.ops import kmer_cuda
+    from kevlar_tpu_torch.parallel import (ShardedSketch, init_distributed,
+                                           make_mesh)
+    rank, world, port, backend = (int(argv[0]), int(argv[1]), int(argv[2]),
+                                  argv[3])
+    with open(argv[4]) as fh:
+        spec = json.load(fh)
+    device = torch.device(spec['device'])
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    devices = init_distributed('localhost:{}'.format(port), world, rank,
+                               backend=backend,
+                               timeout=datetime.timedelta(seconds=120))
+    traffic = _count_traffic()
+    cells = [(r, device) for r in range(world) for _ in range(4 // world)]
+    mesh14 = make_mesh(1, 4, devices=cells)
+    mesh22 = make_mesh(2, 2, devices=cells)
+    mem = memory_setting(spec['memory'])
+    out = dict(rank=rank, backend=backend, cells=mesh14.local_cells(),
+               devices=[[r, str(d)] for r, d in devices], walls={},
+               launches={}, traffic={}, batches={})
+
+    def run(name, fn):
+        for key in kmer_cuda.launches:
+            kmer_cuda.launches[key] = 0
+        before = dict(traffic)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        out['walls'][name] = time.time() - t0
+        out['launches'][name] = dict(kmer_cuda.launches)
+        out['traffic'][name] = {k: traffic[k] - before[k] for k in traffic}
+        missing = [k for k in DISTRIBUTED_PATH_KERNELS.get(name, ())
+                   if out['launches'][name][k] <= 0]
+        if missing:
+            raise AssertionError('rank {}: the {} launched no {}'.format(
+                rank, name, missing))
+        return result
+
+    def load(path):
+        return sketch.load(path, device=device, cache=False)
+
+    # a small count first: the walls below are the counts' own
+    count.load_sample_seqfile([spec['small']], KSIZE, memory_setting('8M'),
+                              maxfpr=1.0, mesh=mesh14)
+    routed = run('routed count (1, 4)', lambda: count.load_sample_seqfile(
+        [spec['proband']], KSIZE, mem, maxfpr=0.6, mesh=mesh14))
+    out['batches']['routed count (1, 4)'] = dict(routed.batches)
+    _shard_equal(routed, load(spec['routed']).tables,
+                 'rank {} routed count'.format(rank))
+    del routed
+    if 'masked' in spec['parts']:
+        mask = ShardedSketch.from_sketch(mesh22, load(spec['mask']))
+        masked = run('masked count (2, 2)', lambda: count.load_sample_seqfile(
+            [spec['proband']], KSIZE, mem, maxfpr=0.6, mask=mask,
+            mesh=mesh22))
+        out['batches']['masked count (2, 2)'] = dict(masked.batches)
+        _shard_equal(masked, load(spec['case']).tables,
+                     'rank {} masked count vs case.ct'.format(rank))
+        del masked, mask
+        tables = [load(path) for path in spec['samples']]
+        bases, _ = next(native_base_batches(spec['head'],
+                                            DEFAULT_SCREEN_READS,
+                                            overlap=KSIZE - 1))
+        texts, queries = {}, {}
+        for label, mesh in (('ranks', mesh22), ('one process', make_mesh(
+                2, 2, devices=[device] * 4))):
+            samples = [ShardedSketch.from_sketch(mesh, t) for t in tables]
+            texts[label] = run('screen, {}'.format(label), lambda: ''.join(
+                novel.novel(None, samples[:1], samples[1:], ksize=KSIZE,
+                            casemin=5, ctrlmax=1,
+                            batchstream=novel.native_read_batches(
+                                [spec['head']], DEFAULT_BATCH_SIZE),
+                            emit='text')))
+            queries[label] = [x.cpu() for x in samples[0].query_batch(bases)]
+            del samples
+        if texts['ranks'] != texts['one process']:
+            raise AssertionError('rank {}: the screen over the ranks\' (2, '
+                                 '2) mesh differs from one process\'s'.format(
+                                     rank))
+        if not all(torch.equal(a, b) for a, b in zip(queries['ranks'],
+                                                     queries['one process'])):
+            raise AssertionError('rank {}: query_batch over the ranks\' (2, '
+                                 '2) mesh differs'.format(rank))
+        out['screen_lines'] = texts['ranks'].count('\n')
+        out['query_nonzero'] = int(torch.count_nonzero(
+            queries['ranks'][0]))
+    with open(spec['out'].format(backend, rank), 'w') as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _wait_ranks(procs, logs, timeout):
+    """Wait for every rank; raise, after stopping the others, if one
+    fails or the phase outlasts ``timeout`` seconds."""
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [i for i, p in enumerate(procs) if p.poll()]
+            if failed or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [i for i, p in enumerate(procs) if p.returncode]
+    if bad:
+        tails = []
+        for i in bad:
+            with open(logs[i]) as fh:
+                tails.append('rank {} (exit {}):\n{}'.format(
+                    i, procs[i].returncode, fh.read()[-3000:]))
+        raise AssertionError('the distributed phase failed or timed out:\n'
+                             + '\n'.join(tails))
+
+
+def phase_distributed(workdir, reads, one_process_wall, memory='500M',
+                      device='cuda:0'):
+    """Phase 12: the sharded sketch over ranks on this one card.  Two rank
+    processes over gloo (every crossing through pinned host memory), then
+    one NCCL rank (``world_size`` 1: the process-group path, NCCL's
+    collectives on the card); see :func:`rank_main`.  Prints the two-rank
+    count wall against the one-process (1, 4) count of phase 11 in this
+    call, the bytes that crossed ranks a batch and in all, and the
+    exchange's time a batch.  Returns the ranks' records."""
+    import torch
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    wf = os.path.join(workdir, 'workflow')
+    spec = dict(
+        memory=memory, device=device, proband=reads['proband'],
+        small=_head_fastq(reads['proband'],
+                          os.path.join(workdir, 'ranks_small.fq'), 10_000),
+        head=_head_fastq(reads['proband'],
+                         os.path.join(workdir, 'ranks_head.fq'),
+                         SCREEN_SLICE_READS),
+        routed=os.path.join(workdir, 'routed14.ct'),
+        mask=os.path.join(wf, 'mask.nt'), case=os.path.join(wf, 'case.ct'),
+        samples=[os.path.join(wf, name) for name in
+                 ('case.ct', 'control0.ct', 'control1.ct')],
+        out=os.path.join(workdir, 'rank_{}_{}.json'))
+    records = {}
+    for backend, world, parts in (('gloo', 2, ['routed', 'masked']),
+                                  ('nccl', 1, ['routed'])):
+        spec_path = os.path.join(workdir, 'ranks_{}.json'.format(backend))
+        with open(spec_path, 'w') as fh:
+            json.dump(dict(spec, parts=parts), fh)
+        port = _free_port()
+        logs = [os.path.join(workdir, 'rank_{}_{}.log'.format(backend, r))
+                for r in range(world)]
+        procs = []
+        for rank in range(world):
+            with open(logs[rank], 'w') as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--rank',
+                     str(rank), str(world), str(port), backend, spec_path],
+                    stdout=log, stderr=subprocess.STDOUT))
+        _wait_ranks(procs, logs, RANK_TIMEOUT[backend])
+        records[backend] = []
+        for rank in range(world):
+            with open(spec['out'].format(backend, rank)) as fh:
+                records[backend].append(json.load(fh))
+    smi = _nvidia_smi()
+    for backend, ranks in records.items():
+        for name in ranks[0]['walls']:
+            walls = [r['walls'][name] for r in ranks]
+            moved = [r['traffic'][name] for r in ranks]
+            nbatch = sum(ranks[0]['batches'].get(name, {}).get(k, 0)
+                         for k in ('routed', 'replicated'))
+            line = ('[smoke] distributed ({}; {} rank(s) over {}, every cell '
+                    'on {}): {}: wall {:.2f} s ({}); batches {}; bytes a '
+                    'rank sent across ranks {} in all'.format(
+                        smi, len(ranks), backend, device, name, max(walls),
+                        ', '.join('rank {} {:.2f} s'.format(i, w)
+                                  for i, w in enumerate(walls)),
+                        ranks[0]['batches'].get(name), [
+                            '{:,}'.format(m['bytes']) for m in moved]))
+            if moved[0]['exchanges']:
+                line += ', {} a batch'.format(['{:,.0f}'.format(
+                    m['bytes'] / nbatch) for m in moved])
+                line += ('; the routed exchange (all_to_all_parts, staging '
+                         'included) {} ms a batch'.format(['{:.3f}'.format(
+                             1e3 * m['exchange_s'] / m['exchanges'])
+                             for m in moved]))
+            line += '; collective calls {}; launches {}'.format(
+                [m['calls'] for m in moved],
+                [{k: v for k, v in r['launches'][name].items() if v}
+                 for r in ranks])
+            print(line, flush=True)
+    gloo = records['gloo']
+    print('[smoke] distributed: the routed (1, 4) count over two gloo ranks '
+          '{:.2f} s, over one NCCL rank {:.2f} s, against {:.2f} s in one '
+          'process (phase 11, this call); every rank\'s shards == the '
+          'one-process count\'s, the masked (2, 2) shards == case.ct, the '
+          'screen over {:,} reads ({:,} lines of augmented FASTQ) and a '
+          'query == one process\'s on both ranks; phase wall {:.1f} '
+          's'.format(
+              max(r['walls']['routed count (1, 4)'] for r in gloo),
+              records['nccl'][0]['walls']['routed count (1, 4)'],
+              one_process_wall, SCREEN_SLICE_READS,
+              gloo[0]['screen_lines'], time.time() - t_phase), flush=True)
+    return records
 
 
 # ------------------------------------------- against an older checkout
@@ -3141,8 +3447,8 @@ def compare_routed(old, device, reps=30):
     new_send = [[x[1][0] for x in sends]]
     new_pop = [[x[1][1] for x in sends]]
     recv = collectives.all_to_all(mesh, old_send)[0][0].reshape(4, -1)
-    parts = collectives.all_to_all_parts(mesh, new_send)[0][0]
-    pops = collectives.all_to_all_parts(mesh, new_pop)[0][0]
+    parts, pops = (x[0][0] for x in collectives.all_to_all_parts(
+        mesh, new_send, new_pop))
     acc = torch.zeros((4, ss), dtype=torch.int32, device=device)
     want = acc.clone()
     if old.kt_scatter_add(want.data_ptr(), ss, recv.data_ptr(), 4,
@@ -3352,6 +3658,8 @@ def build_all():
 
 def main():
     import torch
+    if sys.argv[1:2] == ['--rank']:
+        return rank_main(sys.argv[2:])
     if sys.argv[1:2] == ['--compare-parent']:
         return compare_parent(sys.argv[2])
     if sys.argv[1:2] == ['--profile-workflow']:
@@ -3387,6 +3695,8 @@ def main():
         phase_workflow(device, workdir, trio['refr'], trio['denovo'],
                        trio['reads'])
         shard = phase_sharded(device, workdir, trio['reads'])
+        phase_distributed(workdir, trio['reads'],
+                          shard['walls']['count proband, (1, 4) routed'])
         sim = phase_simlike(device, workdir)
         phase_dist(device, workdir, trio['reads'])
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),

@@ -26,6 +26,8 @@ Direction-byte layout (matches ksw2): bits 0-2 = which matrix maximised H
 (0=H/diag, 1=E, 2=F); bit 3 = E-continuation; bit 4 = F-continuation.
 """
 
+import json
+
 import numpy as np
 
 NEG_INF = -0x40000000
@@ -271,6 +273,22 @@ def align_both_strands(target_seq, query_seq, match=1, mismatch=2, gapopen=5,
     return score1, cigar1, 1
 
 
+def _shared_runs(mesh, parts):
+    """Every cell's run of results on every rank: ``parts`` are this
+    rank's cells' runs, in cell order."""
+    import torch
+    from kevlar_tpu_torch.parallel import collectives
+    mine = iter(parts)
+    pieces = [torch.from_numpy(np.frombuffer(json.dumps(
+        next(mine)).encode(), dtype=np.uint8).copy())
+        if mesh.is_local(d, s) else None for d, s in mesh.cells()]
+    shared = collectives.share(mesh, pieces, [mesh.ranks[d][s] for d, s in
+                                              mesh.cells()],
+                               device=torch.device('cpu'))
+    return [[tuple(r) for r in json.loads(bytes(p.numpy()).decode())]
+            for p in shared]
+
+
 def align_both_strands_batch(pairs, match=1, mismatch=2, gapopen=5,
                              gapextend=0, device='cuda', mesh=None):
     """Both-strand alignment of many (target, query) pairs.
@@ -280,27 +298,33 @@ def align_both_strands_batch(pairs, match=1, mismatch=2, gapopen=5,
     (:func:`kevlar_tpu_torch.ops.align_cuda.align_batch`) on ``device``:
     the CUDA kernel on a GPU, its plain PyTorch version on the CPU.  With
     ``mesh`` (:mod:`kevlar_tpu_torch.parallel`) the pairs are cut into
-    contiguous runs, one per mesh device, each aligned on its device
-    (``device`` is then unused); distinct cards run side by side.
+    contiguous runs, one per mesh cell, each aligned on its device by the
+    rank that owns it (``device`` is then unused); distinct cards run side
+    by side, and every rank gets every run's results (a mesh over ranks
+    sends each run's as JSON text).
     """
     if not pairs:
         return []
     if mesh is not None:
-        devices = [dev for row in mesh.devices for dev in row]
-        step = -(-len(pairs) // len(devices))
-        runs = [(pairs[i * step:(i + 1) * step], dev)
-                for i, dev in enumerate(devices) if pairs[i * step:]]
+        cells = mesh.cells()
+        step = -(-len(pairs) // len(cells))
+        runs = [(pairs[i * step:(i + 1) * step], mesh.devices[d][s])
+                for i, (d, s) in enumerate(cells) if mesh.is_local(d, s)]
 
         def run(job):
+            if not job[0]:
+                return []
             return align_both_strands_batch(
                 job[0], match=match, mismatch=mismatch, gapopen=gapopen,
                 gapextend=gapextend, device=job[1])
-        if len(set(devices)) > 1:
+        if len({dev for _, dev in runs}) > 1:
             from concurrent.futures import ThreadPoolExecutor
             with ThreadPoolExecutor(len(runs)) as pool:
                 parts = list(pool.map(run, runs))
         else:
             parts = [run(job) for job in runs]
+        if mesh.distributed:
+            parts = _shared_runs(mesh, parts)
         return [picked for part in parts for picked in part]
     from kevlar_tpu_torch.dna import revcom
     from kevlar_tpu_torch.ops.align_cuda import align_batch

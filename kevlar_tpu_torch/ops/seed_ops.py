@@ -78,38 +78,42 @@ def seed_ranges_sharded(mesh, shards, queries, n_valid, base):
     """Match ranges against keys sharded over the mesh's 'shard' axis.
 
     ``shards``: one int64 tensor of a run's keys per shard, on
-    ``mesh.devices[0][s]`` (:func:`shard_keys`); ``queries``: int64 tensor
-    of :func:`ordered_int64` keys; ``n_valid`` and ``base`` as
-    :func:`shard_keys` returns them.  Every shard runs :func:`seed_ranges`
-    on its valid prefix (data row 0 of the mesh; the others would repeat
-    it); the count is a sum over the shards, and the first shard with a hit
-    and its local start come from minima over the shards with hits.
-    Returns numpy ``(start int64, count int64)`` in the whole array's index
-    space; start is int64 max where count is 0 (the global index math stays
-    on the host, as genome-scale indexes pass 2^31 entries)."""
+    ``mesh.devices[0][s]`` (:func:`shard_keys`; None where another rank
+    owns the cell); ``queries``: int64 tensor of :func:`ordered_int64`
+    keys; ``n_valid`` and ``base`` as :func:`shard_keys` returns them.
+    Every shard of data row 0 (the others would repeat it) runs
+    :func:`seed_ranges` on its valid prefix, on the rank that owns it; the
+    count is a sum over the shards, and the first shard with a hit and its
+    local start come from minima over the shards with hits; every rank of
+    the mesh gets them.  Returns numpy ``(start int64, count int64)`` in
+    the whole array's index space; start is int64 max where count is 0
+    (the global index math stays on the host, as genome-scale indexes pass
+    2^31 entries)."""
     from kevlar_tpu_torch.parallel import collectives
-    from kevlar_tpu_torch.parallel.mesh import Mesh
-    row = Mesh([mesh.devices[0]])
+    row = mesh.row(0)
     nohit = np.iinfo(np.int64).max
-    starts, counts, firsts = [], [], []
-    for s, dev in enumerate(row.devices[0]):
-        q = queries.to(dev)
+    local = [s for _, s in row.local_cells()]
+    starts, counts, firsts = ([None] * row.shape['shard'] for _ in range(3))
+    for s in local:
+        q = queries.to(row.devices[0][s])
         if int(n_valid[s]):
             start, cnt = seed_ranges(shards[s][:int(n_valid[s])], q)
         else:
             start = cnt = torch.zeros_like(q)
-        starts.append(start)
-        counts.append(cnt)
-        firsts.append(torch.where(cnt > 0, s, nohit))
+        starts[s] = start
+        counts[s] = cnt
+        firsts[s] = torch.where(cnt > 0, s, nohit)
     count = collectives.psum(row, [counts], 'shard')[0]
     first = collectives.pmin(row, [firsts], 'shard')[0]
-    local = collectives.pmin(row, [[
-        torch.where(first[s] == s, starts[s], nohit)
-        for s in range(len(starts))]], 'shard')[0]
-    count = count[0].cpu().numpy()
-    first = first[0].cpu().numpy()
-    local = local[0].cpu().numpy()
+    start = collectives.pmin(row, [[
+        torch.where(first[s] == s, starts[s], nohit) if s in local else None
+        for s in range(row.shape['shard'])]], 'shard')[0]
+    mine = local[0] if local else None
+    count, first, start = (x.cpu().numpy() for x in collectives.share(
+        mesh, [None if mine is None else x[mine] for x in (count, first,
+                                                           start)],
+        [mesh.ranks[0][0]] * 3, device=torch.device('cpu')))
     out = np.full(count.shape, nohit, dtype=np.int64)
     hit = count > 0
-    out[hit] = np.asarray(base, dtype=np.int64)[first[hit]] + local[hit]
+    out[hit] = np.asarray(base, dtype=np.int64)[first[hit]] + start[hit]
     return out, count

@@ -1,8 +1,11 @@
 """Hash-range-sharded Count-Min sketch over a ('data', 'shard') mesh.
 
-Counterpart of ``kevlar_tpu/parallel/sharded.py``, on the in-process mesh
-of :mod:`kevlar_tpu_torch.parallel.mesh` and the collectives of
-:mod:`kevlar_tpu_torch.parallel.collectives`.
+Counterpart of ``kevlar_tpu/parallel/sharded.py``, on the mesh of
+:mod:`kevlar_tpu_torch.parallel.mesh` and the collectives of
+:mod:`kevlar_tpu_torch.parallel.collectives`.  On a mesh over several ranks
+every rank holds the same input, hashes, holds and adds only its own
+cells, and takes every branch that precedes a collective on a value every
+rank has (a reduction's result, the batch's shape), never on its own.
 
 Layout
 ------
@@ -58,8 +61,10 @@ from kevlar_tpu_torch.sketch import MAXCOUNT, write_npz
 
 
 def _grid(mesh, fn):
-    """``[[fn(d, s) for s] for d]`` over the mesh."""
-    return [[fn(d, s) for s in range(mesh.shape['shard'])]
+    """``[[fn(d, s) for s] for d]`` over this rank's cells of the mesh,
+    None at the others'."""
+    return [[fn(d, s) if mesh.is_local(d, s) else None
+             for s in range(mesh.shape['shard'])]
             for d in range(mesh.shape['data'])]
 
 
@@ -134,9 +139,8 @@ class _MeshAccumulator:
     def make_room(self, n):
         """Saturate first if ``n`` more windows could wrap a sum."""
         if self._since_saturation + n > self._headroom:
-            for row in self.acc:
-                for acc in row:
-                    acc.clamp_(max=self.sketch.maxcount)
+            for d, s in self.sketch.mesh.local_cells():
+                self.acc[d][s].clamp_(max=self.sketch.maxcount)
             self._since_saturation = 0
         self._since_saturation += n
 
@@ -179,7 +183,7 @@ class ShardedSketch:
         self.tablesize = total if exact else self.shard_size * n_shard
         self.shard_width = sketch_ops.packed_width(self.shard_size,
                                                    self.counter_bits)
-        self.device = mesh.first
+        self.device = mesh.home
         self.tables = _grid(mesh, lambda d, s: torch.zeros(
             (self.ntables, self.shard_width), dtype=torch.uint8,
             device=mesh.devices[d][s]))
@@ -204,7 +208,7 @@ class ShardedSketch:
         else:
             values = torch.from_numpy(np.ascontiguousarray(sketch._host()))
         ss = out.shard_size
-        for s in range(mesh.shape['shard']):
+        for s in {s for _, s in mesh.local_cells()}:
             lo = s * ss
             part = torch.zeros((out.ntables, ss), dtype=torch.uint8,
                                device=values.device)
@@ -212,7 +216,8 @@ class ShardedSketch:
             part[:, :held] = values[:, lo:lo + held]
             packed = sketch_ops.pack_rows(part, out.counter_bits)
             for d in range(mesh.shape['data']):
-                out.tables[d][s] = packed.to(mesh.devices[d][s])
+                if mesh.is_local(d, s):
+                    out.tables[d][s] = packed.to(mesh.devices[d][s])
         return out
 
     def ksize(self):
@@ -232,11 +237,23 @@ class ShardedSketch:
             raise ValueError('the sketch is inside a consuming() block: its '
                              'tables are packed when the block ends')
 
+    def _check_held(self):
+        """Raise unless this rank holds every cell, as ``np.asarray`` of a
+        JAX array that spans other processes' devices raises."""
+        elsewhere = self.mesh.elsewhere()
+        if elsewhere:
+            raise ValueError(
+                'the sketch spans cells rank {} does not hold ({}): gather '
+                'its counts with query_batch'.format(self.mesh.rank, '; '.join(
+                    'rank {}: {}'.format(r, ', '.join(map(str, cells)))
+                    for r, cells in sorted(elsewhere.items()))))
+
     # -- Sketch-interface parity (host-side queries over gathered mirror) --
     def _host(self):
         """Unpacked counters, numpy [ntables, tablesize]."""
         if self._host_tables is None:
             self._check_open()
+            self._check_held()
             rows = [sketch_ops.unpack_rows(self.tables[0][s],
                                            self.counter_bits,
                                            self.shard_size).cpu()
@@ -250,15 +267,19 @@ class ShardedSketch:
 
     def n_occupied(self):
         """Occupied buckets of table 0, each shard counting the buckets of
-        the hash space it holds."""
+        the hash space it holds (on the owner of its cell in data row 0,
+        summed over the ranks)."""
         self._check_open()
-        n = 0
-        for s in range(self.mesh.shape['shard']):
+        mesh = self.mesh
+        occupied = []
+        for s in range(mesh.shape['shard']):
             held = min(self.shard_size, self.tablesize - s * self.shard_size)
-            if held > 0:
-                n += sketch_ops.occupancy(self.tables[0][s],
-                                          self.counter_bits, held)
-        return n
+            occupied.append(None if not mesh.is_local(0, s) else
+                            torch.tensor([sketch_ops.occupancy(
+                                self.tables[0][s], self.counter_bits, held)
+                                if held > 0 else 0]))
+        return sum(int(n) for n in collectives.share(
+            mesh, occupied, mesh.ranks[0], device=torch.device('cpu')))
 
     def n_unique_kmers(self):
         occ = self.n_occupied()
@@ -305,6 +326,7 @@ class ShardedSketch:
         """Write the standard npz file (loadable as a single-device
         Sketch), one table row at a time."""
         self._check_open()
+        self._check_held()
 
         def rows():
             for t in range(self.ntables):
@@ -371,8 +393,7 @@ class ShardedSketch:
         if route not in (None, 'alltoall', 'replicate'):
             raise ValueError('route must be "alltoall" or "replicate"')
         if mask is not None and not (
-                isinstance(mask, ShardedSketch) and
-                mask.mesh.devices == self.mesh.devices):
+                isinstance(mask, ShardedSketch) and mask.mesh == self.mesh):
             raise ValueError('sharded consume requires a sharded mask on the '
                              'same mesh (ShardedSketch.from_sketch)')
         codes = self._codes(bases)
@@ -407,14 +428,15 @@ class ShardedSketch:
         top = collectives.pmax(mesh, _grid(
             mesh, lambda d, s: routed[d][s][1].max().reshape(1)), 'shard')
         top = collectives.pmax(mesh, top, 'data')
-        if int(top[0][0]) > cap:
+        d, s = mesh.local_cells()[0]
+        # the mesh's largest bin, the same on every rank: all take one path
+        if int(top[d][s]) > cap:
             return False
-        parts = collectives.all_to_all_parts(
-            mesh, _grid(mesh, lambda d, s: routed[d][s][0]))
-        pops = collectives.all_to_all_parts(
-            mesh, _grid(mesh, lambda d, s: routed[d][s][1]))
+        parts, pops = collectives.all_to_all_parts(
+            mesh, _grid(mesh, lambda d, s: routed[d][s][0]),
+            _grid(mesh, lambda d, s: routed[d][s][1]))
         self._acc.make_room(self._windows(codes))
-        for d, s in mesh.cells():
+        for d, s in mesh.local_cells():
             sketch_ops.scatter_add_parts(self._acc.acc[d][s], parts[d][s],
                                          pops[d][s])
         return True
@@ -429,7 +451,7 @@ class ShardedSketch:
                 [mask._spec(d, s)], *hashed[d][s][:2])[0])
             mcnt = collectives.pmin(mesh, local, 'shard')
         self._acc.make_room(self._windows(codes))
-        for d, s in mesh.cells():
+        for d, s in mesh.local_cells():
             sketch_ops.consume_hashes(
                 self._acc.acc[d][s], *hashed[d][s],
                 mcnt=None if mcnt is None else mcnt[d][s],
@@ -440,29 +462,31 @@ class ShardedSketch:
         """Counts of every window of ``codes`` (padded to a multiple of the
         data rows) in ``sketches`` (sharded alike, this one among them): per
         data row ``d``, on device ``(d, 0)``, uint8 [len(sketches), N_d] and
-        the windows' validity."""
+        the windows' validity (None where another rank owns ``(d, 0)``)."""
         mesh = self.mesh
         hashed = _hash_rows(mesh, codes, self._ksize)
         local = _grid(mesh, lambda d, s: sketch_ops.gather_counts_multi(
             [sk._spec(d, s) for sk in sketches], *hashed[d][s][:2]))
         counts = collectives.pmin(mesh, local, 'shard')
-        return [(counts[d][0], hashed[d][0][2])
-                for d in range(mesh.shape['data'])]
+        return [(counts[d][0], hashed[d][0][2]) if mesh.is_local(d, 0)
+                else None for d in range(mesh.shape['data'])]
 
     def query_batch(self, bases):
         """Counts for every window of a [B, L] batch: uint8 ``[B, P]`` (0
-        at invalid windows) and uint8 validity, on the mesh's first
-        device."""
+        at invalid windows) and uint8 validity, on every rank, on its
+        first device of the mesh."""
         self._check_open()
+        mesh = self.mesh
         codes = self._codes(bases)
         B, L = codes.shape
         P = L - self._ksize + 1
-        rows = self._gather(_pad_rows(codes, self.mesh.shape['data']),
-                            [self])
-        counts = torch.cat([c[0].reshape(-1, P).to(self.device)
-                            for c, _ in rows])[:B]
-        valid = torch.cat([v.reshape(-1, P).to(self.device)
-                           for _, v in rows])[:B]
+        rows = self._gather(_pad_rows(codes, mesh.shape['data']), [self])
+        rows = collectives.share(
+            mesh, [r and torch.stack([r[0][0], r[1]]).reshape(2, -1, P)
+                   for r in rows],
+            [mesh.ranks[d][0] for d in range(mesh.shape['data'])])
+        counts, valid = torch.cat([r.to(self.device) for r in rows],
+                                  dim=1)[:, :B]
         return counts * valid, valid
 
 
@@ -476,7 +500,8 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
     screen's predicates and compacts its hits on its device
     (:func:`kevlar_tpu_torch.ops.novel_ops.screen_predicates`,
     :func:`~kevlar_tpu_torch.ops.novel_ops.compact_hits`).  Returns
-    ``(hits, hit_abunds, discard)`` on the mesh's first device, as
+    ``(hits, hit_abunds, discard)`` on every rank, on its first device of
+    the mesh, as
     :func:`kevlar_tpu_torch.ops.novel_ops.novel_screen` does: ``hits`` are
     the nonzero flat indices of ``kevlar_tpu``'s interesting ``[B, P]``
     array, ``hit_abunds`` its abundances there.
@@ -484,7 +509,7 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
     samples = list(case_sketches) + list(ctrl_sketches)
     s0 = samples[0]
     for sk in samples:
-        if (sk.mesh.devices != mesh.devices or sk.tablesize != s0.tablesize
+        if (sk.mesh != mesh or sk.tablesize != s0.tablesize
                 or sk.ksize() != s0.ksize()):
             raise ValueError('the screen\'s sketches differ in mesh, '
                              'tablesize or ksize')
@@ -499,7 +524,12 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
     codes, lengths = _pad_rows(codes, n_data, lengths.to(codes.device))
     r = codes.shape[0] // n_data
     hits, hit_abunds, discard = [], [], []
-    for d, (counts, valid) in enumerate(s0._gather(codes, samples)):
+    for d, row in enumerate(s0._gather(codes, samples)):
+        if row is None:
+            for out in (hits, hit_abunds, discard):
+                out.append(None)
+            continue
+        counts, valid = row
         dev = counts.device
         counts = counts.reshape(len(samples), r, P)
         interesting, row_discard, _ = novel_ops.screen_predicates(
@@ -509,8 +539,12 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
             screen)
         # the padding rows have length 0: skipped, so never a hit
         row_hits, row_abunds = novel_ops.compact_hits(counts, interesting)
-        hits.append((row_hits + d * r * P).to(s0.device))
-        hit_abunds.append(row_abunds.to(s0.device))
-        discard.append(row_discard.to(s0.device))
+        hits.append(row_hits + d * r * P)
+        hit_abunds.append(row_abunds)
+        discard.append(row_discard)
+    owners = [mesh.ranks[d][0] for d in range(n_data)]
+    hits, hit_abunds, discard = (
+        [x.to(s0.device) for x in collectives.share(mesh, out, owners)]
+        for out in (hits, hit_abunds, discard))
     return (torch.cat(hits), torch.cat(hit_abunds, dim=1),
             torch.cat(discard)[:B])

@@ -128,7 +128,8 @@ class SeedIndex:
       (:func:`kevlar_tpu_torch.ops.seed_ops.seed_ranges`).
     - ``'sharded'``: the keys are cut into one run per shard of
       ``make_mesh(device=device)`` (every card, all shard; the CPU: one
-      shard) and every shard searches its run
+      shard; after ``init_distributed``, every rank's) and every shard
+      searches its run on the rank that owns it
       (:func:`kevlar_tpu_torch.ops.seed_ops.seed_ranges_sharded`).
 
     The env var ``KEVLAR_SEED_BACKEND`` overrides the default.  Exact
@@ -227,8 +228,8 @@ class SeedIndex:
 
     def sharded_keys(self):
         """``(mesh, shards, n_valid, base)`` of the ``'sharded'`` search:
-        the keys cut over the mesh's shards, each run on its device, made
-        once per index."""
+        the keys cut over the mesh's shards, each run on its device of data
+        row 0 (None where another rank owns it), made once per index."""
         if self._sharded is None:
             import torch
             from kevlar_tpu_torch.ops import seed_ops
@@ -237,6 +238,7 @@ class SeedIndex:
             runs, n_valid, base = seed_ops.shard_keys(self._keys,
                                                       mesh.shape['shard'])
             shards = [torch.from_numpy(runs[s]).to(mesh.devices[0][s])
+                      if mesh.is_local(0, s) else None
                       for s in range(mesh.shape['shard'])]
             self._sharded = (mesh, shards, n_valid, base)
         return self._sharded
