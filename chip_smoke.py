@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about 14 minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 15 minutes
     python3 chip_smoke.py --compare-parent DIR
                                  # the aligner, the consume step, the routed
                                  # consume's kernels and a helium sample
@@ -10,6 +10,11 @@
     python3 chip_smoke.py --profile-workflow
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
+    python3 chip_smoke.py --count-screen
+                                 # the word gather's checks and the fused
+                                 # count and screen (phase 13) at bench.py's
+                                 # trio and on random reads of helium's
+                                 # shape, without the rest; ~1.5 minutes
     python3 chip_smoke.py --rank RANK WORLD PORT BACKEND SPEC
                                  # one rank of phase 12 (the smoke starts
                                  # them itself)
@@ -61,7 +66,10 @@ Phases (any failure raises, and the script exits non-zero):
    (counting what it kept; marking an 8-bit presence table) on the same
    inputs; each against its plain PyTorch version
    on the card (tolerance 0: integer arithmetic), then timed against it at
-   the helium run's shapes;
+   the helium run's shapes; and the word gather (``kt_gather_words``, four
+   samples' 8-bit counters to a uint32 word) against its plain version and
+   K2 at S = 1, 4 and 5 (a partial word) and with three tables, then at
+   K2's S=3 screen shape, timed beside K2 on the same tables;
 6. count -> novel slice: :func:`make_trio_case` writes the helium trio
    (the reference's quick-start: 25 Mb genome, 30x trio of 150 bp reads
    with 0.5% errors, 20 inherited and 5 de novo variants), and the trio
@@ -155,24 +163,39 @@ Phases (any failure raises, and the script exits non-zero):
    and the routed exchange's time a batch are printed beside the
    one-process (1, 4) wall of phase 11 and the card's name and power
    limit.  A failed or late rank fails the smoke.
+13. count and screen as one program (B.1), after phase 6:
+   ``ops.novel_ops.count_and_screen_stack_packed`` on the card at (a)
+   bench.py's trio (200 kb genome, 30x, 150 bp reads padded to 160, batches
+   of 8,192, 4 x 2,000,003 buckets, casemin 6, ctrlmax 1; bench.py's
+   generators and numpy ``host_pipeline`` copied here) and (b) phase 6's
+   helium FASTQ (5.0M reads a sample through the port's reader into
+   [611, 8,192, 160] stacks, packed on the host, 4 x 124,999,999 buckets).
+   For each: the stacks' H2D, the program's wall (best of 3 after a warm
+   run, each under ``torch.cuda.set_sync_debug_mode('error')`` and ending
+   in one synchronise), ``count_novel_reads_per_s`` (the case twice plus
+   the controls, as bench.py counts), the interesting k-mers, the bound
+   and a profiled run's device busy share; K1, ``kt_consume`` and the word
+   gather must launch.  At (a) the interesting k-mers must equal
+   ``host_pipeline``'s on the same reads, and ``host_pipeline`` on
+   bench.py's subset gives ``vs_baseline``; at (b) the program runs once
+   more with the plain versions, every output and table equal.
 
-Before the card's name, a JSON line ``{"programs": [...]}`` records the
-two XLA programs ported as plain torch (B7 ``seed_ranges``, B8
-``score_bundles``): launches on their paths, ms, the host version's ms and
-the bound.  The last two lines of standard output are the kernels record
-(JSON: B1,
-K1, K2, K3's three entries (the consume from hashes; ``kt_scatter_add``
-from indices at phase 5's shape, launched by the trio's device recount, and
-over the received parts at the routed count's shape, launched by the
-sharded phase's routed count), K4, ``kt_route`` and the range variants of K2 and K3's consume,
-each with its launches on its path's run,
-max_abs_err, ms,
-plain_ms, its bound on this run's inputs (``bound_ms``, ``bound_by``: the
-larger of bytes over ``HBM_BYTES_PER_S`` and operations over
-``OPS_PER_S``) and ``library_ms``, the time of one PyTorch call computing
-the same function where there is one) and ``{"ok": true, "device":
-{...}}``.  The generators import
-nothing but numpy, so tests import them to build small cases.
+Before the card's name, a JSON line ``{"programs": [...]}`` records the XLA
+programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
+``count_and_screen_stack_packed`` at both of phase 13's sizes): launches on
+their paths, ms, the host version's ms and the bound. The last two lines of
+standard output are the kernels record (JSON: B1, K1, K2, the word gather
+(launched by phase 13), K3's three entries (the consume from hashes;
+``kt_scatter_add`` from indices at phase 5's shape, launched by the trio's
+device recount, and over the received parts at the routed count's shape,
+launched by the sharded phase's routed count), K4, ``kt_route`` and the
+range variants of K2 and K3's consume, each with its launches on its path's
+run, max_abs_err, ms, plain_ms, its bound on this run's inputs
+(``bound_ms``, ``bound_by``: the larger of bytes over ``HBM_BYTES_PER_S``
+and operations over ``OPS_PER_S``) and ``library_ms``, the time of one
+PyTorch call computing the same function where there is one) and ``{"ok":
+true, "device": {...}}``. The generators import nothing but numpy, so tests
+import them to build small cases.
 """
 
 import json
@@ -876,6 +899,58 @@ def _random_sketch(rng, bits, tablesize, device, ntables=4):
     return tables, bits, tablesize
 
 
+def _word_gather_checks(device, rng, samples):
+    """The word gather (``kt_gather_words``) against its plain version and
+    against K2 on the same tables: S = 1, 4 and 5 (a partial word) and a
+    sketch of three tables, then at K2's screen shape (``samples``: three
+    4 x 124,999,999 sketches, 532,480 k-mers), timed beside K2."""
+    import torch
+    from kevlar_tpu_torch.ops import kmer_cuda, sketch_ops
+    err = 0
+    for S, T, tablesize in ((1, 4, 1_000_003), (4, 4, 999_999),
+                            (5, 4, 65_537), (5, 3, 77_777)):
+        tables = [torch.from_numpy(rng.integers(
+            0, 256, (T, tablesize), dtype=np.uint8)).to(device)
+            for _ in range(S)]
+        words = sketch_ops.pack_sample_tables(tables)
+        h1, h2 = _random_hashes(rng, 1_000_000, device)
+        got = kmer_cuda.gather_words_cuda(words, S, h1, h2)
+        label = 'word gather S={} T={}'.format(S, T)
+        err = max(err, _max_diff(got, sketch_ops.gather_counts_words_plain(
+            words, S, h1, h2), label),
+            _max_diff(got, kmer_cuda.gather_counts_cuda(
+                [(t, 8, tablesize) for t in tables], h1, h2),
+                label + ' vs K2'))
+    tables = [t for t, _, _ in samples]
+    words, pack_ms = _timed(sketch_ops.pack_sample_tables, tables, reps=3)
+    n = DEFAULT_SCREEN_READS * 130
+    h1, h2 = _random_hashes(rng, n, device)
+    got, ms = _timed(kmer_cuda.gather_words_cuda, words, 3, h1, h2, reps=20,
+                     spin=True)
+    want, plain_ms = _timed(sketch_ops.gather_counts_words_plain, words, 3,
+                            h1, h2, reps=5)
+    k2, k2_ms = _timed(kmer_cuda.gather_counts_cuda, samples, h1, h2,
+                       reps=20, spin=True)
+    err = max(err, _max_diff(got, want, 'word gather, screen shape'),
+              _max_diff(got, k2, 'word gather vs K2, screen shape'))
+    # h1, h2 read and a byte a sample written once; a word of each table
+    # read as its sector
+    ntables = words[0].shape[0]
+    bound_ms, bound_by = _bound(
+        n * (8 + 3) + min(ntables * n * SECTOR, 4 * words[0].numel()),
+        ntables * n * K2_OPS_PER_PROBE)
+    print('[smoke] K2 words gather_counts_words: identical to plain and to '
+          'K2 (S = 1, 4, 5, three tables); {:,} k-mers x 3 samples in one '
+          'word tensor of 4 x 124,999,999: kernel {:.4f} ms, K2 on the same '
+          'tables {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms by {} (4 '
+          'sectors a k-mer, K2 12); pack_sample_tables {:.3f} ms'.format(
+              n, ms, k2_ms, plain_ms, bound_ms, bound_by, pack_ms),
+          flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, k2_ms=k2_ms,
+                pack_ms=pack_ms, shape='532,480 k-mers, 3 samples packed '
+                'in one word tensor of 4 x 124,999,999')
+
 def phase_kmer_kernels(device):
     """Phase 5: K1, K2 and K3 against their plain versions on the card, on
     seeded inputs, then timed at the shapes of the helium run.  Returns
@@ -976,6 +1051,7 @@ def phase_kmer_kernels(device):
               '{:,} k-mers x {} sketches: kernel {:.4f} ms, plain {:.3f} ms, '
               'bound {:.4f} ms by {}'.format(n, S, *times[(n, S)])
               for n, S in times)), flush=True)
+    out['K2 words'] = _word_gather_checks(device, rng, samples)
     del samples
 
     # K3: heavy duplicates, negative indices, an odd bucket count, rows of
@@ -1779,7 +1855,8 @@ def _trio_stages(device, workdir, refr, reads, prefix, samples=SAMPLES,
 
 def _print_busy(label, prof, wall):
     """The card's busy share of ``wall`` seconds from a torch.profiler
-    trace (the sum of every event's own device time), and what took it."""
+    trace (the sum of every event's own device time), and what took it;
+    returns the busy seconds."""
     def device_us(event):
         return (getattr(event, 'self_device_time_total', 0) or
                 getattr(event, 'self_cuda_time_total', 0))
@@ -1795,6 +1872,7 @@ def _print_busy(label, prof, wall):
                   '; '.join('{} x{} {:.1f} ms'.format(
                       e.key[:48], e.count, device_us(e) / 1e3)
                       for e in events[:8])), flush=True)
+    return busy_us / 1e6
 
 
 def _producer_split(fastq, device):
@@ -1988,6 +2066,327 @@ def phase_trio(device, workdir):
             missed))
     return dict(launches=launches, walls=walls, plain_walls=plain_walls,
                 refr=refr, reads=reads, denovo=denovo)
+
+
+# bench.py's trio (bench.py:29-36): the configuration bench.py times
+# ``count_and_screen_stack_packed`` at, copied here because bench.py
+# imports jax
+BENCH_GENOME_LEN = 200_000
+BENCH_COVERAGE = 30
+BENCH_PADLEN = 160
+BENCH_BATCH = 8192
+BENCH_TABLESIZE = 2_000_003
+BENCH_CASEMIN, BENCH_CTRLMAX = 6, 1
+BENCH_SEED = 20260817
+# the helium samples' sketches (-M 500M, 4 tables)
+HELIUM_TABLESIZE = 124_999_999
+# the program's own kernels, which phase 13 must launch
+PROGRAM_KERNELS = ('kmer_hashes', 'consume', 'gather_counts_words')
+
+
+def _bench_tile_reads(genome, readlen, coverage, rng):
+    """bench.py's ``tile_reads``: error-free reads at random starts, padded
+    to ``BENCH_PADLEN`` with code 4."""
+    n_reads = len(genome) * coverage // readlen
+    starts = rng.integers(0, len(genome) - readlen, size=n_reads)
+    idx = starts[:, None] + np.arange(readlen)[None, :]
+    out = np.full((n_reads, BENCH_PADLEN), 4, dtype=np.uint8)
+    out[:, :readlen] = genome[idx]
+    return out
+
+
+def _bench_stack_all(reads):
+    """bench.py's ``stack_all``: [N, PADLEN] -> [NB, BATCH, PADLEN], rows
+    padded with code 4."""
+    NB = -(-len(reads) // BENCH_BATCH)
+    out = np.full((NB * BENCH_BATCH, BENCH_PADLEN), 4, dtype=np.uint8)
+    out[:len(reads)] = reads
+    return out.reshape(NB, BENCH_BATCH, BENCH_PADLEN)
+
+
+def bench_trio(genome_len=BENCH_GENOME_LEN):
+    """bench.py's trio as its ``main`` draws it: (case, mother, father)
+    reads [N, PADLEN] uint8; the case carries 20 de novo SNVs."""
+    rng = np.random.default_rng(BENCH_SEED)
+    genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
+    child = genome.copy()
+    snv_positions = rng.choice(genome_len - 100, size=20,
+                               replace=False) + 50
+    child[snv_positions] = (child[snv_positions] + rng.integers(
+        1, 4, size=len(snv_positions))) % 4
+    case = _bench_tile_reads(child, READLEN, BENCH_COVERAGE, rng)
+    mom = _bench_tile_reads(genome, READLEN, BENCH_COVERAGE, rng)
+    dad = _bench_tile_reads(genome, READLEN, BENCH_COVERAGE, rng)
+    return case, mom, dad
+
+
+def bench_host_pipeline(case_reads, ctrl_reads_list,
+                        tablesize=BENCH_TABLESIZE):
+    """bench.py's ``host_pipeline``: the same count and screen in
+    single-threaded numpy (the port's copy of ``dna.kmer_hashes``).
+    Returns (seconds, interesting k-mers)."""
+    from kevlar_tpu_torch import dna
+    ntables = 4
+
+    def consume(reads):
+        tables = np.zeros((ntables, tablesize), dtype=np.uint8)
+        for i in range(0, len(reads), BENCH_BATCH):
+            chunk = reads[i:i + BENCH_BATCH]
+            h1, h2, valid = dna.kmer_hashes(chunk, KSIZE)
+            h1f = h1[valid]
+            h2f = h2[valid]
+            for t in range(ntables):
+                idx = (h1f + np.uint32(t) * h2f) % np.uint32(tablesize)
+                inc = np.bincount(idx.astype(np.int64), minlength=tablesize)
+                tables[t] = np.minimum(
+                    tables[t].astype(np.int64) + inc, 255).astype(np.uint8)
+        return tables
+
+    def gather(tables, h1, h2):
+        counts = None
+        for t in range(ntables):
+            idx = (h1 + np.uint32(t) * h2) % np.uint32(tablesize)
+            c = tables[t][idx.astype(np.int64)]
+            counts = c if counts is None else np.minimum(counts, c)
+        return counts
+
+    t0 = time.time()
+    all_tables = [consume(r) for r in [case_reads] + ctrl_reads_list]
+    n_interesting = 0
+    for i in range(0, len(case_reads), BENCH_BATCH):
+        chunk = case_reads[i:i + BENCH_BATCH]
+        h1, h2, valid = dna.kmer_hashes(chunk, KSIZE)
+        case_counts = gather(all_tables[0], h1, h2)
+        ok = valid & (case_counts >= BENCH_CASEMIN)
+        for tb in all_tables[1:]:
+            ok &= gather(tb, h1, h2) <= BENCH_CTRLMAX
+        n_interesting += int(ok.sum())
+    return time.time() - t0, n_interesting
+
+
+def _read_packed_stack(fastq):
+    """A FASTQ through the port's reader into ``kevlar_tpu``'s wire format:
+    (packed [NB, BATCH, PADLEN/4], badmask [NB, BATCH, PADLEN/8], lengths
+    [NB, BATCH] int32 (0 for padding rows), reads)."""
+    from kevlar_tpu_torch.batch import native_base_batches, pack_bases
+    packed, bad, lens = [], [], []
+    nreads = 0
+    for bases, lengths in native_base_batches(fastq, BENCH_BATCH):
+        if bases.shape[1] != BENCH_PADLEN:
+            raise AssertionError('{}: rows of {} bases, not {}'.format(
+                fastq, bases.shape[1], BENCH_PADLEN))
+        p, b = pack_bases(bases)
+        packed.append(p)
+        bad.append(b)
+        row = np.zeros(BENCH_BATCH, np.int32)
+        row[:len(lengths)] = lengths
+        lens.append(row)
+        nreads += len(lengths)
+    return np.stack(packed), np.stack(bad), np.stack(lens), nreads
+
+
+def _unsynced(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('error')``: any
+    operation in it that waits on the card raises."""
+    import torch
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _valid_windows(packed, bad, ksize):
+    """Windows of every row of a packed stack on the card that hold no
+    code 4 (what the consume counts), by torch ops outside the program."""
+    import torch
+    from kevlar_tpu_torch.ops import hashing
+    total = torch.zeros((), dtype=torch.int64, device=packed.device)
+    for p, b in zip(packed, bad):
+        codes = hashing.unpack_bases(p, b, BENCH_PADLEN)
+        cum = torch.nn.functional.pad(
+            torch.cumsum((codes >= 4).to(torch.int32), 1), (1, 0))
+        total += ((cum[:, ksize:] - cum[:, :-ksize]) == 0).sum()
+    return int(total)
+
+
+def _program_bound(stacks, windows, ntables, tablesize):
+    """(bound_ms, bound_by) of the count and screen on this run's data:
+    every packed stack read once for its count and the case's again for
+    its screen; each valid window's update in each table reads and writes
+    its sector (the consume); each accumulator read and its tables written
+    once, the tables read and the words written once (the pack); each
+    valid case window's word in each table read as its sector (the
+    screen); the hits' outputs are small beside these."""
+    S = len(stacks)
+    nwords = -(-S // 4)
+    stack_bytes = [sum(x.nbytes for x in s) for s in stacks]
+    nbytes = sum(stack_bytes) + stack_bytes[0]
+    nbytes += sum(windows) * ntables * 2 * SECTOR
+    nbytes += S * ntables * tablesize * (4 + 1)
+    if S > 1:
+        nbytes += ntables * tablesize * (S + 4 * nwords)
+    nbytes += windows[0] * ntables * nwords * SECTOR
+    nops = (sum(windows) + windows[0]) * (K1_OPS_PER_WINDOW +
+                                          ntables * K2_OPS_PER_PROBE)
+    return _bound(nbytes, nops)
+
+
+def _drive_program(device, stacks, lens, nreads, tablesize, label,
+                   plain=False, reps=3):
+    """Copy the packed ``stacks`` ((packed, badmask) per sample, the case
+    first) and the case's ``lens`` to the card, run
+    ``count_and_screen_stack_packed`` once warm and ``reps`` times timed
+    (each under the sync debug mode's 'error', ending in one
+    synchronise), and with ``plain`` once more with the kernels' plain
+    versions, every output and table equal.  Returns the walls, the
+    launches of one run, the interesting k-mers and the bound."""
+    import torch
+    from kevlar_tpu_torch.ops import hashing, kmer_cuda, novel_ops, \
+        sketch_ops
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dev = [tuple(torch.from_numpy(x).to(device) for x in s) for s in stacks]
+    dlens = torch.from_numpy(lens).to(device)
+    torch.cuda.synchronize()
+    h2d_ms = 1e3 * (time.time() - t0)
+    kw = dict(L=BENCH_PADLEN, ksize=KSIZE, tablesize=tablesize, ntables=4,
+              maxcount=255, casemin=BENCH_CASEMIN, ctrlmax=BENCH_CTRLMAX)
+
+    def run():
+        return novel_ops.count_and_screen_stack_packed(
+            dev[0][0], dev[0][1], tuple(p for p, _ in dev[1:]),
+            tuple(b for _, b in dev[1:]), dlens, **kw)
+
+    for name in kmer_cuda.launches:
+        kmer_cuda.launches[name] = 0
+    out = _unsynced(run)
+    torch.cuda.synchronize()
+    launches = dict(kmer_cuda.launches)
+    for name in PROGRAM_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError('{}: the program launched no {} kernel'
+                                 .format(label, name))
+    walls = []
+    for _ in range(reps):
+        del out
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = _unsynced(run)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    interesting = int(out[0][2].sum())
+    # one more run under torch.profiler: the card's busy share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        prof_wall = time.time() - t0
+    busy = _print_busy('count_and_screen_stack_packed, {}, profiled run'
+                       .format(label), prof, prof_wall) / prof_wall
+    del prof
+    result = dict(h2d_ms=h2d_ms, walls=walls, ms=1e3 * min(walls),
+                  busy=busy,
+                  launches=launches, interesting=interesting,
+                  reads_per_s=(2 * nreads[0] + sum(nreads[1:])) /
+                  min(walls))
+    windows = [_valid_windows(p, b, KSIZE) for p, b in dev]
+    result['bound_ms'], result['bound_by'] = _program_bound(
+        stacks, windows, 4, tablesize)
+    if plain:
+        kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.consume_cuda,
+                   kmer_cuda.gather_words_cuda)
+        kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
+        kmer_cuda.consume_cuda = sketch_ops.consume_hashes_plain
+        kmer_cuda.gather_words_cuda = sketch_ops.gather_counts_words_plain
+        before = dict(kmer_cuda.launches)
+        try:
+            t0 = time.time()
+            want = run()
+            torch.cuda.synchronize()
+            result['plain_s'] = time.time() - t0
+        finally:
+            (kmer_cuda.kmer_hashes_cuda, kmer_cuda.consume_cuda,
+             kmer_cuda.gather_words_cuda) = kernels
+        if dict(kmer_cuda.launches) != before:
+            raise AssertionError('{}: the plain run launched a kernel'
+                                 .format(label))
+        got_all = list(out[0]) + [out[1]] + list(out[2])
+        want_all = list(want[0]) + [want[1]] + list(want[2])
+        names = ['hit_idx', 'hit_abunds', 'n_hits', 'discard', 'skip',
+                 'case tables'] + ['control {} tables'.format(i)
+                                   for i in range(len(out[2]))]
+        result['err'] = max(_max_diff(g, w, '{} program, {}'.format(
+            label, name)) for g, w, name in zip(got_all, want_all, names))
+    del out, dev
+    print('[smoke] count_and_screen_stack_packed, {}: {} samples of {} '
+          'reads, [NB, {}, {}] stacks; H2D {:.1f} ms; program best of {} '
+          '{:.1f} ms ({}), one synchronise, no sync inside (sync debug '
+          'mode error); count_novel_reads_per_s {:,.0f}; interesting k-mers '
+          '{:,}; bound {:.1f} ms by {}; launches a run: {}{}'.format(
+              label, len(stacks), ', '.join('{:,}'.format(n) for n in nreads),
+              BENCH_BATCH, BENCH_PADLEN, result['h2d_ms'], reps,
+              result['ms'], ', '.join('{:.1f}'.format(1e3 * w)
+                                      for w in walls),
+              result['reads_per_s'], interesting, result['bound_ms'],
+              result['bound_by'], ', '.join(
+                  '{} {}'.format(n, launches[n]) for n in PROGRAM_KERNELS),
+              '; plain versions {:.1f} s, every output and table equal '
+              '(error {})'.format(result['plain_s'], result['err'])
+              if plain else ''), flush=True)
+    return result
+
+
+def phase_count_screen(device, reads, tablesize=HELIUM_TABLESIZE,
+                       bench_genome_len=BENCH_GENOME_LEN):
+    """Phase 13: ``count_and_screen_stack_packed`` on the card at
+    bench.py's trio and on phase 6's helium trio."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kevlar_tpu_torch.batch import pack_bases
+    smi = _nvidia_smi()
+
+    # (a) bench.py's trio, its interesting k-mers against host_pipeline's
+    case, mom, dad = bench_trio(bench_genome_len)
+    lens = np.full((-(-len(case) // BENCH_BATCH), BENCH_BATCH), READLEN,
+                   np.int32)
+    lens.reshape(-1)[len(case):] = 0
+    stacks = [pack_bases(_bench_stack_all(r)) for r in (case, mom, dad)]
+    bench = _drive_program(device, stacks, lens,
+                           (len(case), len(mom), len(dad)), BENCH_TABLESIZE,
+                           "bench.py's trio")
+    _, host_hits = bench_host_pipeline(case, [mom, dad])
+    if host_hits != bench['interesting']:
+        raise AssertionError('bench.py\'s trio: {} interesting k-mers, '
+                             'host_pipeline {}'.format(bench['interesting'],
+                                                       host_hits))
+    # host_pipeline on bench.py's subset, best of 3, as bench.py times it
+    sub = max(len(case) // 8, BENCH_BATCH)
+    host_s = min(bench_host_pipeline(case[:sub], [mom[:sub], dad[:sub]])[0]
+                 for _ in range(3))
+    bench['host_ms'] = 1e3 * host_s
+    bench['host_reads'] = 4 * sub
+    bench['vs_baseline'] = bench['reads_per_s'] / (4 * sub / host_s)
+    print('[smoke] bench.py\'s trio: interesting k-mers == host_pipeline\'s '
+          '({:,}); host_pipeline on {:,} reads {:.1f} ms (best of 3), '
+          'vs_baseline {:.2f}; {}'.format(
+              host_hits, 4 * sub, bench['host_ms'], bench['vs_baseline'],
+              smi), flush=True)
+
+    # (b) helium: the trio's FASTQ through the port's reader, packed on
+    # the host, three samples at once
+    t0 = time.time()
+    with ThreadPoolExecutor(len(SAMPLES)) as pool:
+        read = list(pool.map(_read_packed_stack,
+                             [reads[who] for who in SAMPLES]))
+    print('[smoke] helium stacks read and packed in {:.1f} s'.format(
+        time.time() - t0), flush=True)
+    helium = _drive_program(
+        device, [(p, b) for p, b, _, _ in read], read[0][2],
+        tuple(n for _, _, _, n in read), tablesize, 'helium', plain=True)
+    print('[smoke] {}'.format(smi), flush=True)
+    return dict(bench=bench, helium=helium, launches=helium['launches'])
 
 
 def _cc_graphs(rng):
@@ -3633,6 +4032,43 @@ def compare_parent(parent):
     return 0
 
 
+def count_screen_probe():
+    """``--count-screen``: the word gather's checks at phase 5's shape and
+    the fused program at bench.py's trio (with the plain run) and on
+    random reads of the helium stacks' shape (611 batches a sample), each
+    under the sync debug mode; a short card check of phase 13 without the
+    rest of the smoke."""
+    from kevlar_tpu_torch.batch import pack_bases
+    from kevlar_tpu_torch.ops import kmer_cuda
+    print(_nvidia_smi(), flush=True)
+    kmer_cuda.build(force=True)
+    rng = np.random.default_rng(SEED + 13)
+    samples = [_random_sketch(rng, 8, HELIUM_TABLESIZE, 'cuda')
+               for _ in range(3)]
+    _word_gather_checks('cuda', rng, samples)
+    del samples
+    case, mom, dad = bench_trio()
+    lens = np.full((-(-len(case) // BENCH_BATCH), BENCH_BATCH), READLEN,
+                   np.int32)
+    lens.reshape(-1)[len(case):] = 0
+    stacks = [pack_bases(_bench_stack_all(r)) for r in (case, mom, dad)]
+    bench = _drive_program('cuda', stacks, lens,
+                           (len(case), len(mom), len(dad)), BENCH_TABLESIZE,
+                           "bench.py's trio", plain=True)
+    _, host_hits = bench_host_pipeline(case, [mom, dad])
+    if host_hits != bench['interesting']:
+        raise AssertionError('{} interesting k-mers, host_pipeline {}'
+                             .format(bench['interesting'], host_hits))
+    nb = 611
+    stacks = [pack_bases(rng.integers(0, 4, (nb, BENCH_BATCH, BENCH_PADLEN),
+                                      dtype=np.uint8)) for _ in range(3)]
+    _drive_program('cuda', stacks,
+                   np.full((nb, BENCH_BATCH), BENCH_PADLEN, np.int32),
+                   (nb * BENCH_BATCH,) * 3, HELIUM_TABLESIZE,
+                   'random reads of the helium stacks\' shape')
+    return 0
+
+
 def build_all():
     """Phase 2: compile every library from the checkout's sources, all at
     once (one compiler process each); returns {library: seconds}."""
@@ -3664,6 +4100,8 @@ def main():
         return compare_parent(sys.argv[2])
     if sys.argv[1:2] == ['--profile-workflow']:
         return profile_workflow()
+    if sys.argv[1:2] == ['--count-screen']:
+        return count_screen_probe()
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -3692,6 +4130,7 @@ def main():
     kmer.update(sharded_kernel_checks(device))
     with tempfile.TemporaryDirectory() as workdir:
         trio = phase_trio(device, workdir)
+        screen = phase_count_screen(device, trio['reads'])
         phase_workflow(device, workdir, trio['refr'], trio['denovo'],
                        trio['reads'])
         shard = phase_sharded(device, workdir, trio['reads'])
@@ -3716,6 +4155,10 @@ def main():
              'kmer_hashes', 'kevlar_tpu/ops/hashing.py:82', trio),
             ('K2', 'gather_counts (Count-Min min over tables, all samples)',
              'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60', trio),
+            ('K2 words', 'gather_counts_words (Count-Min min over tables, '
+             'four samples a uint32 word; the fused count and screen)',
+             'gather_counts_words', 'kevlar_tpu/ops/sketch_ops.py:105',
+             screen),
             ('K3 consume', 'consume (Count-Min scatter-add from hashes: '
              'predicates, bucket indices, atomic adds)', 'consume',
              'tools/scatter_probe.py:76', trio),
@@ -3766,7 +4209,29 @@ def main():
         'replaces': 'kevlar_tpu/ops/simlike_ops.py:54',
         'launches': sim['launches'], 'ms': sim['ms'],
         'host_ms': sim['host_ms'], 'host_bundles': sim['host_n'],
-        'bound_ms': sim['bound_ms'], 'bound_by': sim['bound_by']}]
+        'bound_ms': sim['bound_ms'], 'bound_by': sim['bound_by']}, {
+        'name': 'count_and_screen_stack_packed (B.1: every sample counted '
+                'with K1 + kt_consume, the tables packed four to a word, the '
+                'case screened with K1 + the word gather, compacted to a '
+                'fixed capacity; helium trio, and bench.py\'s trio)',
+        'route': 'torch', 'source': 'kevlar_tpu_torch/ops/novel_ops.py',
+        'replaces': 'kevlar_tpu/ops/novel_ops.py:171',
+        'launches': screen['launches'],
+        'ms': screen['helium']['ms'],
+        'bench_trio_ms': screen['bench']['ms'],
+        'h2d_ms': screen['helium']['h2d_ms'],
+        'bench_trio_h2d_ms': screen['bench']['h2d_ms'],
+        'count_novel_reads_per_s': screen['helium']['reads_per_s'],
+        'bench_trio_count_novel_reads_per_s': screen['bench']['reads_per_s'],
+        'host_ms': screen['bench']['host_ms'],
+        'host_reads': screen['bench']['host_reads'],
+        'vs_baseline': screen['bench']['vs_baseline'],
+        'max_abs_err': screen['helium']['err'],
+        'bound_ms': screen['helium']['bound_ms'],
+        'bound_by': screen['helium']['bound_by'],
+        'bench_trio_bound_ms': screen['bench']['bound_ms'],
+        'device_busy': screen['helium']['busy'],
+        'bench_trio_device_busy': screen['bench']['busy']}]
     print(json.dumps({'programs': programs}))
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -70,7 +70,10 @@ def bedstream(bedfilelist):
 
 
 # Core substrate
-from kevlar_tpu_torch.dna import revcom, revcommin  # noqa: E402
+from kevlar_tpu_torch.dna import revcom, revcommin, same_seq  # noqa: E402
+from kevlar_tpu_torch.support import (  # noqa: E402
+    Timer, ProgressIndicator, MutableString,
+)
 from kevlar_tpu_torch.sequence import (  # noqa: E402
     Record, KmerOfInterest, parse_augmented_fastx, print_augmented_fastx,
 )
@@ -87,6 +90,7 @@ _STAGE_MODULES = (
     'cigar', 'alac', 'varfilter', 'simlike', 'vcf', 'readgraph', 'readpair',
     'intervalforest', 'oxli', 'workflow', 'cli', 'ops', 'native',
     'split', 'unband', 'mutate', 'gentrio', 'mutsim', 'evaluate', 'dist',
+    'parallel', 'workflows',
 )
 
 

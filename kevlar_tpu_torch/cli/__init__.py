@@ -38,19 +38,10 @@ def memory_setting(value):
     return number * multipliers[suffix]
 
 
-def _one_thread(value):
-    """``-t`` of the stages that run on one device: only 1 is accepted."""
-    if value.strip() != '1':
-        raise argparse.ArgumentTypeError(
-            'only 1 is supported (the stage runs on one device), got '
-            '"{}"'.format(value))
-    return 1
-
-
 def _add_threads_arg(sp):
-    sp.add_argument('-t', '--threads', type=_one_thread, default=1,
-                    metavar='T', help='kept for kevlar_tpu\'s command line; '
-                    'only 1 is supported')
+    sp.add_argument('-t', '--threads', type=int, default=1, metavar='T',
+                    help='kept for kevlar_tpu\'s command line, which takes '
+                    'any number and ignores it')
 
 
 def _add_shards_arg(sp):

@@ -30,6 +30,16 @@
 //   ShardedSketch): a bucket outside it reads 255, so that a minimum over
 //   the shards picks the owner's count (kevlar_tpu/parallel/sharded.py ::
 //   _local_gather); the whole space is lo = 0, span = tablesize.
+// K2 words, kt_gather_words, replaces
+//   kevlar_tpu/ops/sketch_ops.py :: gather_counts_multi over packed words
+//   (:105, the screen of novel_ops.count_and_screen_stack_packed).  The
+//   samples' 8-bit tables are interleaved four to a uint32 word
+//   (pack_sample_tables), so one 4-byte load serves four samples: a thread
+//   computes its T bucket indices once, loads one word a word tensor and
+//   table, takes the bytewise minimum over the tables (__vminu4) and
+//   writes one byte a sample.  Bound by bytes: ceil(S/4) x T random
+//   sectors a k-mer against K2's S x T, for a copy of the tables (4 bytes
+//   a bucket) made once a screen.
 // K3 kt_consume and kt_scatter_add replace
 //   tools/scatter_probe.py :: pallas_scatter_add (B10, the pl.pallas_call at
 //   :76), the core of sketch_ops._scatter_hashes_i32, and kt_consume also
@@ -416,6 +426,88 @@ __global__ void gather_counts_any_kernel(
             m = c < m ? c : m;
         }
         out[(int64_t)s * n + g] = (uint8_t)m;
+    }
+}
+
+// ------------------------------------------------------------- K2 words
+
+constexpr int kMaxWords = 4;     // word tensors one launch serves
+
+// Interleaved sample tables (sketch_ops.pack_sample_tables): word tensor w
+// is [ntables, tablesize] uint32, and byte j of its word at bucket (t, i)
+// is sample 4w + j's 8-bit counter there.
+struct WordsArgs {
+    const uint32_t *words[kMaxWords];
+};
+
+// A word through the read-only path, not kept in L1 (as load_streamed).
+__device__ __forceinline__ uint32_t load_word_streamed(const uint32_t *p) {
+    uint32_t v;
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+
+// Sample 4w + j's count is the minimum over the tables of byte j of word
+// tensor w's words: the T bucket indices once (every word tensor shares
+// them), then all W x T word loads, then per word tensor a bytewise
+// minimum over the tables (__vminu4: four samples in one instruction),
+// split into its samples' bytes.  W word tensors (the first nwords live);
+// T tables, or T = 0 for any table count (the loops then run as the data
+// says).
+template <int W, int T>
+__global__ void gather_words_kernel(const __grid_constant__ WordsArgs args,
+                                    int nwords, int nsamples, int ntables,
+                                    uint32_t tablesize, uint32_t magic,
+                                    const int32_t *__restrict__ h1,
+                                    const int32_t *__restrict__ h2,
+                                    int64_t n, uint8_t *__restrict__ out) {
+    int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= n) return;
+    uint32_t a = (uint32_t)h1[g];
+    uint32_t b = (uint32_t)h2[g];
+    uint32_t m[W];
+    if constexpr (T > 0) {
+        uint32_t idx[T], word[W][T];
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+            idx[t] = mod_by(a + (uint32_t)t * b, tablesize, magic);
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            if (w < nwords) {
+#pragma unroll
+                for (int t = 0; t < T; ++t)
+                    word[w][t] = load_word_streamed(
+                        args.words[w] + (int64_t)t * tablesize + idx[t]);
+            }
+        }
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            m[w] = word[w][0];
+#pragma unroll
+            for (int t = 1; t < T; ++t) m[w] = __vminu4(m[w], word[w][t]);
+        }
+    } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) m[w] = 0xffffffffu;
+        for (int t = 0; t < ntables; ++t) {
+            uint32_t idx = mod_by(a + (uint32_t)t * b, tablesize, magic);
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+                if (w < nwords) {
+                    m[w] = __vminu4(m[w], load_word_streamed(
+                        args.words[w] + (int64_t)t * tablesize + idx));
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            int s = 4 * w + j;
+            if (s < nsamples)
+                out[(int64_t)s * n + g] = (uint8_t)(m[w] >> (8 * j));
+        }
     }
 }
 
@@ -980,6 +1072,23 @@ int launch_gather_bits(const GatherArgs &args, int nsamples,
     }
 }
 
+template <int W>
+int launch_gather_words(const WordsArgs &args, int nwords, int nsamples,
+                        int ntables, uint32_t tablesize, uint32_t magic,
+                        const int32_t *h1, const int32_t *h2, int64_t n,
+                        uint8_t *out, cudaStream_t stream) {
+    if (ntables == 4) {
+        gather_words_kernel<W, 4><<<blocks_for(n), kThreads, 0, stream>>>(
+            args, nwords, nsamples, ntables, tablesize, magic, h1, h2, n,
+            out);
+    } else {
+        gather_words_kernel<W, 0><<<blocks_for(n), kThreads, 0, stream>>>(
+            args, nwords, nsamples, ntables, tablesize, magic, h1, h2, n,
+            out);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1048,6 +1157,39 @@ int kt_gather_counts(const void *args, int nsamples, const void *h1,
         return launch_gather_bits<1>(a, nsamples, p1, p2, n, o, st);
     default:
         return launch_gather_bits<0>(a, nsamples, p1, p2, n, o, st);
+    }
+}
+
+// The word gather: `words` points to nwords (1 .. kMaxWords) device
+// pointers, each to a [ntables, tablesize] uint32 word tensor whose byte j
+// holds sample 4w + j; out is uint8 [nsamples, n] with nsamples in
+// (4 * (nwords - 1), 4 * nwords].  `magic` as for kt_gather_counts.
+int kt_gather_words(const void *const *words, int nwords, int nsamples,
+                    int ntables, int64_t tablesize, uint32_t magic,
+                    const void *h1, const void *h2, int64_t n, void *out,
+                    void *stream) {
+    if (n == 0) return 0;
+    if (nwords < 1 || nwords > kMaxWords || nsamples <= 4 * (nwords - 1) ||
+        nsamples > 4 * nwords || ntables < 1 || tablesize < 1 ||
+        tablesize >= (int64_t)1 << 31)
+        return (int)cudaErrorInvalidValue;
+    WordsArgs a;
+    for (int w = 0; w < kMaxWords; ++w)
+        a.words[w] = w < nwords ? (const uint32_t *)words[w] : nullptr;
+    const int32_t *p1 = (const int32_t *)h1, *p2 = (const int32_t *)h2;
+    uint8_t *o = (uint8_t *)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    uint32_t z = (uint32_t)tablesize;
+    switch (nwords) {
+    case 1:
+        return launch_gather_words<1>(a, 1, nsamples, ntables, z, magic, p1,
+                                      p2, n, o, st);
+    case 2:
+        return launch_gather_words<2>(a, 2, nsamples, ntables, z, magic, p1,
+                                      p2, n, o, st);
+    default:
+        return launch_gather_words<kMaxWords>(a, nwords, nsamples, ntables,
+                                              z, magic, p1, p2, n, o, st);
     }
 }
 

@@ -38,6 +38,13 @@ def revcommin(seq):
     return seq if seq <= rc else rc
 
 
+def same_seq(seq1, seq2, seq2revcom=None):
+    """Whether ``seq1`` is ``seq2`` or its reverse complement."""
+    if seq2revcom is None:
+        seq2revcom = revcom(seq2)
+    return seq1 == seq2 or seq1 == seq2revcom
+
+
 def encode(sequence):
     """Encode a DNA string to a uint8 array of 2-bit codes (4 = invalid)."""
     raw = np.frombuffer(sequence.encode('ascii'), dtype=np.uint8)

@@ -1,17 +1,20 @@
-"""Compiled components: the build helper, the C++ assembler binding and
-the FASTA/FASTQ batch reader.
+"""Compiled components: the build helper, the C++ assembler binding, the
+single-pair aligner and the FASTA/FASTQ batch reader.
 
 Every library is compiled at first use into ``BUILD_DIR`` (git-ignored,
 inside the package) and loaded with ``ctypes``.  A failed build raises:
 nothing falls back to a slower engine (the port has no Python-parser
 fallback for counting).
 
-Both C++ sources are the port's own, under ``csrc/`` (copies of
-``kevlar_tpu``'s, equal but for the reference's path in one comment, so
-that the port builds without the JAX package's files):
+The C++ sources are the port's own, under ``csrc/`` (copies of
+``kevlar_tpu``'s, equal but for comments, so that the port builds without
+the JAX package's files):
 
 - the assembler from ``csrc/asm.cpp`` alone (no other source, no zlib); its
   ``kt_assemble`` and ``kt_correct`` entry points are bound;
+- the aligner from ``csrc/align.cpp`` alone, a library of its own
+  (``libkevlar_hostalign.so``, apart from the CUDA aligner's); its
+  ``kt_align`` entry point is bound as :func:`align`;
 - the reader from ``csrc/fastx.cpp`` alone, linked with ``-lz`` (plain and
   gzipped input); its ``kt_fastx_*`` entry points are bound.
 """
@@ -31,9 +34,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, '_build')
 ASM_SOURCE = os.path.join(_HERE, 'csrc', 'asm.cpp')
 FASTX_SOURCE = os.path.join(_HERE, 'csrc', 'fastx.cpp')
+ALIGN_SOURCE = os.path.join(_HERE, 'csrc', 'align.cpp')
 
 _lib = None
 _fastx_lib = None
+_align_lib = None
 
 
 def nvcc():
@@ -101,6 +106,14 @@ def build_fastx(force=False):
         libs=['-lz'], force=force)
 
 
+def build_align(force=False):
+    """Compile the single-pair aligner library. Returns its path."""
+    return build_shared(
+        'libkevlar_hostalign.so',
+        ['g++', '-O3', '-shared', '-fPIC', '-std=c++17'], [ALIGN_SOURCE],
+        force=force)
+
+
 def load():
     """Load (building if needed) the assembler library."""
     global _lib
@@ -144,6 +157,32 @@ def assemble(records, min_overlap=45):
     for p in pieces:
         if p:
             yield p.decode()
+
+
+def load_align():
+    """Load (building if needed) the single-pair aligner library."""
+    global _align_lib
+    if _align_lib is None:
+        lib = ctypes.CDLL(build_align())
+        lib.kt_align.restype = ctypes.c_int
+        lib.kt_align.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int]
+        _align_lib = lib
+    return _align_lib
+
+
+def align(target, query, match=1, mismatch=2, gapopen=5, gapextend=0):
+    """(cigar, score) of the global affine-gap alignment of ``query``
+    against ``target``, with exact ksw2 (``ksw_extz``) semantics."""
+    lib = load_align()
+    cap = 2 * (len(target) + len(query)) + 64
+    cigar = ctypes.create_string_buffer(cap)
+    score = lib.kt_align(target.encode(), len(target), query.encode(),
+                         len(query), match, mismatch, gapopen, gapextend,
+                         cigar, cap)
+    return cigar.value.decode(), score
 
 
 def load_fastx():

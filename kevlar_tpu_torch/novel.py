@@ -30,6 +30,10 @@ from kevlar_tpu_torch.parallel import (ShardedSketch, make_mesh,
 from kevlar_tpu_torch.support import ProgressIndicator, Timer
 
 
+class KevlarCaseSampleMismatchError(ValueError):
+    pass
+
+
 class _LazyRecords:
     """Record accessor over native-reader arrays: Records are materialised
     only for reads that actually carry novel k-mers."""

@@ -17,8 +17,11 @@ gapopen + L*gapextend.
 
 Implementations, all bit-identical (copied from ``kevlar_tpu.ops.align``):
 - ``align_scalar``  — direct scalar loop (ground truth, tiny inputs/tests)
-- ``align_numpy``   — anti-diagonal wavefront, vectorised numpy (host path
-                      for a single pair)
+- ``align_numpy``   — anti-diagonal wavefront, vectorised numpy (the
+                      single-pair aligner's plain twin)
+- ``align``         — the single-pair host aligner: the C++ copy
+                      ``csrc/align.cpp`` through ``native.align``, as
+                      ``kevlar_tpu``'s default (a failed build raises)
 - ``align_cuda.align_batch`` — the batched wavefront: a CUDA kernel on a
                       GPU, its plain PyTorch version on the CPU
 
@@ -253,10 +256,18 @@ def align_numpy(target, query, match=1, mismatch=2, gapopen=5, gapextend=0):
     return _backtrack(z, tlen, qlen), score
 
 
+def align(target, query, match=1, mismatch=2, gapopen=5, gapextend=0):
+    """(cigar, score) of one pair with the C++ aligner
+    (:func:`kevlar_tpu_torch.native.align`); ``align_numpy`` is its
+    plain twin."""
+    from kevlar_tpu_torch import native
+    return native.align(target, query, match, mismatch, gapopen, gapextend)
+
+
 def align_both_strands(target_seq, query_seq, match=1, mismatch=2, gapopen=5,
                        gapextend=0, revcom=None):
-    """Align query and its reverse complement with the numpy wavefront;
-    keep the higher score.
+    """Align query and its reverse complement with :func:`align`; keep the
+    higher score.
 
     Parity with kevlar/alignment.pyx:27-44 (ties keep the forward strand).
     Returns (score, cigar, strand).
@@ -264,10 +275,10 @@ def align_both_strands(target_seq, query_seq, match=1, mismatch=2, gapopen=5,
     if revcom is None:
         from kevlar_tpu_torch.dna import revcom as _revcom
         revcom = _revcom
-    cigar1, score1 = align_numpy(target_seq, query_seq, match, mismatch,
-                                 gapopen, gapextend)
-    cigar2, score2 = align_numpy(target_seq, revcom(query_seq), match,
-                                 mismatch, gapopen, gapextend)
+    cigar1, score1 = align(target_seq, query_seq, match, mismatch, gapopen,
+                           gapextend)
+    cigar2, score2 = align(target_seq, revcom(query_seq), match, mismatch,
+                           gapopen, gapextend)
     if score2 > score1:
         return score2, cigar2, -1
     return score1, cigar1, 1

@@ -13,6 +13,13 @@
   per counter; replaces ``kevlar_tpu/ops/sketch_ops.py::gather_counts``
   and ``gather_counts_multi``.  Plain version:
   :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_multi_plain`.
+- **K2 words** :func:`gather_words_cuda` (``kt_gather_words``) — the same
+  minimum over packed sample tables, four samples' 8-bit counters to a
+  uint32 word (:func:`kevlar_tpu_torch.ops.sketch_ops.pack_sample_tables`),
+  so one 4-byte load serves four samples; replaces
+  ``kevlar_tpu/ops/sketch_ops.py::gather_counts_multi`` over packed words
+  (``:105``), the screen of ``count_and_screen_stack_packed``.  Plain
+  version: :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_words_plain`.
 - **K3**, two entries over the same atomic add into a resident int32
   accumulator; both replace ``tools/scatter_probe.py::pallas_scatter_add``
   (the ``pl.pallas_call`` at ``:76``, B10).  :func:`consume_cuda` is the
@@ -62,11 +69,13 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 # Kernel launches by kernel, for runs that must show the main path went
 # through the kernels.
 launches = {'kmer_hashes': 0, 'gather_counts': 0, 'gather_counts_range': 0,
-            'consume': 0, 'consume_range': 0, 'scatter_add': 0,
+            'gather_counts_words': 0, 'consume': 0, 'consume_range': 0, 'scatter_add': 0,
             'scatter_add_parts': 0, 'route': 0}
 
 # Sketches one K2 launch serves (``kMaxSamples`` in the source).
 MAX_SAMPLES = 8
+# Word tensors one word-gather launch serves (``kMaxWords``): 16 samples.
+MAX_WORDS = 4
 # Longest row K1 takes: a block keeps one whole row in shared memory.
 MAX_ROW_BASES = 200_000
 
@@ -138,6 +147,9 @@ def _load():
         lib.kt_kmer_hashes.argtypes = [vp, cl, ci, ci, vp, vp, vp, vp, vp]
         lib.kt_gather_counts.restype = ci
         lib.kt_gather_counts.argtypes = [vp, ci, vp, vp, cl, vp, vp]
+        lib.kt_gather_words.restype = ci
+        lib.kt_gather_words.argtypes = [vp, ci, ci, ci, cl, ctypes.c_uint32,
+                                        vp, vp, cl, vp, vp]
         lib.kt_scatter_add.restype = ci
         lib.kt_scatter_add.argtypes = [vp, cl, ci, vp, ci, vp]
         u32 = ctypes.c_uint32
@@ -216,6 +228,30 @@ def gather_counts_cuda(samples, h1, h2):
                 n, out[first:].data_ptr(), stream)
         _raise_on(lib, 'kt_gather_counts', err)
         launches['gather_counts_range' if ranged else 'gather_counts'] += 1
+    return out
+
+
+def gather_words_cuda(words, nsamples, h1, h2):
+    """The word gather on checked tensors (see
+    :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_words`; ``words``
+    int32 [T, tablesize] tensors holding the uint32 words): uint8 [S, N],
+    one launch per :data:`MAX_WORDS` word tensors."""
+    lib = _load()
+    dev = h1.device
+    n = h1.numel()
+    ntables, tablesize = words[0].shape
+    out = torch.empty((nsamples, n), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for first in range(0, len(words), MAX_WORDS):
+        chunk = words[first:first + MAX_WORDS]
+        ptrs = (ctypes.c_void_p * len(chunk))(*[w.data_ptr() for w in chunk])
+        with torch.cuda.device(dev):
+            err = lib.kt_gather_words(
+                ptrs, len(chunk), min(nsamples - 4 * first, 4 * len(chunk)),
+                ntables, tablesize, mod_magic(tablesize), h1.data_ptr(),
+                h2.data_ptr(), n, out[4 * first:].data_ptr(), stream)
+        _raise_on(lib, 'kt_gather_words', err)
+        launches['gather_counts_words'] += 1
     return out
 
 

@@ -34,7 +34,13 @@ outside it, the consume adds only inside it.  :func:`route` bins hashed
 k-mers by the shard that owns their bucket, each bin in k-mer order, for a
 sharded sketch's routed consume.
 
+:func:`pack_sample_tables` interleaves S samples' 8-bit tables four to a
+word, and :func:`gather_counts_words` gathers every sample's count from
+those words, one 4-byte load for four samples (the screen of
+:func:`kevlar_tpu_torch.ops.novel_ops.count_and_screen_stack_packed`).
+
 Dispatch: on CUDA tensors :func:`gather_counts_multi`,
+:func:`gather_counts_words`,
 :func:`consume_hashes`, :func:`mark_hashes`, :func:`scatter_add`,
 :func:`scatter_add_parts` and :func:`route` launch their kernels; on CPU
 tensors they run the plain versions beside them.  No path falls back from
@@ -185,6 +191,87 @@ def gather_counts_plain(tables, h1, h2, counter_bits, tablesize, lo=0,
         c = torch.where(own, c, 255)
         counts = c if counts is None else torch.minimum(counts, c)
     return counts
+
+
+def pack_sample_tables(tables_list):
+    """Interleave S samples' uint8 ``[ntables, tablesize]`` tables (8-bit
+    counters, one shape, one device) into ``ceil(S/4)`` word tensors:
+    byte ``s % 4`` of word tensor ``s // 4`` at bucket ``(t, i)`` is sample
+    s's counter there (0 where a last word has fewer than four samples).
+    Counterpart of ``kevlar_tpu.ops.sketch_ops.pack_sample_tables``; the
+    words are uint32 values held in int32 tensors, as the port holds the
+    uint32 hashes.  Built on the tables' device, four samples a byte
+    column of a ``[ntables, tablesize, 4]`` uint8 tensor viewed as int32
+    (byte j is the word's bits ``8j .. 8j+7`` on a little-endian machine,
+    which the CPU and the card both are)."""
+    if not tables_list:
+        raise ValueError('no tables to pack')
+    first = tables_list[0]
+    for tables in tables_list:
+        if tables.dtype != torch.uint8 or tables.dim() != 2 or \
+                tables.shape != first.shape or tables.device != first.device:
+            raise ValueError('the tables to pack must be uint8 [ntables, '
+                             'tablesize] tensors of one shape and device')
+    words = []
+    for w in range(0, len(tables_list), 4):
+        group = torch.zeros(tuple(first.shape) + (4,), dtype=torch.uint8,
+                            device=first.device)
+        for j, tables in enumerate(tables_list[w:w + 4]):
+            group[..., j] = tables
+        words.append(group.view(torch.int32).reshape(first.shape))
+    return tuple(words)
+
+
+def gather_counts_words(words, nsamples, h1, h2):
+    """Min-over-tables count of each (h1, h2) pair in each of ``nsamples``
+    samples packed into ``words`` (:func:`pack_sample_tables`): uint8 [S,
+    N].  Counterpart of ``kevlar_tpu.ops.sketch_ops.gather_counts_multi``
+    over packed words (``:105``); the port's :func:`gather_counts_multi`
+    takes sketches as they lie.  ``h1``/``h2`` [N] int32 holding uint32
+    bits, on the words' device.  CUDA tensors launch ``kt_gather_words``,
+    CPU tensors run :func:`gather_counts_words_plain`."""
+    if not words or len(words) != -(-nsamples // 4):
+        raise ValueError('{} samples need {} word tensors, got {}'.format(
+            nsamples, -(-nsamples // 4), len(words)))
+    for w in words:
+        if w.dtype != torch.int32 or w.dim() != 2 or \
+                not w.is_contiguous() or w.shape != words[0].shape or \
+                w.device != h1.device:
+            raise ValueError('word tensors must be contiguous int32 [ntables, '
+                             'tablesize] tensors of one shape, on h1\'s '
+                             'device')
+    if not 1 <= words[0].shape[1] < (1 << 31):
+        raise ValueError('tablesize must be in [1, 2^31)')
+    for name, x in (('h1', h1), ('h2', h2)):
+        if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError('{} must be a contiguous 1-D int32 tensor'
+                             .format(name))
+    if h1.shape != h2.shape or h1.device != h2.device:
+        raise ValueError('h1 and h2 differ in shape or device')
+    kind = h1.device.type
+    if kind == 'cuda':
+        return kmer_cuda.gather_words_cuda(words, nsamples, h1, h2)
+    if kind == 'cpu':
+        return gather_counts_words_plain(words, nsamples, h1, h2)
+    raise ValueError('no gather engine for device ' + str(h1.device))
+
+
+def gather_counts_words_plain(words, nsamples, h1, h2):
+    """Plain PyTorch version of ``kt_gather_words``, on any device: per
+    table ``torch.take`` of the words at its bucket index, then each
+    sample's byte and the minimum over the tables."""
+    a = hashing.to_u32(h1)
+    b = hashing.to_u32(h2)
+    ntables, tablesize = words[0].shape
+    idx = [hashing.table_index(a, b, t, tablesize) for t in range(ntables)]
+    counts = []
+    for w, packed in enumerate(words):
+        gathered = torch.stack([torch.take(packed[t], idx[t])
+                                for t in range(ntables)])
+        for s in range(4 * w, min(4 * w + 4, nsamples)):
+            byte = (gathered >> (8 * (s % 4))) & 0xFF
+            counts.append(byte.amin(dim=0).to(torch.uint8))
+    return torch.stack(counts)
 
 
 def scatter_add(acc, idx):
@@ -492,11 +579,13 @@ class Accumulator:
         self._make_room(idx.shape[1])
         scatter_add(self.acc, idx)
 
-    def tables(self):
-        """Close the consume: saturate at the counter width's maximum and
-        pack to the persistent layout."""
-        sat = self.acc.clamp(max=MAXCOUNT[self.counter_bits]).to(
-            torch.uint8)
+    def tables(self, maxcount=None):
+        """Close the consume: saturate at ``maxcount`` (default and at most
+        the counter width's maximum) and pack to the persistent layout."""
+        top = MAXCOUNT[self.counter_bits]
+        if maxcount is not None:
+            top = min(top, maxcount)
+        sat = self.acc.clamp(max=top).to(torch.uint8)
         return pack_rows(sat, self.counter_bits)
 
 

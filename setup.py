@@ -18,7 +18,7 @@ setup(
     entry_points={
         'console_scripts': [
             'kevlar-tpu = kevlar_tpu.cli:main',
-            # the PyTorch + CUDA port (count, novel and alac so far)
+            # the PyTorch + CUDA port: every subcommand but warm
             'kevlar-tpu-torch = kevlar_tpu_torch.cli:main',
             # sandbox utilities (reference setup.py:65 installs
             # kevlar/sandbox/*.py as scripts)

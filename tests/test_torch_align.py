@@ -20,7 +20,8 @@ import torch
 from kevlar_tpu_torch import dna
 from kevlar_tpu_torch.ops import align_cuda
 from kevlar_tpu_torch.ops.align import (
-    NEG_INF, align_both_strands, align_both_strands_batch, align_scalar)
+    NEG_INF, align, align_both_strands, align_both_strands_batch,
+    align_numpy, align_scalar)
 
 GAPS = [(5, 0), (5, 2), (3, 1)]
 
@@ -146,6 +147,30 @@ def test_both_strand_tie_keeps_forward():
     assert [align_both_strands(t, q) for t, q in pairs] == want
     assert got[0][2] == 1 and got[1][2] == -1 and got[2][2] == 1
     assert got[2][0] == align_scalar(pairs[2][0], palindrome)[1]
+
+
+@pytest.mark.parametrize('gapopen,gapextend', GAPS)
+def test_single_pair_aligner_matches_jax_native(gapopen, gapextend,
+                                                monkeypatch):
+    """``ops.align.align`` (the C++ copy, ``native.align``) and
+    ``align_both_strands`` against ``kevlar_tpu``'s native aligner, and
+    against the numpy wavefront, their plain twin."""
+    import time
+    from kevlar_tpu import native as jax_native
+    from kevlar_tpu.ops import align as jax_align
+    deadline = time.time() + 300
+    while jax_native.load() is None:      # another worker may be building
+        assert time.time() < deadline, 'kevlar_tpu native library missing'
+        time.sleep(2)
+    monkeypatch.setattr(jax_align, 'align', jax_native.align)
+    pairs = _pairs(31 + gapopen + gapextend, 24, 300, 200)
+    for t, q in pairs:
+        kw = dict(gapopen=gapopen, gapextend=gapextend)
+        got = align(t, q, **kw)
+        assert got == jax_native.align(t, q, **kw)
+        assert got == align_numpy(t, q, 1, 2, gapopen, gapextend)
+        assert align_both_strands(t, q, **kw) == \
+            jax_align.align_both_strands(t, q, **kw)
 
 
 def test_cigar_rle_matches_jax():

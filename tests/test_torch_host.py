@@ -206,6 +206,78 @@ def test_localize_cutouts_and_varmap_calls_match(case):
         open(refr).read().split('\n')[1]
 
 
+def _code_of(source):
+    """C++ source without its comments or blank lines."""
+    import re
+    text = re.sub(r'/\*.*?\*/', '', source.decode(), flags=re.S)
+    lines = (re.sub(r'//.*$', '', line).rstrip()
+             for line in text.splitlines())
+    return [line for line in lines if line]
+
+
+def test_align_source_equals_jax_but_for_comments():
+    """The single-pair aligner builds from the port's own copy,
+    ``csrc/align.cpp``: ``kevlar_tpu/native/align.cpp`` but for comments,
+    into a library of its own name."""
+    import os
+    here = os.path.dirname(os.path.abspath(native.__file__))
+    assert native.ALIGN_SOURCE == os.path.join(here, 'csrc', 'align.cpp')
+    with open(os.path.join(os.path.dirname(jax_native.__file__),
+                           'align.cpp'), 'rb') as fh:
+        original = fh.read()
+    with open(native.ALIGN_SOURCE, 'rb') as fh:
+        copy = fh.read()
+    assert _code_of(copy) == _code_of(original)
+    path = native.build_align()
+    assert os.path.basename(path) == 'libkevlar_hostalign.so'
+    assert os.path.dirname(path) == native.BUILD_DIR
+
+
+def _public_names(module):
+    """Public top-level names an ``ast`` walk finds in ``module``'s source:
+    definitions, assignments and imports."""
+    import ast
+    import inspect
+    names = set()
+    for node in ast.parse(inspect.getsource(module)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split('.')[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith('_')}
+
+
+# what ROADMAP A.10 leaves out by design: the ``warm`` stage, and ``os``,
+# which kevlar_tpu's top level imports only to set up the XLA compile cache
+NOT_PORTED = {'warm', 'os'}
+
+
+def test_port_resolves_every_public_name_of_kevlar_tpu():
+    """Every public top-level name of ``kevlar_tpu`` and every module of its
+    ``_STAGE_MODULES`` resolves on ``kevlar_tpu_torch`` (A.10's excepted),
+    and the port's stage modules are ``kevlar_tpu_torch``'s own."""
+    wanted = (_public_names(kevlar_tpu) |
+              set(kevlar_tpu._STAGE_MODULES)) - NOT_PORTED
+    assert {'same_seq', 'Timer', 'ProgressIndicator', 'MutableString',
+            'parallel', 'workflows'} <= wanted
+    missing = sorted(n for n in wanted if not hasattr(kevlar_tpu_torch, n))
+    assert not missing
+    for name in kevlar_tpu._STAGE_MODULES:
+        if name not in NOT_PORTED:
+            assert getattr(kevlar_tpu_torch, name).__name__ == \
+                'kevlar_tpu_torch.' + name
+    assert issubclass(kevlar_tpu_torch.novel.KevlarCaseSampleMismatchError,
+                      ValueError)
+    for a, b in (('ACGTT', 'AACGT'), ('ACGTT', 'ACGTT'), ('ACG', 'ACC')):
+        assert kevlar_tpu_torch.same_seq(a, b) == kevlar_tpu.same_seq(a, b)
+        assert dna.same_seq(a, b, jax_dna.revcom(b)) == \
+            jax_dna.same_seq(a, b)
+
+
 @pytest.mark.parametrize('name', ['asm.cpp', 'fastx.cpp'])
 def test_native_builds_from_the_ports_own_sources(name):
     """The port compiles its own copies of the C++ sources, byte for byte

@@ -206,15 +206,22 @@ def test_emit_records_matches_text(trio, tmp_path, native):
 
 @pytest.mark.parametrize('stage', ['count', 'novel'])
 @pytest.mark.parametrize('threads', ['1', '2'])
-def test_threads_other_than_one_rejected(stage, threads, capsys):
-    """The device stages run one stream: ``-t 1`` parses, any other value
-    is refused by the parser with a message."""
+def test_threads_parse_like_jax(stage, threads, trio, tmp_path):
+    """``-t`` takes any int on ``count`` and ``novel``, as ``kevlar_tpu``'s
+    parser does, and changes nothing: both packages parse the same command
+    line, and ``count -t T`` writes the table ``-t 1`` writes."""
     rest = (['x.ct', 'x.fq'] if stage == 'count' else
             ['--case', 'x.fq', '--case-counts', 'x.ct'])
-    argv = [stage, '-t', threads, '--device', 'cpu'] + rest
-    if threads == '1':
-        assert cli.parser().parse_args(argv).threads == 1
+    argv = [stage, '-t', threads] + rest
+    assert jax_cli.parser().parse_args(argv).threads == int(threads)
+    assert cli.parser().parse_args(
+        argv[:3] + ['--device', 'cpu'] + rest).threads == int(threads)
+    if stage != 'count':
         return
-    with pytest.raises(SystemExit):
-        cli.parser().parse_args(argv)
-    assert 'only 1 is supported' in capsys.readouterr().err
+    for t in ('1', threads):
+        cli.main(['count', '-k', str(KSIZE), '-M', '1M', '-t', t, '--device',
+                  'cpu', str(tmp_path / (t + '.ct')), trio['mother']])
+    with np.load(str(tmp_path / '1.ct')) as want, \
+            np.load(str(tmp_path / (threads + '.ct'))) as got:
+        for member in want.files:
+            assert np.array_equal(got[member], want[member]), member
