@@ -11,10 +11,15 @@
                                  # the helium trio workflow under
                                  # torch.profiler: the card's busy share
     python3 chip_smoke.py --count-screen
-                                 # the word gather's checks and the fused
-                                 # count and screen (phase 13) at bench.py's
-                                 # trio and on random reads of helium's
-                                 # shape, without the rest; ~1.5 minutes
+                                 # the word gather's and the screen
+                                 # kernels' checks and the fused count and
+                                 # screen (phase 13) at bench.py's trio and
+                                 # on random reads of helium's shape,
+                                 # without the rest; ~1.5 minutes
+    python3 chip_smoke.py --compare-screen DIR
+                                 # the fused count and screen at helium and
+                                 # the novel stage of this tree against an
+                                 # older checkout in DIR; ~4 minutes
     python3 chip_smoke.py --rank RANK WORLD PORT BACKEND SPEC
                                  # one rank of phase 12 (the smoke starts
                                  # them itself)
@@ -69,21 +74,33 @@ Phases (any failure raises, and the script exits non-zero):
    the helium run's shapes; and the word gather (``kt_gather_words``, four
    samples' 8-bit counters to a uint32 word) against its plain version and
    K2 at S = 1, 4 and 5 (a partial word) and with three tables, then at
-   K2's S=3 screen shape, timed beside K2 on the same tables;
+   K2's S=3 screen shape, timed beside K2 on the same tables; then the
+   screen's two kernels (``kt_screen_words``: the word gather with the
+   predicates and each block's hits in flat order; ``kt_compact_hits``:
+   the hits to their ranks below a fixed capacity) against their plain
+   versions and the unfused screen, on three samples' 4 x 124,999,999
+   tables in one word tensor, at the novel stage's 4,096 rows and B.1's
+   8,192, with the abundance screen off and at 3, a band, a capacity below
+   the hits and every k-mer a hit, then both timed behind a spin kernel;
 6. count -> novel slice: :func:`make_trio_case` writes the helium trio
    (the reference's quick-start: 25 Mb genome, 30x trio of 150 bp reads
    with 0.5% errors, 20 inherited and 5 de novo variants), and the trio
    workflow's first steps run through ``kevlar_tpu_torch.cli.main`` with
    ``--device cuda``: the reference mask (1-bit, 50M), the reference count
    (4-bit, 50M), the masked 8-bit counts of the three samples (500M each)
-   and the novel screen (``--case-min 5 --ctrl-max 1``).  K1, K2 and K3's
-   consume must each launch during that run (K3's entry from indices is
-   driven apart, through a device sketch's ``consume_hashes``, and held to
-   the consume kernel's tables); the mask, refr and
-   proband tables and the novel text must equal those of the same commands
-   run with the plain versions on the card; and each de novo locus must
-   have a novel read whose annotated k-mer spans it.  Stage walls, reads
-   per second and the novel output's size are printed;
+   and the novel screen (``--case-min 5 --ctrl-max 1``: the trio's tables
+   packed to words, ``kt_screen_words`` and ``kt_compact_hits`` a batch).
+   K1, K2 (the counts' masks), K3's consume and the two screen kernels
+   must each launch during that run (K3's entry from indices is driven
+   apart, through a device sketch's ``consume_hashes``, and held to the
+   consume kernel's tables).  A dense screen of the proband's first 1,000
+   reads (``--case-min 0 --ctrl-max 255``: every k-mer a hit, past the
+   capacity of 32,768) must launch the screen kernels and then the word
+   gather (the uncapped screen over the same words).  The mask, refr and
+   proband tables and both novel texts must equal those of the same
+   commands run with the plain versions on the card; and each de novo
+   locus must have a novel read whose annotated k-mer spans it.  Stage
+   walls, reads per second and the novel output's size are printed;
 7. K4 (read-graph components, a one-pass union-find) against its plain
    PyTorch version, min-label propagation, on the card: seeded random
    incidences, a chain of 5,000 reads (diameter in the thousands),
@@ -101,7 +118,8 @@ Phases (any failure raises, and the script exits non-zero):
 9. the trio workflow: ``kevlar_tpu_torch.workflow.run_mark1`` on phase 6's
    helium trio with the helium configuration of
    tools/sim_trio_bench.py (seed index built beforehand, timed apart).  K1,
-   K2, K3's consume and B1 must each launch during the run, every
+   K2 (the counts' masks), K3's consume, the screen's two kernels (a novel
+   batch each) and B1 must each launch during the run, every
    checkpoint must
    exist, the four de novo SNVs must be PASS calls at their positions, and
    no PASS call may lie more than 10 bp from a de novo locus.  Whether the
@@ -174,20 +192,23 @@ Phases (any failure raises, and the script exits non-zero):
    run, each under ``torch.cuda.set_sync_debug_mode('error')`` and ending
    in one synchronise), ``count_novel_reads_per_s`` (the case twice plus
    the controls, as bench.py counts), the interesting k-mers, the bound
-   and a profiled run's device busy share; K1, ``kt_consume`` and the word
-   gather must launch.  At (a) the interesting k-mers must equal
-   ``host_pipeline``'s on the same reads, and ``host_pipeline`` on
-   bench.py's subset gives ``vs_baseline``; at (b) the program runs once
-   more with the plain versions, every output and table equal.
+   and a profiled run's device busy share; K1, ``kt_consume``,
+   ``kt_screen_words`` and ``kt_compact_hits`` must launch.  At (a) the
+   interesting k-mers must equal ``host_pipeline``'s on the same reads,
+   and ``host_pipeline`` on bench.py's subset gives ``vs_baseline``; at
+   (b) the program runs once more with the plain versions, every output
+   and table equal.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the XLA
 programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
 ``count_and_screen_stack_packed`` at both of phase 13's sizes): launches on
 their paths, ms, the host version's ms and the bound. The last two lines of
 standard output are the kernels record (JSON: B1, K1, K2, the word gather
-(launched by phase 13), K3's three entries (the consume from hashes;
-``kt_scatter_add`` from indices at phase 5's shape, launched by the trio's
-device recount, and over the received parts at the routed count's shape,
+(launched by phase 6's dense screen), ``kt_screen_words`` and
+``kt_compact_hits`` (launched by phase 9's novel stage), K3's three
+entries (the consume from hashes; ``kt_scatter_add`` from indices at
+phase 5's shape, launched by the trio's device recount, and over the
+received parts at the routed count's shape,
 launched by the sharded phase's routed count), K4, ``kt_route`` and the
 range variants of K2 and K3's consume, each with its launches on its path's
 run, max_abs_err, ms, plain_ms, its bound on this run's inputs
@@ -951,6 +972,186 @@ def _word_gather_checks(device, rng, samples):
                 pack_ms=pack_ms, shape='532,480 k-mers, 3 samples packed '
                 'in one word tensor of 4 x 124,999,999')
 
+# integer operations per kept k-mer and table in kt_screen_words beyond the
+# word loads (index, reciprocal reduction, byte minimum), and per k-mer
+# (loads, band, skip, the four-byte predicates, the ballot and ranks)
+SCREEN_OPS_PER_KMER = 30
+
+
+def _screen_tables(device, tablesize, seed):
+    """Three samples' 8-bit tables of 4 x ``tablesize`` on the card, made
+    on the card from ``seed``: the case mostly at 5-39 with one counter in
+    a thousand at 0-4, the controls mostly at 2-39 with one in two hundred
+    at 0-1, so that with casemin 5 and ctrlmax 1 about one k-mer in a
+    thousand is a hit and the abundance screen discards some reads."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tables = []
+    for lo, low_hi, rate in ((5, 5, 0.001), (2, 2, 0.005), (2, 2, 0.005)):
+        t = torch.randint(lo, 40, (4, tablesize), dtype=torch.uint8,
+                          device=device, generator=gen)
+        low = torch.rand((4, tablesize), device=device, generator=gen) < rate
+        t[low] = torch.randint(0, low_hi, (int(low.sum()),),
+                               dtype=torch.uint8, device=device,
+                               generator=gen)
+        tables.append(t)
+        del low
+    return tables
+
+
+def _screen_batch(rng, nrows, device):
+    """A read batch as the novel stage ships it: [nrows, 160] codes of 150
+    bp reads with N bases, a few reads shorter than k, padding rows of
+    length 0; its lengths and K1's hashes."""
+    import torch
+    from kevlar_tpu_torch.ops import hashing
+    bases = _read_bases(rng, nrows, BENCH_PADLEN, READLEN)
+    lengths = np.full(nrows, READLEN, np.int32)
+    lengths[5::97] = KSIZE - 1
+    lengths[-17:] = 0
+    bases[-17:] = 4
+    codes = torch.from_numpy(bases).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+    return (codes, lens) + hashing.kmer_hashes_codes(codes, KSIZE)
+
+
+def _segments_err(got, want, rows, P, label):
+    """``kt_screen_words``' outputs against its plain version's: the blocks'
+    counts, each block's filled prefix of the segments (the kernel leaves
+    the rest unwritten), discard and skip; raises unless equal."""
+    import torch
+    counts, seg_idx, seg_ab, discard, skip = got
+    err = max(_max_diff(counts, want[0], label + ' counts'),
+              _max_diff(discard, want[3], label + ' discard'),
+              _max_diff(skip, want[4], label + ' skip'))
+    index = torch.arange(seg_idx.numel(), device=seg_idx.device)
+    block = index // (rows * P)
+    filled = index - block * rows * P < counts.long()[block]
+    return max(err, _max_diff(seg_idx[filled], want[1][filled],
+                              label + ' hit indices'),
+               _max_diff(seg_ab[:, filled], want[2][:, filled],
+                         label + ' hit counts'))
+
+
+def _screen_kernel_checks(device, rng, tablesize=None, nrows=None,
+                          reps=20):
+    """``kt_screen_words`` and ``kt_compact_hits`` against their plain
+    versions on the card, then timed: three samples' tables of 4 x
+    ``tablesize`` (helium's) packed in one word tensor; batches of
+    ``nrows`` rows (the novel stage's 4,096 and B.1's 8,192), the
+    abundance screen off and at 3, a band, a capacity below the hits, and
+    every k-mer a hit (casemin 0, ctrlmax 255).  Returns the two kernels'
+    records for the kernels line."""
+    import torch
+    from kevlar_tpu_torch.ops import kmer_cuda, novel_ops, sketch_ops
+    tablesize = tablesize or HELIUM_TABLESIZE
+    nrows = nrows or (DEFAULT_SCREEN_READS, BENCH_BATCH)
+    tables = _screen_tables(device, tablesize, SEED + 12)
+    words = sketch_ops.pack_sample_tables(tables)
+    del tables
+    P = BENCH_PADLEN - KSIZE + 1
+    rows = novel_ops.screen_rows(P)
+    err = {'screen': 0, 'compact': 0}
+    batches = {n: _screen_batch(rng, n, device) for n in nrows}
+    cases = [(n, dict(casemin=5, ctrlmax=1, screen=None, numbands=None,
+                      band=None), 32768) for n in nrows]
+    cases += [(nrows[0], dict(casemin=5, ctrlmax=1, screen=3, numbands=4,
+                              band=1), 32768),
+              (nrows[-1], dict(casemin=5, ctrlmax=1, screen=3,
+                               numbands=None, band=None), 64),
+              (nrows[0], dict(casemin=0, ctrlmax=255, screen=None,
+                              numbands=None, band=None), 32768)]
+    hits = {}
+    for n, kw, max_hits in cases:
+        codes, lens, h1, h2, valid = batches[n]
+        args = (words, 3, 1, h1, h2, valid, codes, lens, KSIZE,
+                kw['casemin'], kw['ctrlmax'], kw['screen'], kw['numbands'],
+                kw['band'], rows)
+        label = 'screen {:,} rows, {}, max_hits {}'.format(
+            n, ', '.join('{} {}'.format(k, v) for k, v in kw.items()
+                         if v is not None), max_hits)
+        seg = kmer_cuda.screen_words_cuda(*args)
+        err['screen'] = max(err['screen'], _segments_err(
+            seg, novel_ops.screen_words_plain(*args), rows, P, label))
+        got = kmer_cuda.compact_hits_cuda(seg[0], seg[1], seg[2], rows * P,
+                                          max_hits)
+        want = novel_ops.compact_hits_plain(seg[0], seg[1], seg[2],
+                                            rows * P, max_hits)
+        whole = novel_ops.novel_screen_compact_plain(
+            *args[:-1], max_hits=max_hits)
+        for name, g, w, v in zip(('hit_idx', 'hit_abunds', 'n_hits'), got,
+                                 want, whole):
+            err['compact'] = max(err['compact'],
+                                 _max_diff(g, w, label + ' ' + name),
+                                 _max_diff(g, v, label + ' ' + name +
+                                           ' vs the unfused screen'))
+        hits[label] = int(got[2])
+        if max_hits < 32768 and hits[label] <= max_hits:
+            raise AssertionError('{}: {} hits do not overflow'.format(
+                label, hits[label]))
+        del seg, got, want, whole
+    # times at the novel stage's shape, the screen off (as run_mark1 runs
+    # it), and at B.1's batch
+    times = {}
+    for n in nrows:
+        codes, lens, h1, h2, valid = batches[n]
+        args = (words, 3, 1, h1, h2, valid, codes, lens, KSIZE, 5, 1, None,
+                None, None, rows)
+        seg, ms = _timed(kmer_cuda.screen_words_cuda, *args, reps=reps,
+                         spin=True)
+        _, plain_ms = _timed(novel_ops.screen_words_plain, *args, reps=3)
+        seg_args = (seg[0], seg[1], seg[2], rows * P, 32768)
+        out, cms = _timed(kmer_cuda.compact_hits_cuda, *seg_args,
+                          reps=reps, spin=True)
+        _, cplain_ms = _timed(novel_ops.compact_hits_plain, *seg_args,
+                              reps=3)
+        nhits = int(out[2])
+        kept = int(((valid != 0) & ~seg[4][:, None]).sum())
+        nk = h1.numel()
+        # hashes, valid, codes and lengths read once, the hits and the
+        # rows' flags written once; each kept k-mer's word in each table
+        # read as its sector
+        bound = _bound(nk * 9 + codes.numel() + 4 * n + 2 * n +
+                       4 * seg[0].numel() + nhits * (4 + 3) +
+                       min(kept * 4 * SECTOR, 4 * words[0].numel()),
+                       nk * SCREEN_OPS_PER_KMER + kept * 4 *
+                       K2_OPS_PER_PROBE)
+        # the counts and the hits below the capacity read, the capacity
+        # written
+        cbound = _bound(4 * seg[0].numel() + min(nhits, 32768) * (4 + 3) +
+                        32768 * (4 + 3) + 4, seg[0].numel() + 32768)
+        times[n] = dict(ms=ms, plain_ms=plain_ms, bound=bound, cms=cms,
+                        cplain_ms=cplain_ms, cbound=cbound, hits=nhits,
+                        kept=kept)
+        del seg, out
+    print('[smoke] kt_screen_words + kt_compact_hits: identical to their '
+          'plain versions (and to the unfused screen) on {} cases: {}; '
+          'three samples in one word tensor of 4 x {:,}, {} rows a block; '
+          '{}'.format(len(cases), '; '.join(
+              '{}: {:,} hits'.format(k, v) for k, v in hits.items()),
+              tablesize, rows, '; '.join(
+                  '{:,} x {} rows ({:,} kept k-mers, {:,} hits): '
+                  'kt_screen_words {:.4f} ms (plain {:.3f} ms, bound {:.4f} '
+                  'ms by {}), kt_compact_hits {:.4f} ms (plain {:.3f} ms, '
+                  'bound {:.4f} ms by {})'.format(
+                      n, BENCH_PADLEN, t['kept'], t['hits'], t['ms'],
+                      t['plain_ms'], t['bound'][0], t['bound'][1], t['cms'],
+                      t['cplain_ms'], t['cbound'][0], t['cbound'][1])
+                  for n, t in times.items())), flush=True)
+    t = times[nrows[0]]
+    shape = '{:,} x {} base codes, 3 samples in one word tensor of 4 x {:,}'\
+        .format(nrows[0], BENCH_PADLEN, tablesize)
+    return {'screen words': dict(
+                err=err['screen'], ms=t['ms'], plain_ms=t['plain_ms'],
+                bound_ms=t['bound'][0], bound_by=t['bound'][1],
+                library_ms=None, shape=shape),
+            'compact hits': dict(
+                err=err['compact'], ms=t['cms'], plain_ms=t['cplain_ms'],
+                bound_ms=t['cbound'][0], bound_by=t['cbound'][1],
+                library_ms=None, shape=shape + ', capacity 32,768')}
+
+
 def phase_kmer_kernels(device):
     """Phase 5: K1, K2 and K3 against their plain versions on the card, on
     seeded inputs, then timed at the shapes of the helium run.  Returns
@@ -1029,6 +1230,17 @@ def phase_kmer_kernels(device):
                                     samples[:S], h1, h2, reps=5)
             err = max(err, _max_diff(got, want, 'K2 helium shape'))
             times[(n, S)] = (ms, plain_ms) + _k2_bound(samples[:S], n)
+    # the counts' own mask launch: a 1-bit -M 50M mask, 4 x 99,999,999
+    # buckets in 50 MB, about the card's L2
+    mask = [_random_sketch(rng, 1, 99_999_999, device)]
+    h1, h2 = _random_hashes(rng, 32768 * 130, device)
+    got, ms = _timed(kmer_cuda.gather_counts_cuda, mask, h1, h2, reps=20,
+                     spin=True)
+    want, plain_ms = _timed(sketch_ops.gather_counts_multi_plain, mask, h1,
+                            h2, reps=5)
+    err = max(err, _max_diff(got, want, 'K2 mask shape'))
+    mask_times = (ms, plain_ms) + _k2_bound(mask, h1.numel())
+    del mask, got, want
     # the card's rate of random byte reads, by one PyTorch gather of as
     # many bytes as the screen's launch probes in one sketch
     flat = samples[0][0].view(-1)
@@ -1050,9 +1262,12 @@ def phase_kmer_kernels(device):
           '4 x 124,999,999 8-bit: {}'.format('; '.join(
               '{:,} k-mers x {} sketches: kernel {:.4f} ms, plain {:.3f} ms, '
               'bound {:.4f} ms by {}'.format(n, S, *times[(n, S)])
-              for n, S in times)), flush=True)
+              for n, S in times)) + '; the counts\' 1-bit mask, 4 x '
+          '99,999,999: {:,} k-mers: kernel {:.4f} ms, plain {:.3f} ms, bound '
+          '{:.4f} ms by {}'.format(32768 * 130, *mask_times), flush=True)
     out['K2 words'] = _word_gather_checks(device, rng, samples)
     del samples
+    out.update(_screen_kernel_checks(device, rng))
 
     # K3: heavy duplicates, negative indices, an odd bucket count, rows of
     # a length that is no multiple of 4
@@ -1855,13 +2070,18 @@ def _trio_stages(device, workdir, refr, reads, prefix, samples=SAMPLES,
 
 def _print_busy(label, prof, wall):
     """The card's busy share of ``wall`` seconds from a torch.profiler
-    trace (the sum of every event's own device time), and what took it;
-    returns the busy seconds."""
+    trace (the sum of the device's own events: kernels, copies and sets;
+    a CPU-side op's device time repeats its kernels' and is left out), and
+    what took it; returns the busy seconds."""
+    from torch.autograd import DeviceType
+
     def device_us(event):
         return (getattr(event, 'self_device_time_total', 0) or
                 getattr(event, 'self_cuda_time_total', 0))
 
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    events = sorted((e for e in prof.key_averages()
+                     if getattr(e, 'device_type', None) == DeviceType.CUDA),
+                    key=device_us, reverse=True)
     busy_us = sum(device_us(e) for e in events)
     print('[smoke] {}: {:.2f} s wall, device busy {} ; top device time: {}'
           .format(label, wall,
@@ -1897,9 +2117,15 @@ def _producer_split(fastq, device):
     return parse_s, time.time() - t0
 
 
-# the kernels of csrc/kmer.cu that count -> novel must launch; K3's entry
-# from indices is on the path of a device sketch's consume_hashes instead
+# the kernels of csrc/kmer.cu that a count must launch (K2 for its mask);
+# K3's entry from indices is on the path of a device sketch's
+# consume_hashes instead
 COUNT_PATH_KERNELS = ('kmer_hashes', 'gather_counts', 'consume')
+# and count -> novel: the novel stage screens a trio over packed words
+NOVEL_PATH_KERNELS = COUNT_PATH_KERNELS + ('screen_words', 'compact_hits')
+# the proband reads of phase 6's dense screen: every k-mer a hit, more
+# than the screen's capacity of 32,768 in one batch
+DENSE_NOVEL_READS = 1000
 
 
 def _recount_path(device, workdir, reads):
@@ -1944,7 +2170,8 @@ def _recount_path(device, workdir, reads):
 def phase_trio(device, workdir):
     """Phase 6: count and novel on the helium trio through the CLI, with
     the kernels and then with their plain versions on the card."""
-    from kevlar_tpu_torch.ops import kmer_cuda, hashing, sketch_ops
+    from kevlar_tpu_torch.ops import kmer_cuda, hashing, novel_ops, \
+        sketch_ops
 
     t0 = time.time()
     refr, reads, denovo = make_trio_case(workdir)
@@ -1957,18 +2184,26 @@ def phase_trio(device, workdir):
               sum(os.path.getsize(p) for p in reads.values()) / 1e9,
               time.time() - t0), flush=True)
 
-    def novel_stage(prefix):
+    def novel_stage(prefix, fastq=reads['proband'], limits=('5', '1')):
         """The screen on the kernel run's counts; output ``prefix``ed."""
         path = os.path.join(workdir, prefix + 'novel.augfastq')
         wall = _run_cli(
             ['novel', '-k', str(KSIZE), '--device', device, '--case',
-             reads['proband'], '--case-counts',
+             fastq, '--case-counts',
              os.path.join(workdir, 'proband.ct'), '--control-counts',
              os.path.join(workdir, 'mother.ct'),
-             os.path.join(workdir, 'father.ct'), '--case-min', '5',
-             '--ctrl-max', '1', '-o', path],
+             os.path.join(workdir, 'father.ct'), '--case-min', limits[0],
+             '--ctrl-max', limits[1], '-o', path],
             os.path.join(workdir, prefix + 'novel.log'))
         return path, wall
+
+    # a dense screen: the proband's first reads with every k-mer a hit
+    # (casemin 0, ctrlmax 255), which takes the novel stage past the screen's
+    # capacity to the uncapped screen over the same words (the word
+    # gather)
+    dense_fastq = _head_fastq(reads['proband'],
+                              os.path.join(workdir, 'dense.fq'),
+                              DENSE_NOVEL_READS)
 
     # the main path, through the kernels
     for name in kmer_cuda.launches:
@@ -1976,26 +2211,44 @@ def phase_trio(device, workdir):
     walls = _trio_stages(device, workdir, refr, reads, '')
     novelpath, walls['novel'] = novel_stage('')
     launches = dict(kmer_cuda.launches)
-    for name in COUNT_PATH_KERNELS:
+    for name in NOVEL_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError('the helium run launched no {} kernel'
+                                 .format(name))
+    for name in kmer_cuda.launches:
+        kmer_cuda.launches[name] = 0
+    densepath, walls['novel dense'] = novel_stage(
+        'dense_', dense_fastq, ('0', '255'))
+    dense_launches = dict(kmer_cuda.launches)
+    for name in ('kmer_hashes', 'screen_words', 'compact_hits',
+                 'gather_counts_words'):
+        if dense_launches[name] <= 0:
+            raise AssertionError('the dense screen launched no {} kernel'
                                  .format(name))
 
     # the same commands with the plain versions, on the card
     kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
-               kmer_cuda.consume_cuda)
+               kmer_cuda.consume_cuda, kmer_cuda.screen_words_cuda,
+               kmer_cuda.compact_hits_cuda, kmer_cuda.gather_words_cuda)
     kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
     kmer_cuda.gather_counts_cuda = sketch_ops.gather_counts_multi_plain
     kmer_cuda.consume_cuda = sketch_ops.consume_hashes_plain
+    kmer_cuda.screen_words_cuda = novel_ops.screen_words_plain
+    kmer_cuda.compact_hits_cuda = novel_ops.compact_hits_plain
+    kmer_cuda.gather_words_cuda = sketch_ops.gather_counts_words_plain
+    before = dict(kmer_cuda.launches)
     try:
         plain_walls = _trio_stages(
             device, workdir, refr, reads, 'plain_', samples=('proband',),
             mask=os.path.join(workdir, 'mask.nt'))
         plainpath, plain_walls['novel'] = novel_stage('plain_')
+        plaindense, plain_walls['novel dense'] = novel_stage(
+            'plain_dense_', dense_fastq, ('0', '255'))
     finally:
         (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
-         kmer_cuda.consume_cuda) = kernels
-    if dict(kmer_cuda.launches) != launches:
+         kmer_cuda.consume_cuda, kmer_cuda.screen_words_cuda,
+         kmer_cuda.compact_hits_cuda, kmer_cuda.gather_words_cuda) = kernels
+    if dict(kmer_cuda.launches) != before:
         raise AssertionError('the plain run launched a kernel')
     launches['scatter_add'] = _recount_path(device, workdir, reads)
     for name in ('mask.nt', 'refr.sct', 'proband.ct'):
@@ -2010,9 +2263,24 @@ def phase_trio(device, workdir):
     with open(plainpath) as fh:
         if fh.read() != novel_text:
             raise AssertionError('novel output differs from the plain run')
+    with open(densepath) as fh:
+        dense_text = fh.read()
+    with open(plaindense) as fh:
+        if fh.read() != dense_text:
+            raise AssertionError('the dense novel output differs from the '
+                                 'plain run')
     print('[smoke] kernel run == plain run: mask.nt, refr.sct and '
-          'proband.ct tables, and the novel text ({:,} bytes)'.format(
-              len(novel_text)), flush=True)
+          'proband.ct tables, and the novel text ({:,} bytes); novel '
+          'launches kt_screen_words {}, kt_compact_hits {}, K2 {} (the '
+          'counts\' masks); the dense screen of {:,} reads ({:,} k-mers, '
+          '{:,} bytes, == plain): kt_screen_words {}, kt_compact_hits {}, '
+          'word gather {} (past the capacity)'.format(
+              len(novel_text), launches['screen_words'],
+              launches['compact_hits'], launches['gather_counts'],
+              DENSE_NOVEL_READS, dense_text.count('#\n'), len(dense_text),
+              dense_launches['screen_words'],
+              dense_launches['compact_hits'],
+              dense_launches['gather_counts_words']), flush=True)
 
     for stage, wall in walls.items():
         who = 'proband' if stage == 'novel' else stage.split()[-1]
@@ -2064,8 +2332,9 @@ def phase_trio(device, workdir):
     if missed:
         raise AssertionError('de novo loci without a novel read: {}'.format(
             missed))
-    return dict(launches=launches, walls=walls, plain_walls=plain_walls,
-                refr=refr, reads=reads, denovo=denovo)
+    return dict(launches=launches, dense_launches=dense_launches,
+                walls=walls, plain_walls=plain_walls, refr=refr,
+                reads=reads, denovo=denovo)
 
 
 # bench.py's trio (bench.py:29-36): the configuration bench.py times
@@ -2081,7 +2350,7 @@ BENCH_SEED = 20260817
 # the helium samples' sketches (-M 500M, 4 tables)
 HELIUM_TABLESIZE = 124_999_999
 # the program's own kernels, which phase 13 must launch
-PROGRAM_KERNELS = ('kmer_hashes', 'consume', 'gather_counts_words')
+PROGRAM_KERNELS = ('kmer_hashes', 'consume', 'screen_words', 'compact_hits')
 
 
 def _bench_tile_reads(genome, readlen, coverage, rng):
@@ -2297,10 +2566,11 @@ def _drive_program(device, stacks, lens, nreads, tablesize, label,
         stacks, windows, 4, tablesize)
     if plain:
         kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.consume_cuda,
-                   kmer_cuda.gather_words_cuda)
+                   kmer_cuda.screen_words_cuda, kmer_cuda.compact_hits_cuda)
         kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
         kmer_cuda.consume_cuda = sketch_ops.consume_hashes_plain
-        kmer_cuda.gather_words_cuda = sketch_ops.gather_counts_words_plain
+        kmer_cuda.screen_words_cuda = novel_ops.screen_words_plain
+        kmer_cuda.compact_hits_cuda = novel_ops.compact_hits_plain
         before = dict(kmer_cuda.launches)
         try:
             t0 = time.time()
@@ -2309,7 +2579,8 @@ def _drive_program(device, stacks, lens, nreads, tablesize, label,
             result['plain_s'] = time.time() - t0
         finally:
             (kmer_cuda.kmer_hashes_cuda, kmer_cuda.consume_cuda,
-             kmer_cuda.gather_words_cuda) = kernels
+             kmer_cuda.screen_words_cuda,
+             kmer_cuda.compact_hits_cuda) = kernels
         if dict(kmer_cuda.launches) != before:
             raise AssertionError('{}: the plain run launched a kernel'
                                  .format(label))
@@ -2596,7 +2867,7 @@ def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
         _print_busy('profiled workflow', prof, wall)
     launches = dict(kmer_cuda.launches, ksw_extz=align_cuda.launches,
                     cc_labels=cc_cuda.launches['cc_labels'])
-    missing = [name for name in COUNT_PATH_KERNELS + ('ksw_extz',)
+    missing = [name for name in NOVEL_PATH_KERNELS + ('ksw_extz',)
                if launches[name] <= 0]
     if missing:
         raise AssertionError('the workflow launched no {} kernel'.format(
@@ -3991,6 +4262,122 @@ def compare_counts(parent, device, workdir):
               *_producer_split(reads['proband'], device)), flush=True)
 
 
+_SCREEN_RUN = r"""
+import hashlib, importlib.util, json, re, subprocess, sys, time
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from kevlar_tpu_torch.ops import novel_ops
+smoke, stacks, workdir, novel_argv = sys.argv[1:5]
+spec = importlib.util.spec_from_file_location('smoke_here', smoke)
+here = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(here)
+with np.load(stacks) as z:
+    dev = [torch.from_numpy(z[n]).cuda() for n in
+           ('cp', 'cb', 'mp', 'mb', 'fp', 'fb', 'lens')]
+
+
+def run():
+    return novel_ops.count_and_screen_stack_packed(
+        dev[0], dev[1], (dev[2], dev[4]), (dev[3], dev[5]), dev[6],
+        L=here.BENCH_PADLEN, ksize=here.KSIZE,
+        tablesize=here.HELIUM_TABLESIZE, ntables=4, maxcount=255,
+        casemin=here.BENCH_CASEMIN, ctrlmax=here.BENCH_CTRLMAX)
+
+
+out = run()
+torch.cuda.synchronize()
+digest = hashlib.sha256(b''.join(
+    x.cpu().numpy().tobytes() for x in out[0])).hexdigest()
+walls = []
+for _ in range(3):
+    del out
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    walls.append(time.time() - t0)
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    t0 = time.time()
+    run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+busy = here._print_busy('program', prof, wall) / wall
+log = workdir + '/novel.log'
+t0 = time.time()
+subprocess.run([sys.executable, '-m', 'kevlar_tpu_torch', '-l', log,
+                'novel'] + novel_argv.split(), check=True)
+process = time.time() - t0
+with open(log) as fh:
+    stage = float(re.findall(r'Total time: ([0-9.]+) seconds', fh.read())[-1])
+with open(novel_argv.split()[-1], 'rb') as fh:
+    text = hashlib.sha256(fh.read()).hexdigest()
+print(json.dumps(dict(walls=walls, busy=busy, digest=digest, novel=stage,
+                      novel_process=process, novel_text=text)))
+"""
+
+
+def compare_screen(parent):
+    """``--compare-screen DIR``: the fused count and screen (phase 13's
+    helium stacks) and the ``novel`` stage (through the CLI, on the
+    helium trio's counts) in the checkout unpacked in ``DIR`` and in this
+    one, each tree a process of its own, in the order parent, change,
+    change, parent: the program's best-of-3 wall and a profiled run's busy
+    share (both measured by this tree's code), the novel stage's wall, and
+    the outputs' digests, which must agree."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    parent = os.path.abspath(parent)
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(_nvidia_smi(), flush=True)
+    build_all()
+    with tempfile.TemporaryDirectory() as workdir:
+        refr, reads, _ = make_trio_case(workdir)
+        _trio_stages('cuda', workdir, refr, reads, '')
+        torch.cuda.empty_cache()
+        with ThreadPoolExecutor(len(SAMPLES)) as pool:
+            read = list(pool.map(_read_packed_stack,
+                                 [reads[who] for who in SAMPLES]))
+        stacks = os.path.join(workdir, 'stacks.npz')
+        np.savez(stacks, cp=read[0][0], cb=read[0][1], mp=read[1][0],
+                 mb=read[1][1], fp=read[2][0], fb=read[2][1],
+                 lens=read[0][2])
+        del read
+        novel_out = os.path.join(workdir, 'novel.augfastq')
+        novel_argv = ' '.join([
+            '-k', str(KSIZE), '--device', 'cuda', '--case',
+            reads['proband'], '--case-counts',
+            os.path.join(workdir, 'proband.ct'), '--control-counts',
+            os.path.join(workdir, 'mother.ct'),
+            os.path.join(workdir, 'father.ct'), '--case-min', '5',
+            '--ctrl-max', '1', '-o', novel_out])
+        digests, texts = set(), set()
+        for tree in (parent, here, here, parent):
+            proc = subprocess.run(
+                [sys.executable, '-c', _SCREEN_RUN,
+                 os.path.join(here, 'chip_smoke.py'), stacks, workdir,
+                 novel_argv], cwd=tree, check=True, capture_output=True,
+                text=True)
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            digests.add(rec['digest'])
+            texts.add(rec['novel_text'])
+            print('[compare] {}: program best of 3 {:.1f} ms ({}), busy '
+                  '{:.2%}; novel stage {:.2f} s ({:.2f} s the process)'
+                  .format('parent' if tree == parent else 'change',
+                          1e3 * min(rec['walls']), ', '.join(
+                              '{:.1f}'.format(1e3 * w)
+                              for w in rec['walls']), rec['busy'],
+                          rec['novel'], rec['novel_process']), flush=True)
+        if len(digests) != 1 or len(texts) != 1:
+            raise AssertionError('the trees\' outputs differ')
+        print('[compare] the four runs\' program outputs and novel texts are '
+              'identical; {}'.format(_nvidia_smi()), flush=True)
+    return 0
+
+
 def profile_workflow():
     """``--profile-workflow``: the helium trio through run_mark1 under
     torch.profiler, for the card's busy share of the trio wall."""
@@ -4033,11 +4420,11 @@ def compare_parent(parent):
 
 
 def count_screen_probe():
-    """``--count-screen``: the word gather's checks at phase 5's shape and
-    the fused program at bench.py's trio (with the plain run) and on
-    random reads of the helium stacks' shape (611 batches a sample), each
-    under the sync debug mode; a short card check of phase 13 without the
-    rest of the smoke."""
+    """``--count-screen``: the word gather's and the screen kernels'
+    checks at phase 5's shapes and the fused program at bench.py's trio
+    (with the plain run) and on random reads of the helium stacks' shape
+    (611 batches a sample), each under the sync debug mode; a short card
+    check of phase 13 without the rest of the smoke."""
     from kevlar_tpu_torch.batch import pack_bases
     from kevlar_tpu_torch.ops import kmer_cuda
     print(_nvidia_smi(), flush=True)
@@ -4047,6 +4434,7 @@ def count_screen_probe():
                for _ in range(3)]
     _word_gather_checks('cuda', rng, samples)
     del samples
+    _screen_kernel_checks('cuda', rng)
     case, mom, dad = bench_trio()
     lens = np.full((-(-len(case) // BENCH_BATCH), BENCH_BATCH), READLEN,
                    np.int32)
@@ -4102,6 +4490,8 @@ def main():
         return profile_workflow()
     if sys.argv[1:2] == ['--count-screen']:
         return count_screen_probe()
+    if sys.argv[1:2] == ['--compare-screen']:
+        return compare_screen(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -4131,8 +4521,8 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         trio = phase_trio(device, workdir)
         screen = phase_count_screen(device, trio['reads'])
-        phase_workflow(device, workdir, trio['refr'], trio['denovo'],
-                       trio['reads'])
+        flow = phase_workflow(device, workdir, trio['refr'],
+                              trio['denovo'], trio['reads'])
         shard = phase_sharded(device, workdir, trio['reads'])
         phase_distributed(workdir, trio['reads'],
                           shard['walls']['count proband, (1, 4) routed'])
@@ -4156,9 +4546,18 @@ def main():
             ('K2', 'gather_counts (Count-Min min over tables, all samples)',
              'gather_counts', 'kevlar_tpu/ops/sketch_ops.py:60', trio),
             ('K2 words', 'gather_counts_words (Count-Min min over tables, '
-             'four samples a uint32 word; the fused count and screen)',
+             'four samples a uint32 word; the novel stage\'s uncapped '
+             'screen past the capacity, phase 6\'s dense screen)',
              'gather_counts_words', 'kevlar_tpu/ops/sketch_ops.py:105',
-             screen),
+             dict(launches=trio['dense_launches'])),
+            ('screen words', 'screen_words (kt_screen_words: the word '
+             'gather, the screen\'s predicates and each block\'s hits in '
+             'flat order; run_mark1\'s novel stage)', 'screen_words',
+             'kevlar_tpu/ops/novel_ops.py:111', flow),
+            ('compact hits', 'compact_hits (kt_compact_hits: the blocks\' '
+             'hits to their ranks below a fixed capacity; run_mark1\'s '
+             'novel stage)', 'compact_hits',
+             'kevlar_tpu/ops/novel_ops.py:111', flow),
             ('K3 consume', 'consume (Count-Min scatter-add from hashes: '
              'predicates, bucket indices, atomic adds)', 'consume',
              'tools/scatter_probe.py:76', trio),
@@ -4212,8 +4611,9 @@ def main():
         'bound_ms': sim['bound_ms'], 'bound_by': sim['bound_by']}, {
         'name': 'count_and_screen_stack_packed (B.1: every sample counted '
                 'with K1 + kt_consume, the tables packed four to a word, the '
-                'case screened with K1 + the word gather, compacted to a '
-                'fixed capacity; helium trio, and bench.py\'s trio)',
+                'case screened with K1 + kt_screen_words and compacted to a '
+                'fixed capacity by kt_compact_hits; helium trio, and '
+                'bench.py\'s trio)',
         'route': 'torch', 'source': 'kevlar_tpu_torch/ops/novel_ops.py',
         'replaces': 'kevlar_tpu/ops/novel_ops.py:171',
         'launches': screen['launches'],

@@ -8,11 +8,21 @@ than k or containing non-ACGT bases are skipped; emitted records carry
 (kmer, offset, abundance-tuple) annotations.
 
 Each read batch's base codes go to the sample sketches' device as they are
-(one byte a base, from pinned host memory) and through
-:func:`kevlar_tpu_torch.ops.novel_ops.novel_screen` (K1 hashing, one K2
-gather for all samples, torch predicates and compaction); only the hits
-come back.  Banding: the user-facing `--band` is 1-based; internally band
-b of N keeps k-mers with ``h1 & (N-1) == b``, as in the count stage.  With
+(one byte a base, from pinned host memory) and are hashed there (K1).
+Where there is more than one sample and every sample is an 8-bit device
+sketch of one shape (JAX's ``_pack_or_none`` condition; at most
+:data:`~kevlar_tpu_torch.ops.novel_ops.MAX_SCREEN_SAMPLES`), the tables are
+packed four samples to a word once a call and each batch goes through
+:func:`kevlar_tpu_torch.ops.novel_ops.novel_screen_compact` (on a card
+``kt_screen_words`` and ``kt_compact_hits``: the predicates tested where
+the words are gathered, the hits compacted in order to a fixed capacity);
+a batch of more hits than the capacity is screened again, uncapped, by
+:func:`~kevlar_tpu_torch.ops.novel_ops.novel_screen` over the same words,
+as JAX falls back.  Any other sample set goes through ``novel_screen``
+(one K2 gather for all samples, torch predicates and compaction).  Only
+the hits come back.  Banding: the user-facing `--band` is 1-based;
+internally band b of N keeps k-mers with ``h1 & (N-1) == b``, as in the
+count stage.  With
 ``--shards`` the sample sketches are hash-sharded over a mesh
 (:mod:`kevlar_tpu_torch.parallel`) and each batch goes through
 :func:`kevlar_tpu_torch.parallel.sharded_novel_screen`.
@@ -24,7 +34,7 @@ import torch
 import kevlar_tpu_torch
 from kevlar_tpu_torch import batch as batch_mod
 from kevlar_tpu_torch import sequence
-from kevlar_tpu_torch.ops import novel_ops
+from kevlar_tpu_torch.ops import hashing, novel_ops, sketch_ops
 from kevlar_tpu_torch.parallel import (ShardedSketch, make_mesh,
                                        sharded_novel_screen)
 from kevlar_tpu_torch.support import ProgressIndicator, Timer
@@ -181,6 +191,11 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
     device = devices.pop()
     specs = None if sharded else [s.table_spec() for s in samples]
     ncase = len(casecounts)
+    words = None
+    if not sharded and 1 < len(samples) <= novel_ops.MAX_SCREEN_SAMPLES \
+            and all(bits == 8 for _, bits, _ in specs) \
+            and len({tuple(t.shape) for t, _, _ in specs}) == 1:
+        words = sketch_ops.pack_sample_tables([t for t, _, _ in specs])
 
     timer = Timer()
     timer.start()
@@ -211,6 +226,22 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
             hits, hit_abunds, discard = sharded_novel_screen(
                 samples[0].mesh, casecounts, controlcounts, codes, lengths,
                 casemin=casemin, ctrlmax=ctrlmax, screen=abundscreen)
+        elif words is not None:
+            h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
+            hit_idx, hit_abunds, n_hits, discard, _ = \
+                novel_ops.novel_screen_compact(
+                    words, len(samples), ncase, h1, h2, valid, codes,
+                    lengths, ksize, casemin, ctrlmax, screen=abundscreen,
+                    numbands=numbands, band=band)
+            n = int(n_hits)
+            if n > hit_idx.shape[0]:
+                # more hits than the capacity: the batch again, uncapped
+                hits, hit_abunds, discard = novel_ops.novel_screen(
+                    specs, ncase, codes, lengths, ksize, casemin, ctrlmax,
+                    screen=abundscreen, numbands=numbands, band=band,
+                    words=words)
+            else:
+                hits, hit_abunds = hit_idx[:n], hit_abunds[:, :n]
         else:
             hits, hit_abunds, discard = novel_ops.novel_screen(
                 specs, ncase, codes, lengths, ksize, casemin, ctrlmax,

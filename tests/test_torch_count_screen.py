@@ -291,8 +291,9 @@ def test_word_gather_kernel_matches_plain_on_card(cuda_device, nsamples,
 @pytest.mark.cuda
 @pytest.mark.parametrize('nctrl', [0, 2])
 def test_program_on_card_matches_cpu(trio, cuda_device, nctrl):
-    """The whole program on the card (K1, ``kt_consume``, the word gather
-    or K2) against the same program on the CPU (the plain versions)."""
+    """The whole program on the card (K1, ``kt_consume``, then
+    ``kt_screen_words`` and ``kt_compact_hits``, or K2 with the case
+    alone) against the same program on the CPU (the plain versions)."""
     packed = _packed(trio, nctrl)
     kw = dict(ksize=31, maxcount=255, casemin=CASEMIN, ctrlmax=CTRLMAX,
               screen=3, max_hits=64)
@@ -301,5 +302,7 @@ def test_program_on_card_matches_cpu(trio, cuda_device, nctrl):
     torch.cuda.synchronize()
     _assert_same(got, _port(packed, **kw))
     assert kmer_cuda.launches['consume'] > before['consume']
-    word = 'gather_counts_words' if nctrl else 'gather_counts'
-    assert kmer_cuda.launches[word] > before[word]
+    screens = ('screen_words', 'compact_hits') if nctrl else \
+        ('gather_counts',)
+    for name in screens:
+        assert kmer_cuda.launches[name] > before[name]

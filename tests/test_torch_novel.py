@@ -5,8 +5,8 @@ sketch arrays and byte-identical augmented FASTQ (the port with ``--device
 cpu``, the plain PyTorch versions of its kernels).  The cases: a trio with
 an SNV and an insertion whose proband reads carry N bases, then
 ``--abund-screen``, ``--num-bands 4 --band 2``, ``--skip-until``, and a
-k-mer-dense batch of more than 32,768 hits, where the JAX screen takes its
-overflow path.
+k-mer-dense batch of more than 32,768 hits, where both screens take their
+overflow paths.
 """
 
 import io
@@ -147,9 +147,11 @@ def test_novel_counting_its_samples_matches_jax(trio, tmp_path):
 def test_dense_batch_over_32768_hits_matches_jax(tmp_path, monkeypatch):
     """A proband genome unrelated to its parents': nearly every k-mer of
     its 550 reads is novel (> 32,768 hits in one batch), which sends the
-    JAX screen to its uncompacted overflow path.  The port's compaction
-    has no cap."""
+    JAX screen to its uncompacted overflow path, and the port's screen
+    over packed words past its capacity to the uncapped ``novel_screen``
+    over the same words."""
     from kevlar_tpu.ops import novel_ops as jax_novel_ops
+    from kevlar_tpu_torch.ops import novel_ops as port_novel_ops
     rng = random.Random(99)
     reads = {}
     for who, genome, cov in (('proband', simdata.make_genome(rng, 5500), 10),
@@ -166,9 +168,18 @@ def test_dense_batch_over_32768_hits_matches_jax(tmp_path, monkeypatch):
         return full_screen(*args, **kwargs)
 
     monkeypatch.setattr(jax_novel_ops, 'novel_screen', spy)
+    port_overflow = []
+    port_screen = port_novel_ops.novel_screen
+
+    def port_spy(*args, **kwargs):
+        port_overflow.append(kwargs.get('words') is not None)
+        return port_screen(*args, **kwargs)
+
+    monkeypatch.setattr(port_novel_ops, 'novel_screen', port_spy)
     text = _both(tmp_path, reads, samples=('proband', 'mother'),
                  novel_args=['--case-min', '1', '--ctrl-max', '0'])
     assert overflow
+    assert port_overflow and all(port_overflow)
     assert text.count('#\n') > 32768
 
 
