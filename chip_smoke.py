@@ -12,11 +12,12 @@
                                  # torch.profiler: the card's busy share
     python3 chip_smoke.py --count-screen
                                  # the word gather's and the screen
-                                 # kernels' checks and the fused count and
+                                 # kernel's checks and the fused count and
                                  # screen (phase 13) at bench.py's trio and
                                  # on random reads of helium's shape,
                                  # without the rest; ~1.5 minutes
     python3 chip_smoke.py --compare-screen DIR
+                                 # the screen alone at phase 5's shapes,
                                  # the fused count and screen at helium and
                                  # the novel stage of this tree against an
                                  # older checkout in DIR; ~4 minutes
@@ -75,13 +76,15 @@ Phases (any failure raises, and the script exits non-zero):
    samples' 8-bit counters to a uint32 word) against its plain version and
    K2 at S = 1, 4 and 5 (a partial word) and with three tables, then at
    K2's S=3 screen shape, timed beside K2 on the same tables; then the
-   screen's two kernels (``kt_screen_words``: the word gather with the
-   predicates and each block's hits in flat order; ``kt_compact_hits``:
-   the hits to their ranks below a fixed capacity) against their plain
-   versions and the unfused screen, on three samples' 4 x 124,999,999
-   tables in one word tensor, at the novel stage's 4,096 rows and B.1's
-   8,192, with the abundance screen off and at 3, a band, a capacity below
-   the hits and every k-mer a hit, then both timed behind a spin kernel;
+   screen's kernel (``kt_screen_reads``: the reads hashed, the words
+   gathered, the predicates tested and the hits stored at their ranks
+   below a fixed capacity, in one launch) against its plain version and
+   the unfused screen, on three samples' 4 x 124,999,999 tables in one
+   word tensor, at the novel stage's 4,096 rows and B.1's 8,192, with the
+   abundance screen off and at 3, a band, a capacity below the hits and
+   every k-mer a hit, then timed behind a spin kernel beside K1 alone and
+   the unfused screen (K1, the word gather, torch predicates and
+   compaction);
 6. count -> novel slice: :func:`make_trio_case` writes the helium trio
    (the reference's quick-start: 25 Mb genome, 30x trio of 150 bp reads
    with 0.5% errors, 20 inherited and 5 de novo variants), and the trio
@@ -89,13 +92,13 @@ Phases (any failure raises, and the script exits non-zero):
    ``--device cuda``: the reference mask (1-bit, 50M), the reference count
    (4-bit, 50M), the masked 8-bit counts of the three samples (500M each)
    and the novel screen (``--case-min 5 --ctrl-max 1``: the trio's tables
-   packed to words, ``kt_screen_words`` and ``kt_compact_hits`` a batch).
-   K1, K2 (the counts' masks), K3's consume and the two screen kernels
+   packed to words, ``kt_screen_reads`` a batch).
+   K1, K2 (the counts' masks), K3's consume and the screen kernel
    must each launch during that run (K3's entry from indices is driven
    apart, through a device sketch's ``consume_hashes``, and held to the
    consume kernel's tables).  A dense screen of the proband's first 1,000
    reads (``--case-min 0 --ctrl-max 255``: every k-mer a hit, past the
-   capacity of 32,768) must launch the screen kernels and then the word
+   capacity of 32,768) must launch the screen kernel and then the word
    gather (the uncapped screen over the same words).  The mask, refr and
    proband tables and both novel texts must equal those of the same
    commands run with the plain versions on the card; and each de novo
@@ -118,8 +121,8 @@ Phases (any failure raises, and the script exits non-zero):
 9. the trio workflow: ``kevlar_tpu_torch.workflow.run_mark1`` on phase 6's
    helium trio with the helium configuration of
    tools/sim_trio_bench.py (seed index built beforehand, timed apart).  K1,
-   K2 (the counts' masks), K3's consume, the screen's two kernels (a novel
-   batch each) and B1 must each launch during the run, every
+   K2 (the counts' masks), K3's consume, the screen kernel (a novel batch
+   each) and B1 must each launch during the run, every
    checkpoint must
    exist, the four de novo SNVs must be PASS calls at their positions, and
    no PASS call may lie more than 10 bp from a de novo locus.  Whether the
@@ -192,8 +195,8 @@ Phases (any failure raises, and the script exits non-zero):
    run, each under ``torch.cuda.set_sync_debug_mode('error')`` and ending
    in one synchronise), ``count_novel_reads_per_s`` (the case twice plus
    the controls, as bench.py counts), the interesting k-mers, the bound
-   and a profiled run's device busy share; K1, ``kt_consume``,
-   ``kt_screen_words`` and ``kt_compact_hits`` must launch.  At (a) the
+   and a profiled run's device busy share; K1, ``kt_consume`` and
+   ``kt_screen_reads`` must launch.  At (a) the
    interesting k-mers must equal ``host_pipeline``'s on the same reads,
    and ``host_pipeline`` on bench.py's subset gives ``vs_baseline``; at
    (b) the program runs once more with the plain versions, every output
@@ -204,8 +207,8 @@ programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
 ``count_and_screen_stack_packed`` at both of phase 13's sizes): launches on
 their paths, ms, the host version's ms and the bound. The last two lines of
 standard output are the kernels record (JSON: B1, K1, K2, the word gather
-(launched by phase 6's dense screen), ``kt_screen_words`` and
-``kt_compact_hits`` (launched by phase 9's novel stage), K3's three
+(launched by phase 6's dense screen), ``kt_screen_reads`` (launched by
+phase 9's novel stage), K3's three
 entries (the consume from hashes; ``kt_scatter_add`` from indices at
 phase 5's shape, launched by the trio's device recount, and over the
 received parts at the routed count's shape,
@@ -972,10 +975,9 @@ def _word_gather_checks(device, rng, samples):
                 pack_ms=pack_ms, shape='532,480 k-mers, 3 samples packed '
                 'in one word tensor of 4 x 124,999,999')
 
-# integer operations per kept k-mer and table in kt_screen_words beyond the
-# word loads (index, reciprocal reduction, byte minimum), and per k-mer
-# (loads, band, skip, the four-byte predicates, the ballot and ranks)
-SCREEN_OPS_PER_KMER = 30
+# integer operations per window in kt_screen_reads beyond K1's hashing and
+# K2's probes (band, skip, the four-byte predicates, the scan's share)
+SCREEN_OPS_PER_KMER = 20
 
 
 def _screen_tables(device, tablesize, seed):
@@ -1003,56 +1005,78 @@ def _screen_tables(device, tablesize, seed):
 def _screen_batch(rng, nrows, device):
     """A read batch as the novel stage ships it: [nrows, 160] codes of 150
     bp reads with N bases, a few reads shorter than k, padding rows of
-    length 0; its lengths and K1's hashes."""
+    length 0; and its lengths."""
     import torch
-    from kevlar_tpu_torch.ops import hashing
     bases = _read_bases(rng, nrows, BENCH_PADLEN, READLEN)
     lengths = np.full(nrows, READLEN, np.int32)
     lengths[5::97] = KSIZE - 1
     lengths[-17:] = 0
     bases[-17:] = 4
-    codes = torch.from_numpy(bases).to(device)
-    lens = torch.from_numpy(lengths).to(device)
-    return (codes, lens) + hashing.kmer_hashes_codes(codes, KSIZE)
+    return (torch.from_numpy(bases).to(device),
+            torch.from_numpy(lengths).to(device))
 
 
-def _segments_err(got, want, rows, P, label):
-    """``kt_screen_words``' outputs against its plain version's: the blocks'
-    counts, each block's filled prefix of the segments (the kernel leaves
-    the rest unwritten), discard and skip; raises unless equal."""
+def _unfused_screen(words, nsamples, ncase, codes, lengths, ksize, casemin,
+                    ctrlmax, screen=None, numbands=None, band=None,
+                    max_hits=32768):
+    """The screen as separate launches on the card: K1, the word gather
+    (``kt_gather_words``), then the predicates and the capped compaction in
+    torch; the same five outputs as ``novel_screen_compact``."""
+    from kevlar_tpu_torch.ops import hashing, novel_ops, sketch_ops
+    h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
+    B, P = h1.shape
+    counts = sketch_ops.gather_counts_words(
+        words, nsamples, h1.reshape(-1), h2.reshape(-1)).reshape(
+            nsamples, B, P)
+    valid = valid != 0
+    if numbands:
+        valid = valid & ((hashing.to_u32(h1) & (numbands - 1)) == band)
+    interesting, discard, skip = novel_ops.screen_predicates(
+        counts, ncase, valid, codes, lengths, ksize, casemin, ctrlmax,
+        screen)
+    return novel_ops.compact_hits_capped(counts, interesting, max_hits) + (
+        discard, skip)
+
+
+def _screen_sectors(words, codes, lengths, casemin):
+    """(windows, kept windows, word sectors) of the screen of ``codes``
+    with no abundance screen and no band, by torch ops outside the kernel:
+    a kept window (valid, its read not skipped) loads table 0's word of
+    every word tensor, and the other tables' only where no case byte (byte
+    0 of word tensor 0) lies below ``casemin`` there (the early exit)."""
     import torch
-    counts, seg_idx, seg_ab, discard, skip = got
-    err = max(_max_diff(counts, want[0], label + ' counts'),
-              _max_diff(discard, want[3], label + ' discard'),
-              _max_diff(skip, want[4], label + ' skip'))
-    index = torch.arange(seg_idx.numel(), device=seg_idx.device)
-    block = index // (rows * P)
-    filled = index - block * rows * P < counts.long()[block]
-    return max(err, _max_diff(seg_idx[filled], want[1][filled],
-                              label + ' hit indices'),
-               _max_diff(seg_ab[:, filled], want[2][:, filled],
-                         label + ' hit counts'))
+    from kevlar_tpu_torch.ops import hashing
+    h1, h2, valid = hashing.kmer_hashes_codes(codes, KSIZE)
+    B, P = h1.shape
+    within = torch.arange(codes.shape[1], device=codes.device)[None, :] < \
+        lengths.long()[:, None]
+    skip = ((codes >= 4) & within).any(dim=1) | (lengths < KSIZE)
+    kept = (valid != 0) & ~skip[:, None]
+    T, Z = words[0].shape
+    idx = hashing.to_u32(h1[kept]) % Z
+    case0 = (words[0][0][idx] & 0xff) >= casemin
+    nkept, W = int(kept.sum()), len(words)
+    return B * P, nkept, W * nkept + W * (T - 1) * int(case0.sum())
 
 
 def _screen_kernel_checks(device, rng, tablesize=None, nrows=None,
                           reps=20):
-    """``kt_screen_words`` and ``kt_compact_hits`` against their plain
-    versions on the card, then timed: three samples' tables of 4 x
-    ``tablesize`` (helium's) packed in one word tensor; batches of
-    ``nrows`` rows (the novel stage's 4,096 and B.1's 8,192), the
-    abundance screen off and at 3, a band, a capacity below the hits, and
-    every k-mer a hit (casemin 0, ctrlmax 255).  Returns the two kernels'
-    records for the kernels line."""
+    """``kt_screen_reads`` against its plain version on the card (and the
+    unfused screen: K1, the word gather, torch), then timed beside K1 alone
+    and the unfused screen: three samples' tables of 4 x ``tablesize``
+    (helium's) packed in one word tensor; batches of ``nrows`` rows (the
+    novel stage's 4,096 and B.1's 8,192), the abundance screen off and at
+    3, a band, a capacity below the hits, and every k-mer a hit (casemin
+    0, ctrlmax 255).  Returns the kernel's record for the kernels line."""
     import torch
-    from kevlar_tpu_torch.ops import kmer_cuda, novel_ops, sketch_ops
+    from kevlar_tpu_torch.ops import hashing, kmer_cuda, novel_ops, \
+        sketch_ops
     tablesize = tablesize or HELIUM_TABLESIZE
     nrows = nrows or (DEFAULT_SCREEN_READS, BENCH_BATCH)
     tables = _screen_tables(device, tablesize, SEED + 12)
     words = sketch_ops.pack_sample_tables(tables)
     del tables
-    P = BENCH_PADLEN - KSIZE + 1
-    rows = novel_ops.screen_rows(P)
-    err = {'screen': 0, 'compact': 0}
+    err = 0
     batches = {n: _screen_batch(rng, n, device) for n in nrows}
     cases = [(n, dict(casemin=5, ctrlmax=1, screen=None, numbands=None,
                       band=None), 32768) for n in nrows]
@@ -1063,93 +1087,75 @@ def _screen_kernel_checks(device, rng, tablesize=None, nrows=None,
               (nrows[0], dict(casemin=0, ctrlmax=255, screen=None,
                               numbands=None, band=None), 32768)]
     hits = {}
+    names = ('hit_idx', 'hit_abunds', 'n_hits', 'discard', 'skip')
     for n, kw, max_hits in cases:
-        codes, lens, h1, h2, valid = batches[n]
-        args = (words, 3, 1, h1, h2, valid, codes, lens, KSIZE,
-                kw['casemin'], kw['ctrlmax'], kw['screen'], kw['numbands'],
-                kw['band'], rows)
+        codes, lens = batches[n]
+        args = (words, 3, 1, codes, lens, KSIZE, kw['casemin'],
+                kw['ctrlmax'], kw['screen'], kw['numbands'], kw['band'],
+                max_hits)
         label = 'screen {:,} rows, {}, max_hits {}'.format(
             n, ', '.join('{} {}'.format(k, v) for k, v in kw.items()
                          if v is not None), max_hits)
-        seg = kmer_cuda.screen_words_cuda(*args)
-        err['screen'] = max(err['screen'], _segments_err(
-            seg, novel_ops.screen_words_plain(*args), rows, P, label))
-        got = kmer_cuda.compact_hits_cuda(seg[0], seg[1], seg[2], rows * P,
-                                          max_hits)
-        want = novel_ops.compact_hits_plain(seg[0], seg[1], seg[2],
-                                            rows * P, max_hits)
-        whole = novel_ops.novel_screen_compact_plain(
-            *args[:-1], max_hits=max_hits)
-        for name, g, w, v in zip(('hit_idx', 'hit_abunds', 'n_hits'), got,
-                                 want, whole):
-            err['compact'] = max(err['compact'],
-                                 _max_diff(g, w, label + ' ' + name),
-                                 _max_diff(g, v, label + ' ' + name +
-                                           ' vs the unfused screen'))
+        got = kmer_cuda.screen_reads_cuda(*args)
+        want = novel_ops.novel_screen_compact_plain(*args)
+        unfused = _unfused_screen(*args)
+        for name, g, w, u in zip(names, got, want, unfused):
+            err = max(err, _max_diff(g, w, label + ' ' + name),
+                      _max_diff(g, u, label + ' ' + name +
+                                ' vs the unfused screen'))
         hits[label] = int(got[2])
         if max_hits < 32768 and hits[label] <= max_hits:
             raise AssertionError('{}: {} hits do not overflow'.format(
                 label, hits[label]))
-        del seg, got, want, whole
+        del got, want, unfused
     # times at the novel stage's shape, the screen off (as run_mark1 runs
     # it), and at B.1's batch
     times = {}
     for n in nrows:
-        codes, lens, h1, h2, valid = batches[n]
-        args = (words, 3, 1, h1, h2, valid, codes, lens, KSIZE, 5, 1, None,
-                None, None, rows)
-        seg, ms = _timed(kmer_cuda.screen_words_cuda, *args, reps=reps,
+        codes, lens = batches[n]
+        args = (words, 3, 1, codes, lens, KSIZE, 5, 1, None, None, None,
+                32768)
+        out, ms = _timed(kmer_cuda.screen_reads_cuda, *args, reps=reps,
                          spin=True)
-        _, plain_ms = _timed(novel_ops.screen_words_plain, *args, reps=3)
-        seg_args = (seg[0], seg[1], seg[2], rows * P, 32768)
-        out, cms = _timed(kmer_cuda.compact_hits_cuda, *seg_args,
+        _, plain_ms = _timed(novel_ops.novel_screen_compact_plain, *args,
+                             reps=3)
+        _, k1_ms = _timed(hashing.kmer_hashes_codes, codes, KSIZE,
                           reps=reps, spin=True)
-        _, cplain_ms = _timed(novel_ops.compact_hits_plain, *seg_args,
-                              reps=3)
+        _, unfused_ms = _timed(_unfused_screen, *args, reps=reps, spin=True)
         nhits = int(out[2])
-        kept = int(((valid != 0) & ~seg[4][:, None]).sum())
-        nk = h1.numel()
-        # hashes, valid, codes and lengths read once, the hits and the
-        # rows' flags written once; each kept k-mer's word in each table
-        # read as its sector
-        bound = _bound(nk * 9 + codes.numel() + 4 * n + 2 * n +
-                       4 * seg[0].numel() + nhits * (4 + 3) +
-                       min(kept * 4 * SECTOR, 4 * words[0].numel()),
-                       nk * SCREEN_OPS_PER_KMER + kept * 4 *
-                       K2_OPS_PER_PROBE)
-        # the counts and the hits below the capacity read, the capacity
-        # written
-        cbound = _bound(4 * seg[0].numel() + min(nhits, 32768) * (4 + 3) +
-                        32768 * (4 + 3) + 4, seg[0].numel() + 32768)
-        times[n] = dict(ms=ms, plain_ms=plain_ms, bound=bound, cms=cms,
-                        cplain_ms=cplain_ms, cbound=cbound, hits=nhits,
-                        kept=kept)
-        del seg, out
-    print('[smoke] kt_screen_words + kt_compact_hits: identical to their '
-          'plain versions (and to the unfused screen) on {} cases: {}; '
-          'three samples in one word tensor of 4 x {:,}, {} rows a block; '
-          '{}'.format(len(cases), '; '.join(
-              '{}: {:,} hits'.format(k, v) for k, v in hits.items()),
-              tablesize, rows, '; '.join(
-                  '{:,} x {} rows ({:,} kept k-mers, {:,} hits): '
-                  'kt_screen_words {:.4f} ms (plain {:.3f} ms, bound {:.4f} '
-                  'ms by {}), kt_compact_hits {:.4f} ms (plain {:.3f} ms, '
-                  'bound {:.4f} ms by {})'.format(
-                      n, BENCH_PADLEN, t['kept'], t['hits'], t['ms'],
-                      t['plain_ms'], t['bound'][0], t['bound'][1], t['cms'],
-                      t['cplain_ms'], t['cbound'][0], t['cbound'][1])
+        windows, kept, sectors = _screen_sectors(words, codes, lens, 5)
+        # the codes and lengths read once, the rows' flags, the hits and
+        # the capacity's padding written once; each kept window's word
+        # sectors as this run's data needs them
+        bound = _bound(codes.numel() + 4 * n + 2 * n + 32768 * (4 + 3) +
+                       min(sectors * SECTOR, 4 * words[0].numel()),
+                       windows * (K1_OPS_PER_WINDOW + SCREEN_OPS_PER_KMER)
+                       + sectors * K2_OPS_PER_PROBE)
+        times[n] = dict(ms=ms, plain_ms=plain_ms, k1_ms=k1_ms,
+                        unfused_ms=unfused_ms, bound=bound, hits=nhits,
+                        kept=kept, sectors=sectors)
+        del out
+    print('[smoke] kt_screen_reads: identical to its plain version and to '
+          'the unfused screen on {} cases: {}; three samples in one word '
+          'tensor of 4 x {:,}; {}'.format(
+              len(cases), '; '.join(
+                  '{}: {:,} hits'.format(k, v) for k, v in hits.items()),
+              tablesize, '; '.join(
+                  '{:,} x {} rows ({:,} kept windows, {:,} word sectors, '
+                  '{:,} hits): kt_screen_reads {:.4f} ms (plain {:.3f} ms, '
+                  'bound {:.4f} ms by {}); K1 alone {:.4f} ms; unfused '
+                  'screen (K1, word gather, torch) {:.4f} ms'.format(
+                      n, BENCH_PADLEN, t['kept'], t['sectors'], t['hits'],
+                      t['ms'], t['plain_ms'], t['bound'][0], t['bound'][1],
+                      t['k1_ms'], t['unfused_ms'])
                   for n, t in times.items())), flush=True)
     t = times[nrows[0]]
-    shape = '{:,} x {} base codes, 3 samples in one word tensor of 4 x {:,}'\
-        .format(nrows[0], BENCH_PADLEN, tablesize)
-    return {'screen words': dict(
-                err=err['screen'], ms=t['ms'], plain_ms=t['plain_ms'],
-                bound_ms=t['bound'][0], bound_by=t['bound'][1],
-                library_ms=None, shape=shape),
-            'compact hits': dict(
-                err=err['compact'], ms=t['cms'], plain_ms=t['cplain_ms'],
-                bound_ms=t['cbound'][0], bound_by=t['cbound'][1],
-                library_ms=None, shape=shape + ', capacity 32,768')}
+    return {'screen reads': dict(
+        err=err, ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+        bound_by=t['bound'][1], library_ms=None, times=times,
+        shape='{:,} x {} base codes, 3 samples in one word tensor of 4 x '
+              '{:,}, capacity 32,768'.format(nrows[0], BENCH_PADLEN,
+                                             tablesize))}
 
 
 def phase_kmer_kernels(device):
@@ -2122,7 +2128,7 @@ def _producer_split(fastq, device):
 # consume_hashes instead
 COUNT_PATH_KERNELS = ('kmer_hashes', 'gather_counts', 'consume')
 # and count -> novel: the novel stage screens a trio over packed words
-NOVEL_PATH_KERNELS = COUNT_PATH_KERNELS + ('screen_words', 'compact_hits')
+NOVEL_PATH_KERNELS = COUNT_PATH_KERNELS + ('screen_reads',)
 # the proband reads of phase 6's dense screen: every k-mer a hit, more
 # than the screen's capacity of 32,768 in one batch
 DENSE_NOVEL_READS = 1000
@@ -2220,21 +2226,19 @@ def phase_trio(device, workdir):
     densepath, walls['novel dense'] = novel_stage(
         'dense_', dense_fastq, ('0', '255'))
     dense_launches = dict(kmer_cuda.launches)
-    for name in ('kmer_hashes', 'screen_words', 'compact_hits',
-                 'gather_counts_words'):
+    for name in ('kmer_hashes', 'screen_reads', 'gather_counts_words'):
         if dense_launches[name] <= 0:
             raise AssertionError('the dense screen launched no {} kernel'
                                  .format(name))
 
     # the same commands with the plain versions, on the card
     kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
-               kmer_cuda.consume_cuda, kmer_cuda.screen_words_cuda,
-               kmer_cuda.compact_hits_cuda, kmer_cuda.gather_words_cuda)
+               kmer_cuda.consume_cuda, kmer_cuda.screen_reads_cuda,
+               kmer_cuda.gather_words_cuda)
     kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
     kmer_cuda.gather_counts_cuda = sketch_ops.gather_counts_multi_plain
     kmer_cuda.consume_cuda = sketch_ops.consume_hashes_plain
-    kmer_cuda.screen_words_cuda = novel_ops.screen_words_plain
-    kmer_cuda.compact_hits_cuda = novel_ops.compact_hits_plain
+    kmer_cuda.screen_reads_cuda = novel_ops.novel_screen_compact_plain
     kmer_cuda.gather_words_cuda = sketch_ops.gather_counts_words_plain
     before = dict(kmer_cuda.launches)
     try:
@@ -2246,8 +2250,8 @@ def phase_trio(device, workdir):
             'plain_dense_', dense_fastq, ('0', '255'))
     finally:
         (kmer_cuda.kmer_hashes_cuda, kmer_cuda.gather_counts_cuda,
-         kmer_cuda.consume_cuda, kmer_cuda.screen_words_cuda,
-         kmer_cuda.compact_hits_cuda, kmer_cuda.gather_words_cuda) = kernels
+         kmer_cuda.consume_cuda, kmer_cuda.screen_reads_cuda,
+         kmer_cuda.gather_words_cuda) = kernels
     if dict(kmer_cuda.launches) != before:
         raise AssertionError('the plain run launched a kernel')
     launches['scatter_add'] = _recount_path(device, workdir, reads)
@@ -2271,15 +2275,14 @@ def phase_trio(device, workdir):
                                  'plain run')
     print('[smoke] kernel run == plain run: mask.nt, refr.sct and '
           'proband.ct tables, and the novel text ({:,} bytes); novel '
-          'launches kt_screen_words {}, kt_compact_hits {}, K2 {} (the '
-          'counts\' masks); the dense screen of {:,} reads ({:,} k-mers, '
-          '{:,} bytes, == plain): kt_screen_words {}, kt_compact_hits {}, '
-          'word gather {} (past the capacity)'.format(
-              len(novel_text), launches['screen_words'],
-              launches['compact_hits'], launches['gather_counts'],
+          'launches kt_screen_reads {}, K1 {}, K2 {} (the counts\' masks); '
+          'the dense screen of {:,} reads ({:,} k-mers, {:,} bytes, == '
+          'plain): kt_screen_reads {}, word gather {} (past the '
+          'capacity)'.format(
+              len(novel_text), launches['screen_reads'],
+              launches['kmer_hashes'], launches['gather_counts'],
               DENSE_NOVEL_READS, dense_text.count('#\n'), len(dense_text),
-              dense_launches['screen_words'],
-              dense_launches['compact_hits'],
+              dense_launches['screen_reads'],
               dense_launches['gather_counts_words']), flush=True)
 
     for stage, wall in walls.items():
@@ -2350,7 +2353,7 @@ BENCH_SEED = 20260817
 # the helium samples' sketches (-M 500M, 4 tables)
 HELIUM_TABLESIZE = 124_999_999
 # the program's own kernels, which phase 13 must launch
-PROGRAM_KERNELS = ('kmer_hashes', 'consume', 'screen_words', 'compact_hits')
+PROGRAM_KERNELS = ('kmer_hashes', 'consume', 'screen_reads')
 
 
 def _bench_tile_reads(genome, readlen, coverage, rng):
@@ -2566,11 +2569,10 @@ def _drive_program(device, stacks, lens, nreads, tablesize, label,
         stacks, windows, 4, tablesize)
     if plain:
         kernels = (kmer_cuda.kmer_hashes_cuda, kmer_cuda.consume_cuda,
-                   kmer_cuda.screen_words_cuda, kmer_cuda.compact_hits_cuda)
+                   kmer_cuda.screen_reads_cuda)
         kmer_cuda.kmer_hashes_cuda = hashing.kmer_hashes_plain
         kmer_cuda.consume_cuda = sketch_ops.consume_hashes_plain
-        kmer_cuda.screen_words_cuda = novel_ops.screen_words_plain
-        kmer_cuda.compact_hits_cuda = novel_ops.compact_hits_plain
+        kmer_cuda.screen_reads_cuda = novel_ops.novel_screen_compact_plain
         before = dict(kmer_cuda.launches)
         try:
             t0 = time.time()
@@ -2579,8 +2581,7 @@ def _drive_program(device, stacks, lens, nreads, tablesize, label,
             result['plain_s'] = time.time() - t0
         finally:
             (kmer_cuda.kmer_hashes_cuda, kmer_cuda.consume_cuda,
-             kmer_cuda.screen_words_cuda,
-             kmer_cuda.compact_hits_cuda) = kernels
+             kmer_cuda.screen_reads_cuda) = kernels
         if dict(kmer_cuda.launches) != before:
             raise AssertionError('{}: the plain run launched a kernel'
                                  .format(label))
@@ -4263,7 +4264,7 @@ def compare_counts(parent, device, workdir):
 
 
 _SCREEN_RUN = r"""
-import hashlib, importlib.util, json, re, subprocess, sys, time
+import hashlib, importlib.util, inspect, json, re, subprocess, sys, time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -4304,6 +4305,29 @@ with profile(activities=[ProfilerActivity.CPU,
     torch.cuda.synchronize()
     wall = time.time() - t0
 busy = here._print_busy('program', prof, wall) / wall
+del out, dev, prof
+# the screen alone at phase 5's shapes: one launch here, K1 and two
+# kernels in a tree whose screen takes K1's hashes
+from kevlar_tpu_torch.ops import hashing, sketch_ops
+words = sketch_ops.pack_sample_tables(here._screen_tables(
+    'cuda', here.HELIUM_TABLESIZE, here.SEED + 12))
+takes_hashes = 'h1' in inspect.signature(
+    novel_ops.novel_screen_compact).parameters
+rng = np.random.default_rng(here.SEED + 5)
+screen_ms = {}
+for n in (here.DEFAULT_SCREEN_READS, here.BENCH_BATCH):
+    codes, lens = here._screen_batch(rng, n, 'cuda')
+    if takes_hashes:
+        def screen():
+            return novel_ops.novel_screen_compact(
+                words, 3, 1, *hashing.kmer_hashes_codes(codes, here.KSIZE),
+                codes, lens, here.KSIZE, 5, 1)
+    else:
+        def screen():
+            return novel_ops.novel_screen_compact(
+                words, 3, 1, codes, lens, here.KSIZE, 5, 1)
+    screen_ms[n] = here._timed(screen, reps=20, spin=True)[1]
+del words
 log = workdir + '/novel.log'
 t0 = time.time()
 subprocess.run([sys.executable, '-m', 'kevlar_tpu_torch', '-l', log,
@@ -4314,18 +4338,22 @@ with open(log) as fh:
 with open(novel_argv.split()[-1], 'rb') as fh:
     text = hashlib.sha256(fh.read()).hexdigest()
 print(json.dumps(dict(walls=walls, busy=busy, digest=digest, novel=stage,
-                      novel_process=process, novel_text=text)))
+                      novel_process=process, novel_text=text,
+                      screen_ms=screen_ms)))
 """
 
 
 def compare_screen(parent):
     """``--compare-screen DIR``: the fused count and screen (phase 13's
-    helium stacks) and the ``novel`` stage (through the CLI, on the
-    helium trio's counts) in the checkout unpacked in ``DIR`` and in this
-    one, each tree a process of its own, in the order parent, change,
-    change, parent: the program's best-of-3 wall and a profiled run's busy
-    share (both measured by this tree's code), the novel stage's wall, and
-    the outputs' digests, which must agree."""
+    helium stacks), the screen alone (phase 5's helium-sized tables at
+    4,096 and 8,192 rows, behind a spin kernel, K1 included where the
+    tree's screen takes K1's hashes) and the ``novel`` stage (through the
+    CLI, on the helium trio's counts) in the checkout unpacked in ``DIR``
+    and in this one, each tree a process of its own, in the order parent,
+    change, change, parent: the program's best-of-3 wall and a profiled
+    run's busy share (both measured by this tree's code), the screen's
+    times, the novel stage's wall, and the outputs' digests, which must
+    agree."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
     if not torch.cuda.is_available():
@@ -4365,12 +4393,15 @@ def compare_screen(parent):
             digests.add(rec['digest'])
             texts.add(rec['novel_text'])
             print('[compare] {}: program best of 3 {:.1f} ms ({}), busy '
-                  '{:.2%}; novel stage {:.2f} s ({:.2f} s the process)'
-                  .format('parent' if tree == parent else 'change',
-                          1e3 * min(rec['walls']), ', '.join(
-                              '{:.1f}'.format(1e3 * w)
-                              for w in rec['walls']), rec['busy'],
-                          rec['novel'], rec['novel_process']), flush=True)
+                  '{:.2%}; novel stage {:.2f} s ({:.2f} s the process); the '
+                  'screen alone {}'.format(
+                      'parent' if tree == parent else 'change',
+                      1e3 * min(rec['walls']), ', '.join(
+                          '{:.1f}'.format(1e3 * w) for w in rec['walls']),
+                      rec['busy'], rec['novel'], rec['novel_process'],
+                      ', '.join('{:,} rows {:.4f} ms'.format(int(n), ms)
+                                for n, ms in rec['screen_ms'].items())),
+                  flush=True)
         if len(digests) != 1 or len(texts) != 1:
             raise AssertionError('the trees\' outputs differ')
         print('[compare] the four runs\' program outputs and novel texts are '
@@ -4550,13 +4581,10 @@ def main():
              'screen past the capacity, phase 6\'s dense screen)',
              'gather_counts_words', 'kevlar_tpu/ops/sketch_ops.py:105',
              dict(launches=trio['dense_launches'])),
-            ('screen words', 'screen_words (kt_screen_words: the word '
-             'gather, the screen\'s predicates and each block\'s hits in '
-             'flat order; run_mark1\'s novel stage)', 'screen_words',
-             'kevlar_tpu/ops/novel_ops.py:111', flow),
-            ('compact hits', 'compact_hits (kt_compact_hits: the blocks\' '
-             'hits to their ranks below a fixed capacity; run_mark1\'s '
-             'novel stage)', 'compact_hits',
+            ('screen reads', 'screen_reads (kt_screen_reads: the reads '
+             'hashed, the word gather, the screen\'s predicates and each '
+             'hit at its rank below a fixed capacity, one launch a batch; '
+             'run_mark1\'s novel stage)', 'screen_reads',
              'kevlar_tpu/ops/novel_ops.py:111', flow),
             ('K3 consume', 'consume (Count-Min scatter-add from hashes: '
              'predicates, bucket indices, atomic adds)', 'consume',
@@ -4610,10 +4638,9 @@ def main():
         'host_ms': sim['host_ms'], 'host_bundles': sim['host_n'],
         'bound_ms': sim['bound_ms'], 'bound_by': sim['bound_by']}, {
         'name': 'count_and_screen_stack_packed (B.1: every sample counted '
-                'with K1 + kt_consume, the tables packed four to a word, the '
-                'case screened with K1 + kt_screen_words and compacted to a '
-                'fixed capacity by kt_compact_hits; helium trio, and '
-                'bench.py\'s trio)',
+                'with K1 + kt_consume, the tables packed four to a word, '
+                'each case batch screened and compacted to a fixed capacity '
+                'by kt_screen_reads; helium trio, and bench.py\'s trio)',
         'route': 'torch', 'source': 'kevlar_tpu_torch/ops/novel_ops.py',
         'replaces': 'kevlar_tpu/ops/novel_ops.py:171',
         'launches': screen['launches'],

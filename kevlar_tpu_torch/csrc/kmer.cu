@@ -1,9 +1,8 @@
 // Count-Min sketch kernels for Hopper (sm_90a): k-mer hashing (K1), the
 // min-over-tables count gather (K2), the novel screen over packed sample
-// words (kt_screen_words, kt_compact_hits), the scatter-add into the
-// consume's accumulator (K3: kt_consume from hashes, kt_scatter_add from
-// indices) and the routing of bucket indices to the shards that own them
-// (kt_route).
+// words (kt_screen_reads), the scatter-add into the consume's accumulator
+// (K3: kt_consume from hashes, kt_scatter_add from indices) and the
+// routing of bucket indices to the shards that own them (kt_route).
 //
 // K1 kt_kmer_hashes replaces the XLA program of
 //   kevlar_tpu/ops/hashing.py :: kmer_codes + hash_pair
@@ -42,33 +41,44 @@
 //   writes one byte a sample.  Bound by bytes: ceil(S/4) x T random
 //   sectors a k-mer against K2's S x T, for a copy of the tables (4 bytes
 //   a bucket) made once a screen.
-// The screen, kt_screen_words then kt_compact_hits, replaces the XLA
-//   program of kevlar_tpu/ops/novel_ops.py :: novel_screen_compact over
-//   packed words (:111; the predicates of novel_screen, :43-108, and the
-//   fixed-capacity jnp.nonzero), on the novel stage and in
-//   count_and_screen_stack_packed.  kt_screen_words is the word gather
-//   redesigned as the screen: the counts are tested where they are
-//   gathered and never written.  A block owns a few whole reads: it finds
-//   the reads to skip from their codes and lengths in shared memory, then
-//   walks its k-mers in flat order, 256 a step; a kept k-mer gathers its
-//   words (T indices once, every load in flight, __vminu4 over the
-//   tables) and tests four samples a word at once (__vcmpgeu4/__vcmpleu4
-//   against byte masks of the cases and controls); a warp ranks its hits
-//   with one ballot, the block adds the warps' counts in warp order, and
-//   each hit (flat index and a byte a sample) is stored at its rank in the
-//   block's own segment of a scratch, so the hits stay in flat order with
-//   no atomics.  A read's discard (the first case below casemin, in case
-//   order, below the abundance screen at a kept k-mer) is a plain store of
-//   1 to shared memory.  kt_compact_hits gives a warp to each block's
-//   segment: every block of 32 warps finds its segments' first global
-//   ranks from the counts alone (a sum over the earlier segments, a warp
-//   scan over its own), so that every warp copies its hits below the
-//   capacity to their ranks at once (ascending, as jnp.nonzero(...,
-//   size=max_hits) gives them); the grid writes -1 and 0 past them, and
-//   the true number of hits.  Bound by
-//   bytes: per k-mer 8 bytes of hashes, 1 of valid and a share of the
-//   codes read once, and ceil(S/4) x T random word sectors for each kept
-//   k-mer; the hits are rare.  The compaction is bound by its launch.
+// The screen, kt_screen_reads, replaces the XLA program of
+//   kevlar_tpu/ops/novel_ops.py :: novel_screen_compact over packed words
+//   (:111: the hashes of :65, the predicates of novel_screen, :43-108, and
+//   the fixed-capacity jnp.nonzero), on the novel stage and in
+//   count_and_screen_stack_packed: one read batch's codes in, its hits
+//   out, in one launch.  Bound by bytes: the codes read once and, for
+//   each kept window, ceil(S/4) random word sectors of table 0 and, where
+//   no case fails there, ceil(S/4) x (T - 1) more; the hits are rare.
+//   What the card pays for is those sectors, at its rate of random
+//   sectors, and everything around them is kept off device memory.  A
+//   block owns a few whole reads and stages their codes in shared memory
+//   with 16-byte loads (as K1); the reads to skip come from there.  Each
+//   thread takes a run of consecutive windows of one read and rolls their
+//   hashes with K1's Roller (the same code, so the same bits: no h1, h2 or
+//   valid goes to device memory); a kept window (valid, in the band, its
+//   read not skipped) computes its T bucket indices once, and the loads
+//   of a chunk of windows are all in flight before any is used; the
+//   bytewise minimum over the tables (__vminu4) is tested four samples a
+//   word at once (__vcmpgeu4/__vcmpleu4 against byte masks of the cases
+//   and controls).  Without the abundance screen a window whose case count
+//   in table 0 is below casemin cannot be a hit, so its other tables are
+//   not loaded.  Each hit is placed at its global rank
+//   in one pass: the block scans its threads' hit counts in run order and
+//   finds its first rank by a decoupled look-back over the earlier blocks
+//   in start order (kt_route's route_lookback and ticket); a thread with
+//   hits walks its run again and stores them straight to their slots
+//   below the capacity, ascending as jnp.nonzero(..., size=max_hits) gives
+//   them.  No scratch of hits, no second kernel, no atomic append.  The
+//   last block in start order writes the number of hits and fills the
+//   slots past them with -1 and 0.  A read's discard (the first case
+//   below casemin, in case order, below the abundance screen at a kept
+//   window) is a plain store of 1 to shared memory.  256 threads a block,
+//   runs of 4 windows (33 runs and 7 reads a block at 130 windows a
+//   read: 586 blocks for 4,096 reads), a chunk of 4 windows' loads in
+//   flight; a read of more than 1,024 windows gets a block of its own and
+//   longer runs.  Runs of 8 windows (chunks of 4 or 8) and a cap of 64
+//   registers (4 blocks an SM) were tried on the card: none was faster at
+//   both 4,096 and 8,192 reads.
 // K3 kt_consume and kt_scatter_add replace
 //   tools/scatter_probe.py :: pallas_scatter_add (B10, the pl.pallas_call at
 //   :76), the core of sketch_ops._scatter_hashes_i32, and kt_consume also
@@ -1057,65 +1067,63 @@ __global__ void route_write_many_kernel(const __grid_constant__ RouteArgs r) {
 
 constexpr int kScreenThreads = 256;
 constexpr int kScreenWarps = kScreenThreads / 32;
-constexpr int kScreenMaxRows = 1024;     // rows a screen block may own
-constexpr int kCompactThreads = 1024;
-constexpr int kCompactSegs = kCompactThreads / 32;   // a warp a segment
+constexpr int kScreenRun = 4;        // windows a thread takes (more: a row
+                                     // of more than 256 runs)
+constexpr int kScreenChunk = 4;      // windows whose word loads fly together
 
-// One read batch's screen over packed sample words (see kt_screen_words).
-struct ScreenArgs {
+// One read batch's screen over packed sample words (see kt_screen_reads).
+struct ScreenReadsArgs {
     const uint32_t *words[kMaxWords];  // [ntables, tablesize] each
-    const int32_t *h1, *h2;     // [nrows, P], uint32 bits (K1)
-    const uint8_t *valid;       // [nrows, P] (K1)
     const uint8_t *codes;       // [nrows, L] base codes, >= 4 invalid
     const int32_t *lengths;     // [nrows]
-    int32_t *counts;            // [blocks]: each block's hits
-    int32_t *seg_idx;           // [nrows * P]: block b's hits from b*rows*P
-    uint8_t *seg_ab;            // [nsamples, nrows * P], the same slots
+    int32_t *hit_idx;           // [max_hits]
+    uint8_t *hit_ab;            // [nsamples, max_hits]
+    int32_t *n_hits;            // one
     uint8_t *discard, *skip;    // [nrows], 0 or 1
+    unsigned *ticket;           // the blocks' order of start, zeroed
+    unsigned long long *status; // [blocks] look-back words, zeroed
     int64_t nrows;
-    int32_t L, P, k, rows;      // rows: a block's rows
-    int32_t nwords, nsamples, ncase, ntables;
+    int32_t L, P, k;
+    int32_t rows, run, runs_per_row, code_bytes;
+    int32_t nwords, nsamples, ncase, ntables, max_hits;
     uint32_t tablesize, magic;
     uint32_t bandmask, band;
     uint32_t casemin, ctrlmax;  // each in [0, 255]
     int32_t screen;             // in [0, 255]; -1: no abundance screen
+    RollConstants rc;
 };
 
-// A block owns `rows` whole reads and the segment of the hit scratch that
-// holds their k-mers' flat indices.  It first finds the reads to skip (a
-// code >= 4 within the length, or a length below k) from the codes; then
-// it walks its k-mers 256 at a time in flat order: a kept k-mer (valid,
-// in the band, its read not skipped) gathers its words with the T bucket
-// indices once and every load in flight, takes the bytewise minimum over
-// the tables (__vminu4) and tests four samples a word at once
-// (__vcmpgeu4 / __vcmpleu4 against byte masks of the case and control
-// samples).  Each warp ranks its hits with one ballot, the block adds the
-// warps' counts in warp order, and every hit is stored at its rank in the
-// block's segment: in flat order, with no atomics.  A read is marked for
-// discard by a plain store of 1 (every such store writes the same value).
-// W word tensors (the first nwords live); T tables, or T = 0 for any
-// count.
-template <int W, int T>
-__global__ void __launch_bounds__(kScreenThreads)
-screen_words_kernel(const __grid_constant__ ScreenArgs a) {
-    __shared__ uint8_t s_skip[kScreenMaxRows], s_disc[kScreenMaxRows];
-    __shared__ int32_t s_warp[kScreenWarps];
-    const int64_t row0 = (int64_t)blockIdx.x * a.rows;
-    const int nr = (int)(a.nrows - row0 < a.rows ? a.nrows - row0 : a.rows);
-    for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-        s_skip[r] = __ldg(a.lengths + row0 + r) < a.k;
-        s_disc[r] = 0;
-    }
-    __syncthreads();
-    const uint8_t *codes = a.codes + row0 * a.L;
-    for (int i = threadIdx.x; i < nr * a.L; i += blockDim.x) {
-        if (__ldg(codes + i) >= 4) {
-            const int r = i / a.L;
-            if (i - r * a.L < __ldg(a.lengths + row0 + r)) s_skip[r] = 1;
-        }
-    }
-    __syncthreads();
+// Bytes [begin, end) of p set to v by the whole block, 16 bytes a store
+// between the aligned edges.
+__device__ __forceinline__ void fill_bytes(uint8_t *p, int64_t begin,
+                                           int64_t end, uint8_t v) {
+    int64_t a16 = begin +
+        (int64_t)((16 - ((reinterpret_cast<uintptr_t>(p) + begin) & 15)) &
+                  15);
+    if (a16 > end) a16 = end;
+    const int64_t e16 = a16 + ((end - a16) & ~(int64_t)15);
+    const uint32_t w = v * 0x01010101u;
+    for (int64_t i = begin + threadIdx.x; i < a16; i += blockDim.x) p[i] = v;
+    for (int64_t i = a16 + 16 * (int64_t)threadIdx.x; i < e16;
+         i += 16 * (int64_t)blockDim.x)
+        *reinterpret_cast<uint4 *>(p + i) = make_uint4(w, w, w, w);
+    for (int64_t i = e16 + threadIdx.x; i < end; i += blockDim.x) p[i] = v;
+}
 
+// A thread's run of nw windows, the first at s (in shared memory) and at
+// flat index flat0: K1's rolling hashes, then per chunk of kScreenChunk
+// windows the word gather of the kept ones (valid, in the band) with
+// every load in flight, __vminu4 over the tables and the four-byte tests.
+// Returns the run's hits.  The first pass (!WRITE) marks the row for
+// discard (*disc = 1) where a kept window's first case below casemin, in
+// case order, is below the abundance screen; the second (WRITE) stores
+// the hits from slot `slot` on, below the capacity.  W word tensors (the
+// first nwords live); T tables, or T = 0 for any count.
+template <bool POLY, int W, int T, bool WRITE>
+__device__ __forceinline__ int32_t screen_run(const ScreenReadsArgs &a,
+                                              const uint8_t *s, int nw,
+                                              int64_t flat0, uint8_t *disc,
+                                              int32_t slot) {
     // byte j of word w belongs to sample 4w + j: a case, a control or none
     uint32_t casem[W], ctrlm[W];
 #pragma unroll
@@ -1123,198 +1131,285 @@ screen_words_kernel(const __grid_constant__ ScreenArgs a) {
         casem[w] = ctrlm[w] = 0u;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            const int s = 4 * w + j;
-            if (s < a.ncase) casem[w] |= 0xffu << (8 * j);
-            else if (s < a.nsamples) ctrlm[w] |= 0xffu << (8 * j);
+            const int smp = 4 * w + j;
+            if (smp < a.ncase) casem[w] |= 0xffu << (8 * j);
+            else if (smp < a.nsamples) ctrlm[w] |= 0xffu << (8 * j);
         }
     }
     const uint32_t cmin = a.casemin * 0x01010101u;
     const uint32_t cmax = a.ctrlmax * 0x01010101u;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int64_t base = row0 * a.P;         // the block's first k-mer
-    const int64_t n = a.nrows * a.P;
-    const int nk = nr * a.P;
-    int32_t filled = 0;                      // the block's hits so far
-    for (int j0 = 0; j0 < nk; j0 += kScreenThreads) {
-        const int j = j0 + threadIdx.x;
-        bool hit = false;
-        uint32_t m[W] = {};
-        if (j < nk) {
-            const int64_t g = base + j;
-            const int r = j / a.P;
-            const uint32_t x = (uint32_t)__ldg(a.h1 + g);
-            if (__ldg(a.valid + g) && (x & a.bandmask) == a.band &&
-                    !s_skip[r]) {
-                const uint32_t y = (uint32_t)__ldg(a.h2 + g);
-                if constexpr (T > 0) {
-                    uint32_t idx[T], word[W][T];
+    // without the abundance screen, a window whose case count in table 0 is
+    // below casemin cannot be a hit: its other tables are not loaded
+    const bool early = a.screen < 0;
+    const int hi_len = a.k > 16 ? a.k - 16 : 0;
+    Roller<POLY> roller;
+    roller.build(s, a.k, hi_len);
+    int32_t hits = 0;
+    for (int c0 = 0; c0 < nw; c0 += kScreenChunk) {
+        uint32_t x[kScreenChunk], y[kScreenChunk];
+        bool keep[kScreenChunk];
 #pragma unroll
-                    for (int t = 0; t < T; ++t)
-                        idx[t] = mod_by(x + (uint32_t)t * y, a.tablesize,
-                                        a.magic);
+        for (int c = 0; c < kScreenChunk; ++c) {
+            const int j = c0 + c;
+            keep[c] = false;
+            x[c] = y[c] = 0u;
+            if (j < nw) {
+                if (j) roller.roll(s, j, a.k, hi_len, a.rc);
+                uint8_t v;
+                roller.emit(j, &x[c], &y[c], &v);
+                keep[c] = v && (x[c] & a.bandmask) == a.band;
+            }
+        }
+        uint32_t m[kScreenChunk][W];
+        if constexpr (T > 0) {
+            uint32_t idx[kScreenChunk][T], word[kScreenChunk][W][T];
 #pragma unroll
-                    for (int w = 0; w < W; ++w) {
-                        if (w < a.nwords) {
+            for (int c = 0; c < kScreenChunk; ++c) {
 #pragma unroll
-                            for (int t = 0; t < T; ++t)
-                                word[w][t] = load_word_streamed(
-                                    a.words[w] + (int64_t)t * a.tablesize +
-                                    idx[t]);
-                        }
-                    }
+                for (int t = 0; t < T; ++t)
+                    idx[c][t] = mod_by(x[c] + (uint32_t)t * y[c],
+                                       a.tablesize, a.magic);
+            }
+            // table 0 of every kept window (all tables without the early
+            // exit), every load issued before any is used
 #pragma unroll
-                    for (int w = 0; w < W; ++w) {
-                        m[w] = word[w][0];
-#pragma unroll
-                        for (int t = 1; t < T; ++t)
-                            m[w] = __vminu4(m[w], word[w][t]);
-                    }
-                } else {
-#pragma unroll
-                    for (int w = 0; w < W; ++w) m[w] = 0xffffffffu;
-                    for (int t = 0; t < a.ntables; ++t) {
-                        const uint32_t idx = mod_by(x + (uint32_t)t * y,
-                                                    a.tablesize, a.magic);
-#pragma unroll
-                        for (int w = 0; w < W; ++w) {
-                            if (w < a.nwords) {
-                                m[w] = __vminu4(m[w], load_word_streamed(
-                                    a.words[w] + (int64_t)t * a.tablesize +
-                                    idx));
-                            }
-                        }
-                    }
-                }
-                uint32_t below[W], above = 0u, any_below = 0u;
+            for (int c = 0; c < kScreenChunk; ++c) {
 #pragma unroll
                 for (int w = 0; w < W; ++w) {
-                    below[w] = ~__vcmpgeu4(m[w], cmin) & casem[w];
-                    any_below |= below[w];
-                    above |= ~__vcmpleu4(m[w], cmax) & ctrlm[w];
+#pragma unroll
+                    for (int t = 0; t < T; ++t) {
+                        word[c][w][t] = 0xffffffffu;
+                        if (keep[c] && w < a.nwords && (t == 0 || !early))
+                            word[c][w][t] = load_word_streamed(
+                                a.words[w] + (int64_t)t * a.tablesize +
+                                idx[c][t]);
+                    }
                 }
-                hit = !any_below && !above;
-                if (any_below && a.screen >= 0) {
-                    // the abundance of the first case (in case order)
-                    // below casemin
-                    uint32_t fail = 0u;
-                    bool found = false;
+            }
+            if (early) {
+#pragma unroll
+                for (int c = 0; c < kScreenChunk; ++c) {
+                    uint32_t low = 0u;
+#pragma unroll
+                    for (int w = 0; w < W; ++w)
+                        low |= ~__vcmpgeu4(word[c][w][0], cmin) & casem[w];
+                    keep[c] = keep[c] && !low;
+                }
+#pragma unroll
+                for (int c = 0; c < kScreenChunk; ++c) {
 #pragma unroll
                     for (int w = 0; w < W; ++w) {
-                        if (!found && below[w]) {
-                            fail = (m[w] >> ((__ffs(below[w]) - 1) & ~7)) &
-                                   0xffu;
-                            found = true;
+#pragma unroll
+                        for (int t = 1; t < T; ++t) {
+                            if (keep[c] && w < a.nwords)
+                                word[c][w][t] = load_word_streamed(
+                                    a.words[w] + (int64_t)t * a.tablesize +
+                                    idx[c][t]);
                         }
                     }
-                    if (fail < (uint32_t)a.screen) s_disc[r] = 1;
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < kScreenChunk; ++c) {
+#pragma unroll
+                for (int w = 0; w < W; ++w) {
+                    m[c][w] = word[c][w][0];
+#pragma unroll
+                    for (int t = 1; t < T; ++t)
+                        m[c][w] = __vminu4(m[c][w], word[c][w][t]);
+                }
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < kScreenChunk; ++c) {
+#pragma unroll
+                for (int w = 0; w < W; ++w) m[c][w] = 0xffffffffu;
+            }
+            for (int t = 0; t < a.ntables; ++t) {
+                uint32_t word[kScreenChunk][W];
+#pragma unroll
+                for (int c = 0; c < kScreenChunk; ++c) {
+                    const uint32_t idx = mod_by(x[c] + (uint32_t)t * y[c],
+                                                a.tablesize, a.magic);
+#pragma unroll
+                    for (int w = 0; w < W; ++w) {
+                        word[c][w] = 0xffffffffu;
+                        if (keep[c] && w < a.nwords)
+                            word[c][w] = load_word_streamed(
+                                a.words[w] + (int64_t)t * a.tablesize + idx);
+                    }
+                }
+#pragma unroll
+                for (int c = 0; c < kScreenChunk; ++c) {
+                    uint32_t low = 0u;
+#pragma unroll
+                    for (int w = 0; w < W; ++w) {
+                        m[c][w] = __vminu4(m[c][w], word[c][w]);
+                        low |= ~__vcmpgeu4(m[c][w], cmin) & casem[w];
+                    }
+                    if (early && t == 0) keep[c] = keep[c] && !low;
                 }
             }
         }
-        const unsigned ballot = __ballot_sync(kFull, hit);
-        if (lane == 0) s_warp[warp] = __popc(ballot);
-        __syncthreads();
-        int32_t before = filled, step = 0;
 #pragma unroll
-        for (int w = 0; w < kScreenWarps; ++w) {
-            const int32_t c = s_warp[w];
-            before += w < warp ? c : 0;
-            step += c;
-        }
-        if (hit) {
-            const int64_t slot = base + before +
-                                 __popc(ballot & ((1u << lane) - 1u));
-            a.seg_idx[slot] = (int32_t)(base + j);
+        for (int c = 0; c < kScreenChunk; ++c) {
+            if (!keep[c]) continue;
+            uint32_t below[W], any_below = 0u, above = 0u;
 #pragma unroll
             for (int w = 0; w < W; ++w) {
+                below[w] = ~__vcmpgeu4(m[c][w], cmin) & casem[w];
+                any_below |= below[w];
+                above |= ~__vcmpleu4(m[c][w], cmax) & ctrlm[w];
+            }
+            if (!WRITE && any_below && a.screen >= 0) {
+                // the abundance of the first case (in case order) below
+                // casemin
+                uint32_t fail = 0u;
+                bool found = false;
 #pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const int s = 4 * w + q;
-                    if (s < a.nsamples)
-                        a.seg_ab[(int64_t)s * n + slot] =
-                            (uint8_t)(m[w] >> (8 * q));
+                for (int w = 0; w < W; ++w) {
+                    if (!found && below[w]) {
+                        fail = (m[c][w] >> ((__ffs(below[w]) - 1) & ~7)) &
+                               0xffu;
+                        found = true;
+                    }
                 }
+                if (fail < (uint32_t)a.screen) *disc = 1;
+            }
+            if (any_below || above) continue;
+            if (WRITE) {
+                if (slot >= a.max_hits) return hits;
+                a.hit_idx[slot] = (int32_t)(flat0 + c0 + c);
+#pragma unroll
+                for (int w = 0; w < W; ++w) {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        const int smp = 4 * w + q;
+                        if (smp < a.nsamples)
+                            a.hit_ab[(int64_t)smp * a.max_hits + slot] =
+                                (uint8_t)(m[c][w] >> (8 * q));
+                    }
+                }
+                ++slot;
+            }
+            ++hits;
+        }
+    }
+    return hits;
+}
+
+// A block takes a block index from a ticket (so that every block it waits
+// on has started) and owns `rows` whole reads.  It stages their codes in
+// shared memory with 16-byte loads (as K1), marks the reads to skip from
+// there (a code >= 4 within the length, or a length below k), and gives
+// each thread one run of `run` consecutive windows of one read, threads in
+// the flat order of their runs.  A thread rolls its windows' hashes with
+// K1's Roller, gathers and tests them (screen_run) and counts its hits;
+// the block scans the counts in thread order and finds its first rank by a
+// decoupled look-back over the earlier blocks (route_lookback); then each
+// thread with hits below the capacity walks its run again and stores
+// them at their ranks, ascending, as jnp.nonzero(..., size=max_hits)
+// orders them.  No hashes and no hit scratch go through device memory.
+// The last block in ticket order learns the number of hits from its
+// look-back, writes it and fills the slots past the hits with -1 and 0.
+template <bool POLY, int W, int T>
+__global__ void __launch_bounds__(kScreenThreads)
+screen_reads_kernel(const __grid_constant__ ScreenReadsArgs a) {
+    extern __shared__ uint4 smem[];
+    __shared__ int32_t s_len[kScreenThreads];
+    __shared__ uint8_t s_skip[kScreenThreads], s_disc[kScreenThreads];
+    __shared__ int32_t s_warp[kScreenWarps];
+    __shared__ int32_t s_base, s_total;
+    __shared__ unsigned s_blk;
+    uint8_t *s_codes = reinterpret_cast<uint8_t *>(smem);
+    if (threadIdx.x == 0) s_blk = atomicAdd(a.ticket, 1u);
+    __syncthreads();
+    const int64_t blk = s_blk;
+    const int64_t row0 = blk * a.rows;
+    const int nr = row0 >= a.nrows ? 0 : (int)(a.nrows - row0 < a.rows ?
+                                               a.nrows - row0 : a.rows);
+    const uint8_t *g = a.codes + row0 * a.L;
+    const int lead = (int)(reinterpret_cast<uintptr_t>(g) & 15);
+    const int nbytes = nr * a.L;
+    const uint8_t *ga = g - lead;
+    const int nchunks = nr ? (lead + nbytes + 15) / 16 : 0;
+    for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
+        const int b0 = c * 16;
+        if (b0 >= lead && b0 + 16 <= lead + nbytes) {
+            smem[c] = __ldg(reinterpret_cast<const uint4 *>(ga) + c);
+        } else {
+            for (int b = b0; b < b0 + 16; ++b) {
+                if (b >= lead && b < lead + nbytes) s_codes[b] = ga[b];
             }
         }
-        filled += step;
-        __syncthreads();                     // s_warp is written again
     }
-    if (threadIdx.x == 0) a.counts[blockIdx.x] = filled;
+    for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+        const int32_t len = __ldg(a.lengths + row0 + r);
+        s_len[r] = len;
+        s_skip[r] = len < a.k;
+        s_disc[r] = 0;
+    }
+    __syncthreads();
+
+    // this thread's run: windows p0 .. p0 + nw - 1 of row `row`; it looks
+    // for invalid bases among the bases its windows start at (the row's
+    // last run also past them, to the end of the row)
+    const int row = threadIdx.x / a.runs_per_row;
+    const int p0 = (threadIdx.x - row * a.runs_per_row) * a.run;
+    const bool mine = row < nr && p0 < a.P;
+    const int nw = mine ? (a.P - p0 < a.run ? a.P - p0 : a.run) : 0;
+    const uint8_t *s = s_codes + lead + row * a.L + p0;
+    if (mine) {
+        const int len = s_len[row];
+        const int end = p0 + nw < a.P ? p0 + nw : a.L;
+        for (int i = p0; i < end && i < len; ++i) {
+            if (s[i - p0] >= 4) {
+                s_skip[row] = 1;
+                break;
+            }
+        }
+    }
+    __syncthreads();
+    const bool kept = mine && !s_skip[row];
+    const int64_t flat0 = (row0 + row) * a.P + p0;
+    const int32_t count = kept ? screen_run<POLY, W, T, false>(
+        a, s, nw, flat0, s_disc + row, 0) : 0;
+
+    // the hits before this thread's: in the block by a scan in thread
+    // order, before the block by the look-back
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int32_t incl = warp_inclusive_scan(count);
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const int32_t c = lane < kScreenWarps ? s_warp[lane] : 0;
+        const int32_t wincl = warp_inclusive_scan(c);
+        const int32_t total = __shfl_sync(kFull, wincl, 31);
+        if (lane < kScreenWarps) s_warp[lane] = wincl - c;
+        const int32_t base = route_lookback(a.status, blk, 1, 0, total);
+        if (lane == 0) {
+            s_base = base;
+            s_total = base + total;
+        }
+    }
+    __syncthreads();
+    const int32_t slot = s_base + s_warp[warp] + incl - count;
+    if (count && slot < a.max_hits)
+        screen_run<POLY, W, T, true>(a, s, nw, flat0, s_disc + row, slot);
     for (int r = threadIdx.x; r < nr; r += blockDim.x) {
         a.skip[row0 + r] = s_skip[r];
         a.discard[row0 + r] = s_disc[r] && !s_skip[r];
     }
-}
-
-// The blocks' hit segments (see kt_compact_hits).
-struct CompactArgs {
-    const int32_t *counts;      // [nseg]
-    const int32_t *seg_idx;     // [n]
-    const uint8_t *seg_ab;      // [nsamples, n]
-    int32_t *hit_idx;           // [max_hits]
-    uint8_t *hit_ab;            // [nsamples, max_hits]
-    int32_t *n_hits;            // one
-    int64_t n, seg_len;         // segment b starts at b * seg_len
-    int32_t nseg, nsamples, max_hits;
-};
-
-// A block takes 32 segments, a warp each.  Every block sums the segments'
-// counts before its own and in all (a few thousand int32, from L2), warp 0
-// scans its 32 counts into their first global ranks, and each warp copies
-// its segment's hits below max_hits to their ranks; then the grid writes
-// -1 and 0 past the hits, and block 0 the number of hits.  The hits come
-// out ascending, since the segments lie in flat order and each holds its
-// hits in flat order.  No warp waits on another's copy: the first ranks
-// come from counts alone.
-__global__ void __launch_bounds__(kCompactThreads)
-compact_hits_kernel(const __grid_constant__ CompactArgs c) {
-    __shared__ int32_t s_before[32], s_all[32], s_off[kCompactSegs];
-    __shared__ int32_t s_total;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int first = blockIdx.x * kCompactSegs;
-    int32_t before = 0, total = 0;
-    for (int i = threadIdx.x; i < c.nseg; i += kCompactThreads) {
-        const int32_t v = __ldg(c.counts + i);
-        total += v;
-        before += i < first ? v : 0;
-    }
-    before = __reduce_add_sync(kFull, before);
-    total = __reduce_add_sync(kFull, total);
-    if (lane == 0) {
-        s_before[warp] = before;
-        s_all[warp] = total;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        before = __reduce_add_sync(kFull, s_before[lane]);
-        total = __reduce_add_sync(kFull, s_all[lane]);
-        const int s = first + lane;
-        const int32_t v = s < c.nseg ? __ldg(c.counts + s) : 0;
-        s_off[lane] = before + warp_inclusive_scan(v) - v;
-        if (lane == 0) s_total = total;
-    }
-    __syncthreads();
-    total = s_total;
-    if (blockIdx.x == 0 && threadIdx.x == 0) *c.n_hits = total;
-    const int s = first + warp;
-    if (s < c.nseg && s_off[warp] < c.max_hits) {
-        const int32_t off = s_off[warp];
-        const int32_t cnt = __ldg(c.counts + s);
-        const int32_t lim = cnt < c.max_hits - off ? cnt : c.max_hits - off;
-        const int64_t src = (int64_t)s * c.seg_len;
-        for (int i = lane; i < lim; i += 32) {
-            c.hit_idx[off + i] = __ldg(c.seg_idx + src + i);
-            for (int q = 0; q < c.nsamples; ++q)
-                c.hit_ab[(int64_t)q * c.max_hits + off + i] =
-                    __ldg(c.seg_ab + (int64_t)q * c.n + src + i);
+    if (blk == gridDim.x - 1) {
+        const int32_t n = s_total;
+        if (threadIdx.x == 0) *a.n_hits = n;
+        if (n < a.max_hits) {
+            fill_bytes(reinterpret_cast<uint8_t *>(a.hit_idx), 4 * (int64_t)n,
+                       4 * (int64_t)a.max_hits, 0xff);
+            for (int q = 0; q < a.nsamples; ++q)
+                fill_bytes(a.hit_ab, (int64_t)q * a.max_hits + n,
+                           (int64_t)(q + 1) * a.max_hits, 0);
         }
-    }
-    const int32_t shown = total < c.max_hits ? total : c.max_hits;
-    for (int64_t i = shown + (int64_t)blockIdx.x * kCompactThreads +
-                     threadIdx.x;
-         i < c.max_hits; i += (int64_t)gridDim.x * kCompactThreads) {
-        c.hit_idx[i] = -1;
-        for (int q = 0; q < c.nsamples; ++q)
-            c.hit_ab[(int64_t)q * c.max_hits + i] = 0;
     }
 }
 
@@ -1383,15 +1478,52 @@ int launch_gather_words(const WordsArgs &args, int nwords, int nsamples,
     return (int)cudaGetLastError();
 }
 
-template <int W>
-int launch_screen(const ScreenArgs &a, cudaStream_t stream) {
-    const unsigned blocks = (unsigned)((a.nrows + a.rows - 1) / a.rows);
-    if (a.ntables == 4) {
-        screen_words_kernel<W, 4><<<blocks, kScreenThreads, 0, stream>>>(a);
-    } else {
-        screen_words_kernel<W, 0><<<blocks, kScreenThreads, 0, stream>>>(a);
+// The screen's geometry at P windows a row: a thread's run of windows,
+// the runs of a row, the rows of a block and the blocks.
+struct ScreenGeometry {
+    int run, runs_per_row, rows;
+    int64_t blocks;
+};
+
+inline ScreenGeometry screen_geometry(int64_t nrows, int P) {
+    ScreenGeometry g;
+    g.run = kScreenRun;
+    g.runs_per_row = (P + g.run - 1) / g.run;
+    if (g.runs_per_row > kScreenThreads) {
+        g.run = (P + kScreenThreads - 1) / kScreenThreads;
+        g.runs_per_row = (P + g.run - 1) / g.run;
     }
+    g.rows = kScreenThreads / g.runs_per_row;
+    if ((int64_t)g.rows > nrows) g.rows = nrows > 0 ? (int)nrows : 1;
+    g.blocks = nrows > 0 ? (nrows + g.rows - 1) / g.rows : 1;
+    return g;
+}
+
+template <bool POLY, int W>
+int launch_screen_reads(const ScreenReadsArgs &a, unsigned blocks,
+                        size_t smem, cudaStream_t stream) {
+    auto kernel = a.ntables == 4 ? screen_reads_kernel<POLY, W, 4>
+                                 : screen_reads_kernel<POLY, W, 0>;
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<blocks, kScreenThreads, smem, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <bool POLY>
+int dispatch_screen_reads(const ScreenReadsArgs &a, unsigned blocks,
+                        size_t smem, cudaStream_t stream) {
+    switch (a.nwords) {
+    case 1:
+        return launch_screen_reads<POLY, 1>(a, blocks, smem, stream);
+    case 2:
+        return launch_screen_reads<POLY, 2>(a, blocks, smem, stream);
+    default:
+        return launch_screen_reads<POLY, kMaxWords>(a, blocks, smem, stream);
+    }
 }
 
 }  // namespace
@@ -1498,62 +1630,76 @@ int kt_gather_words(const void *const *words, int nwords, int nsamples,
     }
 }
 
-// The screen of one read batch over packed sample words.  `words` points to
-// nwords (1 .. kMaxWords) device pointers, each to a [ntables, tablesize]
-// uint32 word tensor whose byte j holds sample 4w + j's 8-bit counter;
-// nsamples lies in (4 * (nwords - 1), 4 * nwords], the first ncase of them
-// cases.  h1, h2 [nrows, P] int32 and valid [nrows, P] uint8 are K1's output
-// on codes [nrows, L] uint8 (P = L - k + 1); lengths [nrows] int32.  A
-// k-mer is a hit where valid != 0, (h1 & bandmask) == band, its read is not
+// The int64 scratch kt_screen_reads needs for nrows rows of P windows:
+// the blocks' ticket, then a look-back word a block.
+int64_t kt_screen_reads_scratch(int64_t nrows, int P) {
+    if (P < 1) return 1;
+    return 1 + screen_geometry(nrows, P).blocks;
+}
+
+// The screen of one read batch over packed sample words, in one launch
+// (after a memset of the scratch).  `words` points to nwords (1 ..
+// kMaxWords) device pointers, each to a [ntables, tablesize] uint32 word
+// tensor whose byte j holds sample 4w + j's 8-bit counter; nsamples lies in
+// (4 * (nwords - 1), 4 * nwords], the first ncase of them cases.  codes
+// [nrows, L] uint8 (>= 4 invalid), lengths [nrows] int32; the windows are
+// hashed as kt_kmer_hashes hashes them (`rc` points to the 8 uint32 of
+// RollConstants).  A window (row r, offset p < P = L - k + 1) is a hit
+// where it holds no code >= 4, (h1 & bandmask) == band, row r is not
 // skipped, every case's minimum over the tables is >= casemin and every
-// control's <= ctrlmax.  Block b owns rows [b * rows, (b + 1) * rows):
-// counts[b] gets its number of hits, and its hits' flat indices (row * P +
-// offset), ascending, go to seg_idx from b * rows * P on, each sample s's
-// count to seg_ab[s * nrows * P + the same slot]; the slots past a block's
-// count are not written.  skip[r] = 1 where a code >= 4 lies within
-// lengths[r] or lengths[r] < k; with screen >= 0, discard[r] = 1 where row r
-// is not skipped and some kept k-mer of it has a first case (in case
+// control's <= ctrlmax.  hit_idx [max_hits] int32 gets the flat indices r
+// * P + p of the first max_hits hits, ascending, then -1; hit_ab
+// [nsamples, max_hits] uint8 their counts, then 0; n_hits (one int32) the
+// number of hits, however many.  skip[r] = 1 where a code >= 4 lies within
+// lengths[r] or lengths[r] < k; with screen >= 0, discard[r] = 1 where row
+// r is not skipped and some kept window of it has a first case (in case
 // order) below casemin whose count is below screen; both 0 otherwise.
-// counts has ceil(nrows / rows) entries; `magic` as for kt_gather_counts.
-int kt_screen_words(const void *const *words, int nwords, int nsamples,
+// `scratch` is kt_screen_reads_scratch(nrows, P) int64; `magic` as for
+// kt_gather_counts.
+int kt_screen_reads(const void *const *words, int nwords, int nsamples,
                     int ncase, int ntables, int64_t tablesize,
-                    uint32_t magic, const void *h1, const void *h2,
-                    const void *valid, const void *codes,
-                    const void *lengths, int64_t nrows, int L, int k,
-                    int rows, uint32_t bandmask, uint32_t band, int casemin,
-                    int ctrlmax, int screen, void *counts, void *seg_idx,
-                    void *seg_ab, void *discard, void *skip, void *stream) {
-    if (nrows == 0) return 0;
+                    uint32_t magic, const void *codes, const void *lengths,
+                    int64_t nrows, int L, int k, const uint32_t *rc,
+                    uint32_t bandmask, uint32_t band, int casemin,
+                    int ctrlmax, int screen, int max_hits, void *hit_idx,
+                    void *hit_ab, void *n_hits, void *discard, void *skip,
+                    void *scratch, void *stream) {
     if (nwords < 1 || nwords > kMaxWords || nsamples <= 4 * (nwords - 1) ||
         nsamples > 4 * nwords || ncase < 1 || ncase > nsamples ||
         ntables < 1 || tablesize < 1 || tablesize >= (int64_t)1 << 31 ||
-        k < 1 || L < k || rows < 1 || rows > kScreenMaxRows || nrows < 0 ||
+        k < 1 || L < k || nrows < 0 ||
         nrows * (L - k + 1) >= (int64_t)1 << 31 || casemin < 0 ||
         casemin > 255 || ctrlmax < 0 || ctrlmax > 255 || screen < -1 ||
-        screen > 255)
+        screen > 255 || max_hits < 1)
         return (int)cudaErrorInvalidValue;
-    ScreenArgs a;
+    const int P = L - k + 1;
+    const ScreenGeometry geo = screen_geometry(nrows, P);
+    ScreenReadsArgs a;
     for (int w = 0; w < kMaxWords; ++w)
         a.words[w] = w < nwords ? (const uint32_t *)words[w] : nullptr;
-    a.h1 = (const int32_t *)h1;
-    a.h2 = (const int32_t *)h2;
-    a.valid = (const uint8_t *)valid;
     a.codes = (const uint8_t *)codes;
     a.lengths = (const int32_t *)lengths;
-    a.counts = (int32_t *)counts;
-    a.seg_idx = (int32_t *)seg_idx;
-    a.seg_ab = (uint8_t *)seg_ab;
+    a.hit_idx = (int32_t *)hit_idx;
+    a.hit_ab = (uint8_t *)hit_ab;
+    a.n_hits = (int32_t *)n_hits;
     a.discard = (uint8_t *)discard;
     a.skip = (uint8_t *)skip;
+    a.ticket = (unsigned *)scratch;
+    a.status = (unsigned long long *)scratch + 1;
     a.nrows = nrows;
     a.L = L;
-    a.P = L - k + 1;
+    a.P = P;
     a.k = k;
-    a.rows = rows;
+    a.rows = geo.rows;
+    a.run = geo.run;
+    a.runs_per_row = geo.runs_per_row;
+    // the tile, up to 15 bytes of lead, rounded up to whole 16-byte chunks
+    a.code_bytes = (int)(((int64_t)geo.rows * L + 15 + 15) / 16 * 16);
     a.nwords = nwords;
     a.nsamples = nsamples;
     a.ncase = ncase;
     a.ntables = ntables;
+    a.max_hits = max_hits;
     a.tablesize = (uint32_t)tablesize;
     a.magic = magic;
     a.bandmask = bandmask;
@@ -1561,49 +1707,15 @@ int kt_screen_words(const void *const *words, int nwords, int nsamples,
     a.casemin = (uint32_t)casemin;
     a.ctrlmax = (uint32_t)ctrlmax;
     a.screen = screen;
+    a.rc = {rc[0], rc[1], rc[2], rc[3], rc[4], rc[5], rc[6], rc[7]};
     cudaStream_t st = (cudaStream_t)stream;
-    switch (nwords) {
-    case 1:
-        return launch_screen<1>(a, st);
-    case 2:
-        return launch_screen<2>(a, st);
-    default:
-        return launch_screen<kMaxWords>(a, st);
-    }
-}
-
-// The ordered fixed-capacity compaction of kt_screen_words' segments: nseg
-// segments of seg_len slots in seg_idx [n] int32 and seg_ab [nsamples, n]
-// uint8, segment b from b * seg_len on holding its first counts[b] slots
-// filled, in flat order.  hit_idx [max_hits] int32 gets the first max_hits
-// hits' indices in that order, then -1; hit_ab [nsamples, max_hits] uint8
-// their counts, then 0; n_hits (one int32) the number of hits, however many.
-// One launch of ceil(nseg / 32) blocks (at least one).
-int kt_compact_hits(const void *counts, int nseg, const void *seg_idx,
-                    const void *seg_ab, int64_t n, int64_t seg_len,
-                    int nsamples, int max_hits, void *hit_idx, void *hit_ab,
-                    void *n_hits, void *stream) {
-    if (nseg < 0 || n < 0 || seg_len < 1 || nsamples < 1 || max_hits < 1 ||
-        (int64_t)nseg * seg_len < n || (nseg > 0 &&
-        (int64_t)(nseg - 1) * seg_len >= n))
-        return (int)cudaErrorInvalidValue;
-    CompactArgs c;
-    c.counts = (const int32_t *)counts;
-    c.seg_idx = (const int32_t *)seg_idx;
-    c.seg_ab = (const uint8_t *)seg_ab;
-    c.hit_idx = (int32_t *)hit_idx;
-    c.hit_ab = (uint8_t *)hit_ab;
-    c.n_hits = (int32_t *)n_hits;
-    c.n = n;
-    c.seg_len = seg_len;
-    c.nseg = nseg;
-    c.nsamples = nsamples;
-    c.max_hits = max_hits;
-    const unsigned blocks = nseg ? (unsigned)((nseg + kCompactSegs - 1) /
-                                              kCompactSegs) : 1u;
-    compact_hits_kernel<<<blocks, kCompactThreads, 0,
-                          (cudaStream_t)stream>>>(c);
-    return (int)cudaGetLastError();
+    cudaError_t err = cudaMemsetAsync(
+        scratch, 0, sizeof(int64_t) * (1 + geo.blocks), st);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)a.code_bytes;
+    if (k > 32)
+        return dispatch_screen_reads<true>(a, (unsigned)geo.blocks, smem, st);
+    return dispatch_screen_reads<false>(a, (unsigned)geo.blocks, smem, st);
 }
 
 // acc [ntables, span] int32 += 1 at every index in [0, span) of the

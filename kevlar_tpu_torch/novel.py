@@ -8,22 +8,24 @@ than k or containing non-ACGT bases are skipped; emitted records carry
 (kmer, offset, abundance-tuple) annotations.
 
 Each read batch's base codes go to the sample sketches' device as they are
-(one byte a base, from pinned host memory) and are hashed there (K1).
-Where there is more than one sample and every sample is an 8-bit device
-sketch of one shape (JAX's ``_pack_or_none`` condition; at most
-:data:`~kevlar_tpu_torch.ops.novel_ops.MAX_SCREEN_SAMPLES`), the tables are
+(one byte a base, from pinned host memory) and are hashed there.  Each
+sample's device tables are screened as ``kevlar_tpu``'s novel screens
+them: their bytes read as 8-bit counters over the packed width, whatever
+the counter width (for 4- and 1-bit sketches that is not the true count,
+as in ``kevlar_tpu``).  Where there are 2 to
+:data:`~kevlar_tpu_torch.ops.novel_ops.MAX_SCREEN_SAMPLES` samples whose
+tables share one shape (JAX's ``_pack_or_none`` condition), the tables are
 packed four samples to a word once a call and each batch goes through
 :func:`kevlar_tpu_torch.ops.novel_ops.novel_screen_compact` (on a card
-``kt_screen_words`` and ``kt_compact_hits``: the predicates tested where
-the words are gathered, the hits compacted in order to a fixed capacity);
-a batch of more hits than the capacity is screened again, uncapped, by
-:func:`~kevlar_tpu_torch.ops.novel_ops.novel_screen` over the same words,
-as JAX falls back.  Any other sample set goes through ``novel_screen``
-(one K2 gather for all samples, torch predicates and compaction).  Only
-the hits come back.  Banding: the user-facing `--band` is 1-based;
-internally band b of N keeps k-mers with ``h1 & (N-1) == b``, as in the
-count stage.  With
-``--shards`` the sample sketches are hash-sharded over a mesh
+``kt_screen_reads``: the windows hashed, the words gathered and the
+predicates tested in one launch, the hits stored in order to a fixed
+capacity); a batch of more hits than the capacity is screened again,
+uncapped, by :func:`~kevlar_tpu_torch.ops.novel_ops.novel_screen` over
+the same words, as JAX falls back.  Any other sample set goes through
+``novel_screen`` (K1, one K2 gather for all samples, torch predicates and
+compaction).  Only the hits come back.  Banding: the user-facing
+`--band` is 1-based; internally band b of N keeps k-mers with ``h1 &
+(N-1) == b``, as in the count stage.  With ``--shards`` the sample sketches are hash-sharded over a mesh
 (:mod:`kevlar_tpu_torch.parallel`) and each batch goes through
 :func:`kevlar_tpu_torch.parallel.sharded_novel_screen`.
 """
@@ -34,7 +36,7 @@ import torch
 import kevlar_tpu_torch
 from kevlar_tpu_torch import batch as batch_mod
 from kevlar_tpu_torch import sequence
-from kevlar_tpu_torch.ops import hashing, novel_ops, sketch_ops
+from kevlar_tpu_torch.ops import novel_ops, sketch_ops
 from kevlar_tpu_torch.parallel import (ShardedSketch, make_mesh,
                                        sharded_novel_screen)
 from kevlar_tpu_torch.support import ProgressIndicator, Timer
@@ -189,11 +191,14 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
         raise ValueError('sample sketches on several devices: {}'.format(
             sorted(map(str, devices))))
     device = devices.pop()
-    specs = None if sharded else [s.table_spec() for s in samples]
+    # each sample's device tables as JAX's novel hands them to its screen:
+    # their bytes as 8-bit counters over the packed width, whatever the
+    # counter width (kevlar_tpu/novel.py:177-178)
+    specs = None if sharded else [
+        (t, 8, t.shape[1]) for t, _, _ in (s.table_spec() for s in samples)]
     ncase = len(casecounts)
     words = None
     if not sharded and 1 < len(samples) <= novel_ops.MAX_SCREEN_SAMPLES \
-            and all(bits == 8 for _, bits, _ in specs) \
             and len({tuple(t.shape) for t, _, _ in specs}) == 1:
         words = sketch_ops.pack_sample_tables([t for t, _, _ in specs])
 
@@ -227,12 +232,11 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
                 samples[0].mesh, casecounts, controlcounts, codes, lengths,
                 casemin=casemin, ctrlmax=ctrlmax, screen=abundscreen)
         elif words is not None:
-            h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
             hit_idx, hit_abunds, n_hits, discard, _ = \
                 novel_ops.novel_screen_compact(
-                    words, len(samples), ncase, h1, h2, valid, codes,
-                    lengths, ksize, casemin, ctrlmax, screen=abundscreen,
-                    numbands=numbands, band=band)
+                    words, len(samples), ncase, codes, lengths, ksize,
+                    casemin, ctrlmax, screen=abundscreen, numbands=numbands,
+                    band=band)
             n = int(n_hits)
             if n > hit_idx.shape[0]:
                 # more hits than the capacity: the batch again, uncapped

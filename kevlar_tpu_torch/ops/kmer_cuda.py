@@ -20,18 +20,16 @@
   ``kevlar_tpu/ops/sketch_ops.py::gather_counts_multi`` over packed words
   (``:105``), the screen of ``count_and_screen_stack_packed``.  Plain
   version: :func:`kevlar_tpu_torch.ops.sketch_ops.gather_counts_words_plain`.
-- **The screen**, two kernels: :func:`screen_words_cuda`
-  (``kt_screen_words``) gathers every sample's count of a read batch's
-  hashed k-mers from the packed words, as the word gather does, tests the
-  screen's predicates where it gathers (casemin, ctrlmax, the band, the
-  reads to skip, the abundance screen's discard) and stores each block's
-  hits in flat order into the block's own segment of a scratch;
-  :func:`compact_hits_cuda` (``kt_compact_hits``) copies the segments'
-  hits to their global ranks below a fixed capacity.  Together they
-  replace ``kevlar_tpu/ops/novel_ops.py::novel_screen_compact`` over
-  packed words (``:111``).  Plain versions:
-  :func:`kevlar_tpu_torch.ops.novel_ops.screen_words_plain` and
-  :func:`kevlar_tpu_torch.ops.novel_ops.compact_hits_plain`.
+- **The screen** :func:`screen_reads_cuda` (``kt_screen_reads``) — one
+  read batch's base codes screened over packed sample words in one
+  launch: each window hashed as K1 hashes it (in the block, never written
+  out), every sample's count gathered from the words as the word gather
+  does, the screen's predicates tested where they are gathered (casemin,
+  ctrlmax, the band, the reads to skip, the abundance screen's discard)
+  and each hit stored at its global rank below a fixed capacity;
+  replaces ``kevlar_tpu/ops/novel_ops.py::novel_screen_compact`` over
+  packed words (``:111``).  Plain version:
+  :func:`kevlar_tpu_torch.ops.novel_ops.novel_screen_compact_plain`.
 - **K3**, two entries over the same atomic add into a resident int32
   accumulator; both replace ``tools/scatter_probe.py::pallas_scatter_add``
   (the ``pl.pallas_call`` at ``:76``, B10).  :func:`consume_cuda` is the
@@ -81,9 +79,9 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 # Kernel launches by kernel, for runs that must show the main path went
 # through the kernels.
 launches = {'kmer_hashes': 0, 'gather_counts': 0, 'gather_counts_range': 0,
-            'gather_counts_words': 0, 'screen_words': 0, 'compact_hits': 0,
-            'consume': 0, 'consume_range': 0, 'scatter_add': 0,
-            'scatter_add_parts': 0, 'route': 0}
+            'gather_counts_words': 0, 'screen_reads': 0, 'consume': 0,
+            'consume_range': 0, 'scatter_add': 0, 'scatter_add_parts': 0,
+            'route': 0}
 
 # Sketches one K2 launch serves (``kMaxSamples`` in the source).
 MAX_SAMPLES = 8
@@ -164,13 +162,12 @@ def _load():
         lib.kt_gather_words.argtypes = [vp, ci, ci, ci, cl, ctypes.c_uint32,
                                         vp, vp, cl, vp, vp]
         u32 = ctypes.c_uint32
-        lib.kt_screen_words.restype = ci
-        lib.kt_screen_words.argtypes = [vp, ci, ci, ci, ci, cl, u32, vp, vp,
-                                        vp, vp, vp, cl, ci, ci, ci, u32, u32,
-                                        ci, ci, ci, vp, vp, vp, vp, vp, vp]
-        lib.kt_compact_hits.restype = ci
-        lib.kt_compact_hits.argtypes = [vp, ci, vp, vp, cl, cl, ci, ci, vp,
-                                        vp, vp, vp]
+        lib.kt_screen_reads.restype = ci
+        lib.kt_screen_reads.argtypes = [vp, ci, ci, ci, ci, cl, u32, vp, vp,
+                                        cl, ci, ci, vp, u32, u32, ci, ci, ci,
+                                        ci, vp, vp, vp, vp, vp, vp, vp]
+        lib.kt_screen_reads_scratch.restype = cl
+        lib.kt_screen_reads_scratch.argtypes = [cl, ci]
         lib.kt_scatter_add.restype = ci
         lib.kt_scatter_add.argtypes = [vp, cl, ci, vp, ci, vp]
         lib.kt_consume.restype = ci
@@ -275,65 +272,41 @@ def gather_words_cuda(words, nsamples, h1, h2):
     return out
 
 
-def screen_words_cuda(words, nsamples, ncase, h1, h2, valid, codes,
-                      lengths, ksize, casemin, ctrlmax, screen, numbands,
-                      band, rows_per_block):
-    """``kt_screen_words`` on checked tensors (see
+def screen_reads_cuda(words, nsamples, ncase, codes, lengths, ksize,
+                      casemin, ctrlmax, screen, numbands, band, max_hits):
+    """``kt_screen_reads`` on checked tensors (see
     :func:`kevlar_tpu_torch.ops.novel_ops.novel_screen_compact`; ``words``
     int32 [T, tablesize] tensors holding the uint32 words, at most
-    :data:`MAX_WORDS`).  Returns ``(counts int32 [ceil(B /
-    rows_per_block)], seg_idx int32 [B * P], seg_ab uint8 [S, B * P],
-    discard bool [B], skip bool [B])``: block b's hits fill the first
-    ``counts[b]`` slots from ``b * rows_per_block * P`` on, and the other
-    slots are left as they were allocated."""
+    :data:`MAX_WORDS`).  Returns ``(hit_idx int32 [max_hits], hit_abunds
+    uint8 [S, max_hits], n_hits int32 0-d, discard bool [B], skip bool
+    [B])``."""
     lib = _load()
-    dev = h1.device
-    B, P = h1.shape
+    dev = codes.device
+    B, L = codes.shape
     ntables, tablesize = words[0].shape
-    n = B * P
-    counts = torch.empty(-(-B // rows_per_block), dtype=torch.int32,
-                         device=dev)
-    seg_idx = torch.empty(n, dtype=torch.int32, device=dev)
-    seg_ab = torch.empty((nsamples, n), dtype=torch.uint8, device=dev)
-    discard = torch.empty(B, dtype=torch.bool, device=dev)
-    skip = torch.empty(B, dtype=torch.bool, device=dev)
-    ptrs = (ctypes.c_void_p * len(words))(*[w.data_ptr() for w in words])
-    with torch.cuda.device(dev):
-        err = lib.kt_screen_words(
-            ptrs, len(words), nsamples, ncase, ntables, tablesize,
-            mod_magic(tablesize), h1.data_ptr(), h2.data_ptr(),
-            valid.data_ptr(), codes.data_ptr(), lengths.data_ptr(), B,
-            codes.shape[1], ksize, rows_per_block,
-            numbands - 1 if numbands else 0, band if numbands else 0,
-            casemin, ctrlmax, -1 if screen is None else screen,
-            counts.data_ptr(), seg_idx.data_ptr(), seg_ab.data_ptr(),
-            discard.data_ptr(), skip.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, 'kt_screen_words', err)
-    launches['screen_words'] += 1
-    return counts, seg_idx, seg_ab, discard, skip
-
-
-def compact_hits_cuda(counts, seg_idx, seg_ab, seg_len, max_hits):
-    """``kt_compact_hits`` on :func:`screen_words_cuda`'s segments of
-    ``seg_len`` slots (``rows_per_block * P``): returns ``(hit_idx int32
-    [max_hits], hit_abunds uint8 [S, max_hits], n_hits int32 0-d)``."""
-    lib = _load()
-    dev = seg_idx.device
-    nsamples, n = seg_ab.shape
     hit_idx = torch.empty(max_hits, dtype=torch.int32, device=dev)
     hit_abunds = torch.empty((nsamples, max_hits), dtype=torch.uint8,
                              device=dev)
     n_hits = torch.empty((), dtype=torch.int32, device=dev)
+    discard = torch.empty(B, dtype=torch.bool, device=dev)
+    skip = torch.empty(B, dtype=torch.bool, device=dev)
+    scratch = torch.empty(lib.kt_screen_reads_scratch(B, L - ksize + 1),
+                          dtype=torch.int64, device=dev)
+    ptrs = (ctypes.c_void_p * len(words))(*[w.data_ptr() for w in words])
+    consts = (ctypes.c_uint32 * 8)(*roll_constants(ksize))
     with torch.cuda.device(dev):
-        err = lib.kt_compact_hits(
-            counts.data_ptr(), counts.numel(), seg_idx.data_ptr(),
-            seg_ab.data_ptr(), n, seg_len, nsamples, max_hits,
-            hit_idx.data_ptr(), hit_abunds.data_ptr(),
-            n_hits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, 'kt_compact_hits', err)
-    launches['compact_hits'] += 1
-    return hit_idx, hit_abunds, n_hits
+        err = lib.kt_screen_reads(
+            ptrs, len(words), nsamples, ncase, ntables, tablesize,
+            mod_magic(tablesize), codes.data_ptr(), lengths.data_ptr(), B, L,
+            ksize, consts, numbands - 1 if numbands else 0,
+            band if numbands else 0, casemin, ctrlmax,
+            -1 if screen is None else screen, max_hits, hit_idx.data_ptr(),
+            hit_abunds.data_ptr(), n_hits.data_ptr(), discard.data_ptr(),
+            skip.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, 'kt_screen_reads', err)
+    launches['screen_reads'] += 1
+    return hit_idx, hit_abunds, n_hits, discard, skip
 
 
 def _launch_scatter(acc, segs, counter):

@@ -458,15 +458,26 @@ class ShardedSketch:
                 mask_threshold=threshold, consume_masked=consume_masked,
                 total=self.tablesize, lo=s * self.shard_size)
 
-    def _gather(self, codes, sketches):
+    def _gather(self, codes, sketches, bits=None):
         """Counts of every window of ``codes`` (padded to a multiple of the
         data rows) in ``sketches`` (sharded alike, this one among them): per
         data row ``d``, on device ``(d, 0)``, uint8 [len(sketches), N_d] and
-        the windows' validity (None where another rank owns ``(d, 0)``)."""
+        the windows' validity (None where another rank owns ``(d, 0)``).
+        With ``bits``, every sketch's rows are read at that counter width,
+        no wider than their own: a wider sketch's first bytes as counters
+        of ``bits``."""
         mesh = self.mesh
         hashed = _hash_rows(mesh, codes, self._ksize)
+
+        def spec(sk, d, s):
+            out = sk._spec(d, s)
+            if bits is None or bits == out[1]:
+                return out
+            width = sketch_ops.packed_width(out[4], bits)
+            return (out[0][:, :width].contiguous(), bits) + out[2:]
+
         local = _grid(mesh, lambda d, s: sketch_ops.gather_counts_multi(
-            [sk._spec(d, s) for sk in sketches], *hashed[d][s][:2]))
+            [spec(sk, d, s) for sk in sketches], *hashed[d][s][:2]))
         counts = collectives.pmin(mesh, local, 'shard')
         return [(counts[d][0], hashed[d][0][2]) if mesh.is_local(d, 0)
                 else None for d in range(mesh.shape['data'])]
@@ -494,7 +505,10 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
                          casemin, ctrlmax, screen=None):
     """The full novel screen over sharded sketches.
 
-    All sketches must share mesh, tablesize and ksize.  One range-aware K2
+    All sketches must share mesh, tablesize and ksize.  Every sketch is
+    read at the first one's counter width, as ``kevlar_tpu`` reads them
+    (``_screen_step``); a sketch narrower than the first raises (there it
+    fails, or reads past that sketch's rows).  One range-aware K2
     launch per shard gathers every sample's counts, a ``pmin`` over
     'shard' picks the owners', and each data row applies the single-device
     screen's predicates and compacts its hits on its device
@@ -514,6 +528,11 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
             raise ValueError('the screen\'s sketches differ in mesh, '
                              'tablesize or ksize')
         sk._check_open()
+    bits = s0.counter_bits
+    if any(sk.counter_bits < bits for sk in samples):
+        raise ValueError('a sketch narrower than the first: kevlar_tpu reads '
+                         'every sketch at the first one\'s counter width, '
+                         'past the narrower one\'s rows')
     ksize = s0.ksize()
     codes = s0._codes(bases)
     lengths = torch.as_tensor(np.asarray(lengths, dtype=np.int32)) \
@@ -524,7 +543,7 @@ def sharded_novel_screen(mesh, case_sketches, ctrl_sketches, bases, lengths,
     codes, lengths = _pad_rows(codes, n_data, lengths.to(codes.device))
     r = codes.shape[0] // n_data
     hits, hit_abunds, discard = [], [], []
-    for d, row in enumerate(s0._gather(codes, samples)):
+    for d, row in enumerate(s0._gather(codes, samples, bits)):
         if row is None:
             for out in (hits, hit_abunds, discard):
                 out.append(None)

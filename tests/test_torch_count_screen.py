@@ -292,8 +292,8 @@ def test_word_gather_kernel_matches_plain_on_card(cuda_device, nsamples,
 @pytest.mark.parametrize('nctrl', [0, 2])
 def test_program_on_card_matches_cpu(trio, cuda_device, nctrl):
     """The whole program on the card (K1, ``kt_consume``, then
-    ``kt_screen_words`` and ``kt_compact_hits``, or K2 with the case
-    alone) against the same program on the CPU (the plain versions)."""
+    ``kt_screen_reads``, or K1 and K2 with the case alone) against the
+    same program on the CPU (the plain versions)."""
     packed = _packed(trio, nctrl)
     kw = dict(ksize=31, maxcount=255, casemin=CASEMIN, ctrlmax=CTRLMAX,
               screen=3, max_hits=64)
@@ -302,7 +302,6 @@ def test_program_on_card_matches_cpu(trio, cuda_device, nctrl):
     torch.cuda.synchronize()
     _assert_same(got, _port(packed, **kw))
     assert kmer_cuda.launches['consume'] > before['consume']
-    screens = ('screen_words', 'compact_hits') if nctrl else \
-        ('gather_counts',)
+    screens = ('screen_reads',) if nctrl else ('gather_counts',)
     for name in screens:
         assert kmer_cuda.launches[name] > before[name]

@@ -6,7 +6,11 @@ cpu``, the plain PyTorch versions of its kernels).  The cases: a trio with
 an SNV and an insertion whose proband reads carry N bases, then
 ``--abund-screen``, ``--num-bands 4 --band 2``, ``--skip-until``, and a
 k-mer-dense batch of more than 32,768 hits, where both screens take their
-overflow paths.
+overflow paths.  Sample tables of 4- and 1-bit counters, and a trio of
+8-bit case and 4-bit controls: ``kevlar_tpu``'s novel reads each sketch's
+packed bytes as 8-bit counters over the packed width, and the port reads
+them so too (at the CLI, and in ``novel.novel`` on tables where that
+reading gives hits).
 """
 
 import io
@@ -60,30 +64,36 @@ def trio(tmp_path_factory):
 def _both(tmp_path, reads, count_args=(), novel_args=(), samples=None):
     """Count ``samples`` and screen the proband with each package's CLI;
     returns the port's novel text after checking it, and every sketch
-    array, against the JAX package's."""
+    array, against the JAX package's.  ``count_args`` go to every count,
+    or by sample where they are a dict; a ``-c 4`` or ``-c 1`` count is
+    saved as ``.sct`` or ``.nt``."""
+    samples = samples or ('proband', 'mother', 'father')
+    args = {who: list(count_args.get(who, ()) if isinstance(count_args, dict)
+                      else count_args) for who in samples}
+    names = {who: who + {'4': '.sct', '1': '.nt'}.get(
+        a[a.index('-c') + 1] if '-c' in a else '8', '.ct')
+        for who, a in args.items()}
     texts = {}
     for name, main, extra in (('jax', jax_cli.main, []),
                               ('port', cli.main, ['--device', 'cpu'])):
         outdir = tmp_path / name
         outdir.mkdir(parents=True)
-        for who in samples or ('proband', 'mother', 'father'):
+        for who in samples:
             main(['count', '-k', str(KSIZE), '-M', '1M'] + extra +
-                 list(count_args) + [str(outdir / (who + '.ct')),
-                                     reads[who]])
-        controls = [str(outdir / (who + '.ct')) for who in
-                    (samples or ('proband', 'mother', 'father'))[1:]]
+                 args[who] + [str(outdir / names[who]), reads[who]])
+        controls = [str(outdir / names[who]) for who in samples[1:]]
         out = str(outdir / 'novel.augfastq')
         main(['novel', '-k', str(KSIZE), '--case', reads['proband'],
-              '--case-counts', str(outdir / 'proband.ct'),
+              '--case-counts', str(outdir / names[samples[0]]),
               '--control-counts'] + controls + extra + list(novel_args) +
              ['-o', out])
         with open(out) as fh:
             texts[name] = fh.read()
-    for ct in (tmp_path / 'jax').glob('*.ct'):
-        with np.load(str(ct)) as want, \
-                np.load(str(tmp_path / 'port' / ct.name)) as got:
+    for who in samples:
+        with np.load(str(tmp_path / 'jax' / names[who])) as want, \
+                np.load(str(tmp_path / 'port' / names[who])) as got:
             for member in want.files:
-                assert np.array_equal(got[member], want[member]), ct.name
+                assert np.array_equal(got[member], want[member]), who
     assert texts['port'] == texts['jax']
     return texts['port']
 
@@ -236,3 +246,81 @@ def test_threads_parse_like_jax(stage, threads, trio, tmp_path):
             np.load(str(tmp_path / (threads + '.ct'))) as got:
         for member in want.files:
             assert np.array_equal(got[member], want[member]), member
+
+
+@pytest.fixture(scope='module')
+def snv_trio(tmp_path_factory):
+    """FASTQ files of a 4 kb trio whose proband carries two SNVs and reads
+    with an N (test_torch_screen.py's)."""
+    workdir = tmp_path_factory.mktemp('snv_trio')
+    rng = random.Random(1212)
+    genome = simdata.make_genome(rng, 4000)
+    child, _, _ = simdata.apply_snv(genome, 1200, rng=rng)
+    child, _, _ = simdata.apply_snv(child, 2900, rng=rng)
+    proband = simdata.tiled_reads(child, 100, 5, prefix='c')
+    for r in proband[::9]:
+        r.sequence = r.sequence[:30] + 'N' + r.sequence[31:]
+    paths = {}
+    for who, reads in (('proband', proband),
+                       ('mother', simdata.sample_reads(
+                           rng, genome, coverage=15, prefix='m')),
+                       ('father', simdata.sample_reads(
+                           rng, genome, coverage=15, prefix='f'))):
+        paths[who] = str(workdir / (who + '.fq'))
+        simdata.write_fastq(reads, paths[who])
+    return paths
+
+
+@pytest.mark.parametrize('bits,limits', [('4', ('6', '0')), ('1', ('1', '0'))])
+def test_novel_over_sub_byte_tables_matches_jax(snv_trio, tmp_path, bits,
+                                                limits):
+    """4- and 1-bit sample tables of one shape: both packages screen their
+    packed bytes as 8-bit counters (the port over packed words, as JAX)."""
+    _both(tmp_path, snv_trio, count_args=['-c', bits], novel_args=[
+        '--case-min', limits[0], '--ctrl-max', limits[1]])
+
+
+def test_novel_over_mixed_widths_matches_jax(snv_trio, tmp_path):
+    """An 8-bit case with 4-bit controls: tables of two shapes, each read
+    at 8 bits over its own packed width."""
+    text = _both(tmp_path, snv_trio, count_args={'mother': ['-c', '4'],
+                                                 'father': ['-c', '4']},
+                 novel_args=['--case-min', '6', '--ctrl-max', '0'])
+    assert text.count('#\n') > 0
+
+
+@pytest.mark.parametrize('bits', [4, 1])
+def test_novel_reads_sub_byte_tables_as_jax_does(bits, monkeypatch):
+    """``novel.novel`` on sketches built from the same counter values in
+    both packages, where JAX's reading of the packed bytes as 8-bit
+    counters gives hits: the same text, and not the text of the true
+    counters."""
+    from kevlar_tpu import novel as jax_novel
+    from kevlar_tpu import sketch as jax_sketch
+    rng = np.random.default_rng(bits)
+    maxcount = (1 << bits) - 1
+    tablesize = 1009
+    case = rng.integers(0, maxcount + 1, (4, tablesize), dtype=np.uint8)
+    ctrl = np.zeros((4, tablesize), np.uint8)
+    ctrl[rng.random((4, tablesize)) < 0.1] = maxcount
+    pyrng = random.Random(bits)
+    reads = simdata.sample_reads(pyrng, simdata.make_genome(pyrng, 600),
+                                 coverage=4, prefix='r')
+    texts = {}
+    for name, mod, make in (
+            ('jax', jax_novel, lambda t: jax_sketch.Sketch(
+                KSIZE, tablesize, 4, counter_bits=bits, tables=t)),
+            ('port', novel, lambda t: sketch.Sketch(
+                KSIZE, tablesize, 4, counter_bits=bits, tables=t,
+                device='cpu'))):
+        texts[name] = ''.join(mod.novel(
+            iter(reads), [make(case)], [make(ctrl), make(ctrl)],
+            ksize=KSIZE, casemin=6, ctrlmax=0, emit='text'))
+    assert texts['port'] == texts['jax']
+    assert texts['port'].count('#\n') > 0
+    # the true counters give other hits
+    true = [sketch.Sketch(KSIZE, tablesize, 4, counter_bits=8, tables=t,
+                          device='cpu') for t in (case, ctrl, ctrl)]
+    assert ''.join(novel.novel(iter(reads), true[:1], true[1:], ksize=KSIZE,
+                               casemin=min(6, maxcount), ctrlmax=0,
+                               emit='text')) != texts['port']

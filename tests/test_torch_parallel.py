@@ -240,6 +240,42 @@ def test_from_sketch_save_and_point_queries(tmp_path):
             sk.get('ACGN' + 'A' * (KSIZE - 4))
 
 
+@pytest.mark.parametrize('case_bits,ctrl_bits', [(4, 8), (1, 4), (8, 4)])
+def test_sharded_novel_screen_of_mixed_widths_matches_jax(case_bits,
+                                                          ctrl_bits):
+    """Sketches of mixed counter widths: both packages read every sketch at
+    the case's width (an 8-bit control's bytes as 4-bit counters), and
+    neither screens an 8-bit case with narrower controls (the port raises
+    for any control narrower than the case)."""
+    rng = np.random.default_rng(case_bits * 10 + ctrl_bits)
+    bases = rng.integers(0, 4, (16, 60), dtype=np.uint8)
+    lengths = np.full(16, 60, np.int32)
+    case_j, case_p = _pair(2, 4, bits=case_bits)
+    ctrl_j, ctrl_p = _pair(2, 4, bits=ctrl_bits)
+    for sk, reads in ((case_j, bases), (ctrl_j, bases[:6]),
+                      (case_p, bases), (ctrl_p, bases[:6])):
+        sk.consume_batch(reads)
+    args = ([case_j], [ctrl_j], bases, lengths)
+    kw = dict(casemin=1, ctrlmax=0)
+    if case_bits == 8:
+        with pytest.raises(TypeError):
+            jax_screen(case_j.mesh, *args, **kw)
+        with pytest.raises(ValueError):
+            sharded_novel_screen(case_p.mesh, [case_p], [ctrl_p], bases,
+                                 lengths, **kw)
+        return
+    interesting, abunds, discard, _ = (np.asarray(x) for x in jax_screen(
+        case_j.mesh, *args, **kw))
+    hits, hit_abunds, got_discard = (x.numpy() for x in sharded_novel_screen(
+        case_p.mesh, [case_p], [ctrl_p], bases, lengths, **kw))
+    want_hits = np.flatnonzero(interesting)
+    assert len(want_hits)
+    np.testing.assert_array_equal(hits, want_hits)
+    np.testing.assert_array_equal(
+        hit_abunds, abunds.reshape(abunds.shape[0], -1)[:, want_hits])
+    np.testing.assert_array_equal(got_discard, discard)
+
+
 @pytest.mark.parametrize('screen', [None, 7])
 def test_sharded_novel_screen_matches_jax(screen):
     rng = random.Random(321)

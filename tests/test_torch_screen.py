@@ -5,11 +5,12 @@ the novel stage's choice between it and the per-sample gather.
 Tolerance: none.  Counts, hit indices and abundances are integers, so the
 five outputs (``hit_idx``, ``hit_abunds``, ``n_hits``, ``discard``,
 ``skip``) must be bit-identical.  On the CPU the port runs the plain
-PyTorch version of its two kernels (the word gather, the predicates and
-the fixed-capacity compaction); the plain versions of each kernel
-(``screen_words_plain``, ``compact_hits_plain``) must compose to it at any
-block size.  The ``cuda``-marked tests hold ``kt_screen_words`` and
-``kt_compact_hits`` on a card to those plain versions (they skip without
+PyTorch version of its kernel, ``novel_screen_compact_plain`` (K1's plain
+hashes, the word gather, the predicates and the fixed-capacity
+compaction).  ``kt_screen_reads``' schedule is emulated in Python
+integers (blocks in a shuffled order of start, the in-block scan, the
+look-back, the early exit) and held to the plain version; the
+``cuda``-marked tests hold the kernel on a card to it (they skip without
 one).
 
 The inputs are seeded with numpy: random base codes with an N inside a
@@ -118,11 +119,20 @@ def _inputs(case):
 def _port(tables, ncase, codes, lengths, kw, device='cpu'):
     words = sketch_ops.pack_sample_tables(
         [torch.from_numpy(t).to(device) for t in tables])
-    c = torch.from_numpy(codes).to(device)
-    h1, h2, valid = hashing.kmer_hashes_codes(c, KSIZE)
     return novel_ops.novel_screen_compact(
-        words, len(tables), ncase, h1, h2, valid, c,
+        words, len(tables), ncase, torch.from_numpy(codes).to(device),
         torch.from_numpy(lengths).to(device), **kw)
+
+
+def _plain_args(case):
+    """(positional arguments of ``novel_screen_compact_plain``, max_hits)
+    of a case, on the CPU."""
+    tables, ncase, codes, lengths, kw = _inputs(case)
+    words = sketch_ops.pack_sample_tables([torch.from_numpy(t)
+                                           for t in tables])
+    return (words, len(tables), ncase, torch.from_numpy(codes),
+            torch.from_numpy(lengths), KSIZE, CASEMIN, CTRLMAX,
+            kw['screen'], kw.get('numbands'), kw.get('band')), kw['max_hits']
 
 
 def _jax(tables, ncase, codes, lengths, kw):
@@ -170,35 +180,17 @@ def test_screen_over_words_matches_jax(case):
 
 
 @pytest.mark.parametrize('case', list(CASES))
-def test_kernel_plain_versions_compose_to_the_screen(case):
-    """``screen_words_plain`` then ``compact_hits_plain`` (the plain
-    versions of the two kernels, which the card holds its kernels to)
-    equal ``novel_screen_compact_plain`` at any rows a block, and each
-    block's filled prefix holds its own hits in flat order."""
+def test_plain_screen_matches_jax(case):
+    """``novel_screen_compact_plain``, the plain version the card holds
+    ``kt_screen_reads`` to, called directly: it hashes with K1's plain
+    version inside and equals JAX's screen over packed words, bands, the
+    abundance screen, skipped and padding rows, row 9's bases past its
+    length and capacities below the hits included."""
     tables, ncase, codes, lengths, kw = _inputs(case)
-    words = sketch_ops.pack_sample_tables([torch.from_numpy(t)
-                                           for t in tables])
-    c = torch.from_numpy(codes)
-    h1, h2, valid = hashing.kmer_hashes_codes(c, KSIZE)
-    args = (words, len(tables), ncase, h1, h2, valid, c,
-            torch.from_numpy(lengths), KSIZE, CASEMIN, CTRLMAX,
-            kw['screen'], kw.get('numbands'), kw.get('band'))
-    want = novel_ops.novel_screen_compact_plain(*args, kw['max_hits'])
-    P = L - KSIZE + 1
-    assert novel_ops.screen_rows(P) == novel_ops.SCREEN_BLOCK_KMERS // P
-    for rows in (1, 5, novel_ops.screen_rows(P), B + 3):
-        counts, seg_idx, seg_ab, discard, skip = novel_ops.screen_words_plain(
-            *args, rows)
-        assert counts.shape == (-(-B // rows),)
-        assert int(counts.sum()) == int(want[2])
-        for b, cnt in enumerate(counts.tolist()):
-            seg = seg_idx[b * rows * P:b * rows * P + cnt]
-            assert bool((seg >= b * rows * P).all())
-            assert bool((seg < (b + 1) * rows * P).all())
-            assert bool((seg[1:] > seg[:-1]).all())
-        got = novel_ops.compact_hits_plain(counts, seg_idx, seg_ab,
-                                           rows * P, kw['max_hits'])
-        _assert_same(got + (discard, skip), want)
+    args, max_hits = _plain_args(case)
+    got = novel_ops.novel_screen_compact_plain(*args, max_hits=max_hits)
+    _assert_same(got, _jax(tables, ncase, codes, lengths, kw))
+    assert int(got[2]) > 0
 
 
 def test_novel_screen_over_words_matches_per_sample_gather():
@@ -224,21 +216,20 @@ def test_screen_checks_its_inputs():
     words = sketch_ops.pack_sample_tables([torch.from_numpy(t)
                                            for t in tables])
     c = torch.from_numpy(codes)
-    h1, h2, valid = hashing.kmer_hashes_codes(c, KSIZE)
     lens = torch.from_numpy(lengths)
 
     def call(**changes):
-        args = dict(words=words, nsamples=3, ncase=1, h1=h1, h2=h2,
-                    valid=valid, codes=c, lengths=lens, ksize=KSIZE,
-                    casemin=CASEMIN, ctrlmax=CTRLMAX)
+        args = dict(words=words, nsamples=3, ncase=1, codes=c, lengths=lens,
+                    ksize=KSIZE, casemin=CASEMIN, ctrlmax=CTRLMAX)
         args.update(changes)
         return novel_ops.novel_screen_compact(**args)
 
     call()
     for bad in (dict(nsamples=5), dict(ncase=0), dict(ncase=4),
-                dict(h1=h1.long()), dict(valid=valid.bool()),
-                dict(lengths=lens.long()), dict(ksize=KSIZE + 1),
-                dict(casemin=256), dict(screen=-1), dict(max_hits=0),
+                dict(codes=c.long()), dict(codes=c[:, ::2]),
+                dict(lengths=lens.long()), dict(lengths=lens[:-1]),
+                dict(ksize=L + 1), dict(ksize=0), dict(casemin=256),
+                dict(screen=-1), dict(max_hits=0),
                 dict(words=(words[0].view(torch.uint8),))):
         with pytest.raises(ValueError):
             call(**bad)
@@ -324,79 +315,54 @@ def cuda_device():
     return torch.device('cuda')
 
 
-def _filled_equal(got, want, rows, P):
-    """``kt_screen_words``' outputs against its plain version's: the block
-    counts, each block's filled prefix (the kernel leaves the rest
-    unwritten), discard and skip."""
-    counts, seg_idx, seg_ab, discard, skip = got
-    assert torch.equal(counts, want[0])
-    assert torch.equal(discard, want[3]) and torch.equal(skip, want[4])
-    n = seg_idx.numel()
-    index = torch.arange(n, device=seg_idx.device)
-    block = index // (rows * P)
-    filled = index - block * rows * P < counts.long()[block]
-    assert torch.equal(seg_idx[filled], want[1][filled])
-    assert torch.equal(seg_ab[:, filled], want[2][:, filled])
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', [
     '1 case, 2 controls, screen None, no band',
     '2 cases, 5 controls, screen 3, band 1 of 4',
     'max_hits below the hits'])
-def test_screen_kernels_match_plain_on_card(cuda_device, case):
-    """Each kernel against its plain version on the same inputs, and the
-    whole screen on the card against the same screen on the CPU."""
+def test_screen_kernel_matches_plain_on_card(cuda_device, case):
+    """``kt_screen_reads`` on the card against its plain version on the
+    same inputs, and against the same screen on the CPU; one launch."""
     tables, ncase, codes, lengths, kw = _inputs(case)
     words = sketch_ops.pack_sample_tables(
         [torch.from_numpy(t).to(cuda_device) for t in tables])
-    c = torch.from_numpy(codes).to(cuda_device)
-    lens = torch.from_numpy(lengths).to(cuda_device)
-    h1, h2, valid = hashing.kmer_hashes_codes(c, KSIZE)
-    P = L - KSIZE + 1
-    args = (words, len(tables), ncase, h1, h2, valid, c, lens, KSIZE,
-            CASEMIN, CTRLMAX, kw['screen'], kw.get('numbands'),
-            kw.get('band'))
-    for rows in (1, 5, novel_ops.screen_rows(P)):
-        got = kmer_cuda.screen_words_cuda(*args, rows)
-        _filled_equal(got, novel_ops.screen_words_plain(*args, rows), rows,
-                      P)
-        hits = kmer_cuda.compact_hits_cuda(got[0], got[1], got[2],
-                                           rows * P, kw['max_hits'])
-        want = novel_ops.compact_hits_plain(got[0], got[1], got[2],
-                                            rows * P, kw['max_hits'])
-        for a, b in zip(hits, want):
-            assert torch.equal(a, b)
+    args = (words, len(tables), ncase, torch.from_numpy(codes).to(
+        cuda_device), torch.from_numpy(lengths).to(cuda_device), KSIZE,
+        CASEMIN, CTRLMAX, kw['screen'], kw.get('numbands'), kw.get('band'),
+        kw['max_hits'])
     before = dict(kmer_cuda.launches)
-    got = _port(tables, ncase, codes, lengths, kw, device=cuda_device)
+    got = kmer_cuda.screen_reads_cuda(*args)
     torch.cuda.synchronize()
-    _assert_same(got, _port(tables, ncase, codes, lengths, kw))
-    assert kmer_cuda.launches['screen_words'] == before['screen_words'] + 1
-    assert kmer_cuda.launches['compact_hits'] == before['compact_hits'] + 1
+    assert kmer_cuda.launches['screen_reads'] == before['screen_reads'] + 1
+    assert kmer_cuda.launches['kmer_hashes'] == before['kmer_hashes']
+    _assert_same(got, novel_ops.novel_screen_compact_plain(*args))
+    _assert_same(_port(tables, ncase, codes, lengths, kw,
+                       device=cuda_device),
+                 _port(tables, ncase, codes, lengths, kw))
 
 
 @pytest.mark.cuda
-def test_screen_kernels_on_a_dense_batch_on_card(cuda_device):
+@pytest.mark.parametrize('nrows,L,ksize,nsamples', [
+    (3000, 160, 31, 3), (7, 1500, 31, 6), (40, 200, 41, 9)])
+def test_screen_kernel_on_a_dense_batch_on_card(cuda_device, nrows, L,
+                                                 ksize, nsamples):
     """Every k-mer a hit (controls at 0, casemin 0): many blocks full and a
-    capacity far below the hits."""
-    rng = np.random.default_rng(7)
-    codes = rng.integers(0, 4, (3000, 160), dtype=np.uint8)
-    lengths = np.full(3000, 150, np.int32)
-    codes[:, 150:] = 4
+    capacity far below the hits; rows of more than 1,024 windows (a block
+    each, longer runs), k > 32 and three word tensors."""
+    rng = np.random.default_rng(nrows + L)
+    codes = rng.integers(0, 4, (nrows, L), dtype=np.uint8)
+    lengths = np.full(nrows, L - 10, np.int32)
+    codes[:, L - 10:] = 4
     tables = [rng.integers(0, 256, (4, 100_003), dtype=np.uint8)] + \
-        [np.zeros((4, 100_003), np.uint8)] * 2
-    kw = dict(ksize=31, casemin=0, ctrlmax=0, max_hits=32768)
+        [np.zeros((4, 100_003), np.uint8)] * (nsamples - 1)
+    kw = dict(ksize=ksize, casemin=0, ctrlmax=0, max_hits=32768)
     words = sketch_ops.pack_sample_tables(
         [torch.from_numpy(t).to(cuda_device) for t in tables])
-    c = torch.from_numpy(codes).to(cuda_device)
-    h1, h2, valid = hashing.kmer_hashes_codes(c, 31)
-    got = novel_ops.novel_screen_compact(
-        words, 3, 1, h1, h2, valid, c,
-        torch.from_numpy(lengths).to(cuda_device), **kw)
-    want = novel_ops.novel_screen_compact_plain(
-        words, 3, 1, h1, h2, valid, c,
-        torch.from_numpy(lengths).to(cuda_device), **kw)
-    assert int(got[2]) == 3000 * 120
+    args = (words, nsamples, 1, torch.from_numpy(codes).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device))
+    got = novel_ops.novel_screen_compact(*args, **kw)
+    want = novel_ops.novel_screen_compact_plain(*args, **kw)
+    assert int(got[2]) == nrows * (L - 10 - ksize + 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -423,64 +389,118 @@ def _mod_by(x, d, m):
     return r - d if r >= d else r
 
 
-def _emulate_screen_words(words, nsamples, ncase, h1, h2, valid, codes,
-                          lengths, ksize, casemin, ctrlmax, screen,
-                          numbands, band, rows):
-    """``kt_screen_words`` in Python integers, block by block and 256
-    threads a step as the kernel runs: the skip flags from the codes, the
-    byte masks of the cases and controls, each kept k-mer's word loads at
-    ``mod_by``'s indices, ``__vminu4`` over the tables, the four-byte
-    predicates, the first failing case by ``__ffs``, the warps' ballots
-    and ranks.  Returns the kernel's outputs, its unwritten slots -1 and
-    0."""
+# csrc/kmer.cu's kScreenThreads, kScreenRun, kScreenChunk
+SCREEN_THREADS, SCREEN_RUN, SCREEN_CHUNK = 256, 4, 4
+COUNT_FLAG, PREFIX_FLAG = 1, 2
+
+
+def _screen_geometry(nrows, P):
+    """``screen_geometry`` of csrc/kmer.cu: (run, runs a row, rows a block,
+    blocks)."""
+    run = SCREEN_RUN
+    runs_per_row = -(-P // run)
+    if runs_per_row > SCREEN_THREADS:
+        run = -(-P // SCREEN_THREADS)
+        runs_per_row = -(-P // run)
+    rows = SCREEN_THREADS // runs_per_row
+    if rows > nrows:
+        rows = max(nrows, 1)
+    return run, runs_per_row, rows, -(-nrows // rows) if nrows else 1
+
+
+def _lookback(status, blk, count):
+    """``route_lookback`` with one bin: publish the block's count, read
+    the earlier blocks' words 32 at a time (lane l the l-th nearest; before
+    block 0 a prefix of 0) until one holds an inclusive prefix, publish the
+    block's own; returns the hits before the block."""
+    if blk == 0:
+        status[0] = (PREFIX_FLAG, count)
+        return 0
+    status[blk] = (COUNT_FLAG, count)
+    prefix, top = 0, blk - 1
+    while True:
+        words = [status[top - lane] if top - lane >= 0 else (PREFIX_FLAG, 0)
+                 for lane in range(32)]
+        assert all(flag for flag, _ in words), 'a block was not published'
+        done = [lane for lane, (flag, _) in enumerate(words)
+                if flag == PREFIX_FLAG]
+        if done:
+            prefix += sum(v for _, v in words[:done[0] + 1])
+            break
+        prefix += sum(v for _, v in words)
+        top -= 32
+    status[blk] = (PREFIX_FLAG, prefix + count)
+    return prefix
+
+
+def _emulate_screen_reads(words, nsamples, ncase, codes, lengths, ksize,
+                          casemin, ctrlmax, screen, numbands, band, max_hits,
+                          order=None, early=True):
+    """``kt_screen_reads`` in Python integers (change with the kernel in
+    csrc/kmer.cu).  Each block stages its rows, marks the rows to skip from
+    its threads' runs (the bases each run's windows start at, the row's
+    last run to the end of the row), and each thread's run takes K1's
+    hashes (the kernel rolls the same bits with K1's Roller) in chunks:
+    ``mod_by``'s bucket indices, the word loads of the kept windows (with
+    ``early`` and no abundance screen, table 0 first and the other tables
+    only where no case byte lies below casemin), ``__vminu4`` over the
+    tables, the four-byte compares against byte masks, the first failing
+    case by ``__ffs``.  The blocks start in ``order`` (a permutation of
+    their indices, the ticket's order): every block counts its hits and
+    publishes them first, then in the same order each block scans its
+    threads' counts in run order, finds its first rank by the look-back
+    and stores its hits below the capacity; the last block pads.  Returns
+    the kernel's five outputs and the words it loaded."""
     W = len(words)
     T, Z = words[0].shape
     magic = kmer_cuda.mod_magic(Z)
     flat_words = [w.numpy().view(np.uint32).reshape(-1).tolist()
                   for w in words]
-    a = (h1.numpy().view(np.uint32).reshape(-1)).tolist()
-    b = (h2.numpy().view(np.uint32).reshape(-1)).tolist()
+    h1, h2, valid = hashing.kmer_hashes_plain(codes, ksize)
+    a = h1.numpy().view(np.uint32).reshape(-1).tolist()
+    b = h2.numpy().view(np.uint32).reshape(-1).tolist()
     ok = valid.numpy().reshape(-1).tolist()
     codes, lengths = codes.numpy(), lengths.numpy()
     nrows, L = codes.shape
     P = L - ksize + 1
-    n = nrows * P
-    seg_idx = [-1] * n
-    seg_ab = [[0] * n for _ in range(nsamples)]
-    counts, discard, skip = [], [False] * nrows, [False] * nrows
+    run, runs_per_row, rows, nblocks = _screen_geometry(nrows, P)
     bandmask, bandval = (numbands - 1, band) if numbands else (0, 0)
     casem = [sum(0xff << (8 * j) for j in range(4) if 4 * w + j < ncase)
              for w in range(W)]
     ctrlm = [sum(0xff << (8 * j) for j in range(4)
                  if ncase <= 4 * w + j < nsamples) for w in range(W)]
     cmin, cmax = casemin * 0x01010101, ctrlmax * 0x01010101
-    for blk in range(-(-nrows // rows)):
-        row0 = blk * rows
-        nr = min(rows, nrows - row0)
-        s_skip = [lengths[row0 + r] < ksize for r in range(nr)]
-        s_disc = [False] * nr
-        for i in range(nr * L):
-            r, col = divmod(i, L)
-            if codes[row0 + r, col] >= 4 and col < lengths[row0 + r]:
-                s_skip[r] = True
-        base, filled = row0 * P, 0
-        for j0 in range(0, nr * P, 256):
-            hits = []
-            for tid in range(256):
-                j = j0 + tid
-                if j >= nr * P:
-                    break
-                g, r = base + j, j // P
-                if not (ok[g] and (a[g] & bandmask) == bandval and
-                        not s_skip[r]):
+    early = early and screen is None
+    hit_idx = [None] * max_hits
+    hit_ab = [[None] * max_hits for _ in range(nsamples)]
+    discard, skip = [None] * nrows, [None] * nrows
+    status = [(0, 0)] * nblocks
+    loads = 0
+
+    def screen_run(g0, nw, disc):
+        """(hits, their flat indices and abundances) of a thread's run."""
+        nonlocal loads
+        hits = []
+        for c0 in range(0, nw, SCREEN_CHUNK):
+            for g in range(g0 + c0, g0 + min(c0 + SCREEN_CHUNK, nw)):
+                if not (ok[g] and (a[g] & bandmask) == bandval):
                     continue
                 idx = [_mod_by((a[g] + t * b[g]) & 0xFFFFFFFF, Z, magic)
                        for t in range(T)]
+                word = [[flat_words[w][idx[0]]] for w in range(W)]
+                loads += W
+                if early and any(~_vcmpgeu4(word[w][0], cmin) & casem[w]
+                                 for w in range(W)):
+                    continue
+                for w in range(W):
+                    word[w] += [flat_words[w][t * Z + idx[t]]
+                                for t in range(1, T)]
+                loads += W * (T - 1)
                 m = []
                 for w in range(W):
-                    x = flat_words[w][idx[0]]
+                    x = word[w][0]
                     for t in range(1, T):
-                        x = _vminu4(x, flat_words[w][t * Z + idx[t]])
+                        x = _vminu4(x, word[w][t])
                     m.append(x)
                 below = [~_vcmpgeu4(m[w], cmin) & casem[w] for w in range(W)]
                 above = 0
@@ -489,49 +509,116 @@ def _emulate_screen_words(words, nsamples, ncase, h1, h2, valid, codes,
                 if any(below) and screen is not None:
                     w = next(w for w in range(W) if below[w])
                     low = below[w] & -below[w]             # __ffs
-                    fail = (m[w] >> ((low.bit_length() - 1) & ~7)) & 0xff
-                    if fail < screen:
-                        s_disc[r] = True
+                    if (m[w] >> ((low.bit_length() - 1) & ~7)) & 0xff < \
+                            screen:
+                        disc[0] = True
                 if not any(below) and not above:
-                    hits.append((tid, j, m))
-            # the warps' ballots in warp order, lanes in lane order
-            for rank, (tid, j, m) in enumerate(sorted(hits)):
-                slot = base + filled + rank
-                seg_idx[slot] = base + j
-                for s in range(nsamples):
-                    seg_ab[s][slot] = (m[s // 4] >> (8 * (s % 4))) & 0xff
-            filled += len(hits)
-        counts.append(filled)
+                    hits.append((g, [(m[s // 4] >> (8 * (s % 4))) & 0xff
+                                     for s in range(nsamples)]))
+        return hits
+
+    order = list(range(nblocks)) if order is None else list(order)
+    assert sorted(order) == list(range(nblocks))
+    blocks = {}
+    for blk in order:
+        # stage, skip flags, the first pass
+        row0 = blk * rows
+        nr = max(0, min(rows, nrows - row0))
+        s_skip = [lengths[row0 + r] < ksize for r in range(nr)]
+        s_disc = [[False] for _ in range(nr)]
+        threads = []
+        for tid in range(SCREEN_THREADS):
+            row, q = divmod(tid, runs_per_row)
+            p0 = q * run
+            if row >= nr or p0 >= P:
+                continue
+            nw = min(run, P - p0)
+            end = p0 + nw if p0 + nw < P else L
+            for i in range(p0, min(end, lengths[row0 + row])):
+                if codes[row0 + row, i] >= 4:
+                    s_skip[row] = True
+                    break
+            threads.append((tid, row, p0, nw))
+        counts = [len(screen_run((row0 + row) * P + p0, nw, s_disc[row]))
+                  if not s_skip[row] else 0 for tid, row, p0, nw in threads]
+        if blk == 0:
+            status[0] = (PREFIX_FLAG, sum(counts))
+        else:
+            status[blk] = (COUNT_FLAG, sum(counts))
+        blocks[blk] = (row0, nr, s_skip, s_disc, threads, counts)
+    total = None
+    for blk in order:
+        row0, nr, s_skip, s_disc, threads, counts = blocks[blk]
+        base = _lookback(status, blk, sum(counts))
+        before = base
+        for (tid, row, p0, nw), count in zip(threads, counts):
+            if count and before < max_hits:
+                for slot, (g, ab) in enumerate(
+                        screen_run((row0 + row) * P + p0, nw, [False]),
+                        start=before):
+                    if slot < max_hits:
+                        hit_idx[slot] = g
+                        for s in range(nsamples):
+                            hit_ab[s][slot] = ab[s]
+            before += count
         for r in range(nr):
-            skip[row0 + r] = s_skip[r]
-            discard[row0 + r] = s_disc[r] and not s_skip[r]
-    return (torch.tensor(counts, dtype=torch.int32),
-            torch.tensor(seg_idx, dtype=torch.int32),
-            torch.tensor(seg_ab, dtype=torch.uint8).reshape(nsamples, n),
-            torch.tensor(discard), torch.tensor(skip))
+            skip[row0 + r] = bool(s_skip[r])
+            discard[row0 + r] = s_disc[r][0] and not s_skip[r]
+        if blk == nblocks - 1:
+            total = base + sum(counts)
+            for slot in range(total, max_hits):
+                hit_idx[slot] = -1
+                for s in range(nsamples):
+                    hit_ab[s][slot] = 0
+    assert None not in hit_idx and None not in discard
+    return (torch.tensor(hit_idx, dtype=torch.int32),
+            torch.tensor(hit_ab, dtype=torch.uint8),
+            torch.tensor(total, dtype=torch.int32), torch.tensor(discard),
+            torch.tensor(skip)), loads
 
 
-@pytest.mark.parametrize('case', [
-    '1 case, 1 control, screen None, no band',
-    '2 cases, 2 controls, screen 3, no band',
-    '2 cases, 5 controls, screen 3, band 1 of 4',
-    '1 case, 5 controls, screen None, band 1 of 4'])
-def test_emulated_screen_kernel_matches_its_plain_version(case):
-    """The kernel's arithmetic (``mod_by``, ``__vminu4``, the four-byte
-    compares against byte masks, ``__ffs`` for the first failing case, the
-    ballot ranks) emulated in Python integers equals
-    ``screen_words_plain``, unwritten slots aside; change
-    ``screen_words_kernel`` in csrc/kmer.cu and this emulation together."""
-    tables, ncase, codes, lengths, kw = _inputs(case)
-    words = sketch_ops.pack_sample_tables([torch.from_numpy(t)
-                                           for t in tables])
-    c = torch.from_numpy(codes)
-    h1, h2, valid = hashing.kmer_hashes_codes(c, KSIZE)
-    P = L - KSIZE + 1
-    rows = novel_ops.screen_rows(P)
-    args = (words, len(tables), ncase, h1, h2, valid, c,
-            torch.from_numpy(lengths), KSIZE, CASEMIN, CTRLMAX,
-            kw['screen'], kw.get('numbands'), kw.get('band'), rows)
-    got = _emulate_screen_words(*args)
-    assert int(got[0].sum()) > 0
-    _filled_equal(got, novel_ops.screen_words_plain(*args), rows, P)
+@pytest.mark.parametrize('case,order', [
+    ('1 case, 1 control, screen None, no band', None),
+    ('2 cases, 2 controls, screen 3, no band', None),
+    ('2 cases, 5 controls, screen 3, band 1 of 4', None),
+    ('1 case, 5 controls, screen None, band 1 of 4', None),
+    ('max_hits below the hits', 1),
+    ('2 cases, 5 controls, screen None, band 1 of 4', 2),
+    ('many blocks', 3)])
+def test_emulated_screen_kernel_matches_its_plain_version(case, order):
+    """``kt_screen_reads``' schedule and arithmetic emulated in Python
+    integers (``_emulate_screen_reads``) equal
+    ``novel_screen_compact_plain``, with the blocks started in their order
+    and in orders shuffled from a seed; change ``screen_reads_kernel`` in
+    csrc/kmer.cu and this emulation together.  Without the abundance
+    screen the early exit loads fewer words and changes nothing."""
+    if case == 'many blocks':
+        # 1,000 rows, 23 a block: 44 blocks, look-backs past 32 of them
+        rng = np.random.default_rng(44)
+        codes = rng.integers(0, 4, (1000, L), dtype=np.uint8)
+        codes[::50, 30] = 4
+        lengths = np.full(1000, L, np.int32)
+        lengths[-3:] = 0
+        tables = _tables(45, 1, 2)
+        words = sketch_ops.pack_sample_tables([torch.from_numpy(t)
+                                               for t in tables])
+        args = (words, 3, 1, torch.from_numpy(codes),
+                torch.from_numpy(lengths), KSIZE, CASEMIN, CTRLMAX, None,
+                None, None)
+        max_hits = 300
+    else:
+        args, max_hits = _plain_args(case)
+    nblocks = _screen_geometry(args[3].shape[0], L - KSIZE + 1)[3]
+    perm = None if order is None else \
+        np.random.default_rng(order).permutation(nblocks).tolist()
+    got, loads = _emulate_screen_reads(*args, max_hits, order=perm)
+    want = novel_ops.novel_screen_compact_plain(*args, max_hits=max_hits)
+    assert int(want[2]) > 0
+    _assert_same(got, want)
+    if case == 'many blocks':
+        assert nblocks > 32 and int(want[2]) > max_hits
+    if args[8] is None:
+        late, all_loads = _emulate_screen_reads(*args, max_hits, order=perm,
+                                                early=False)
+        _assert_same(late, want)
+        assert loads < all_loads
