@@ -12,10 +12,11 @@
                                  # torch.profiler: the card's busy share
     python3 chip_smoke.py --count-screen
                                  # the word gather's and the screen
-                                 # kernel's checks and the fused count and
+                                 # kernel's checks, the fused count and
                                  # screen (phase 13) at bench.py's trio and
-                                 # on random reads of helium's shape,
-                                 # without the rest; ~1.5 minutes
+                                 # on random reads of helium's shape, and
+                                 # phase 14's count_novel entry, without
+                                 # the rest; ~2 minutes
     python3 chip_smoke.py --compare-screen DIR
                                  # the screen alone at phase 5's shapes,
                                  # the fused count and screen at helium and
@@ -187,8 +188,9 @@ Phases (any failure raises, and the script exits non-zero):
 13. count and screen as one program (B.1), after phase 6:
    ``ops.novel_ops.count_and_screen_stack_packed`` on the card at (a)
    bench.py's trio (200 kb genome, 30x, 150 bp reads padded to 160, batches
-   of 8,192, 4 x 2,000,003 buckets, casemin 6, ctrlmax 1; bench.py's
-   generators and numpy ``host_pipeline`` copied here) and (b) phase 6's
+   of 8,192, 4 x 2,000,003 buckets, casemin 6, ctrlmax 1; the generators
+   and numpy ``host_pipeline`` of ``kevlar_tpu_torch.bench.count_novel``,
+   the port's bench.py) and (b) phase 6's
    helium FASTQ (5.0M reads a sample through the port's reader into
    [611, 8,192, 160] stacks, packed on the host, 4 x 124,999,999 buckets).
    For each: the stacks' H2D, the program's wall (best of 3 after a warm
@@ -201,6 +203,27 @@ Phases (any failure raises, and the script exits non-zero):
    and ``host_pipeline`` on bench.py's subset gives ``vs_baseline``; at
    (b) the program runs once more with the plain versions, every output
    and table equal.
+14. bench entries, after phase 13: the four entries of
+   ``kevlar_tpu_torch.bench`` (the port's ``bench.py``, ``bench_call.py``,
+   ``bench_configs.py`` and ``tools/sim_trio_bench.py``), each ``main``
+   called in this process with ``--device cuda`` at its defaults, its
+   standard output captured and printed on the smoke's lines.
+   ``count_novel`` (bench.py's trio; the stacks' copies inside the timed
+   region, as bench.py times it): its last line has exactly bench.py's
+   keys, K1, ``kt_consume`` and ``kt_screen_reads`` launch, and its
+   interesting k-mers equal phase 13 (a)'s.  ``call`` (64 loci): three
+   lines with bench_call.py's metric names, B1 launches, and the 128 rows'
+   (cigar, score) pairs from the card equal the plain version's on the
+   CPU.  ``configs`` (400 kb, 30x, ``-M 32M``): bench_configs.py's five
+   configs in order, K1, ``kt_consume``, ``kt_screen_reads`` and B1
+   launch, every de novo variant a PASS call (config 4) and the sharded
+   novel text equal to the unsharded one (config 5).  ``sim_trio`` (1 Mb,
+   25x, 11 de novo; the helium preset's workflow is phase 9's): the
+   ``trio_workflow`` line with tools/sim_trio_bench.py's keys, K1, K2,
+   ``kt_consume``, ``kt_screen_reads`` and B1 launch, and the final VCF
+   (its ``##fileDate`` line aside) and its score are ``kevlar_tpu``'s on
+   the same draw (``SIM_TRIO_VCF_SHA256``, ``SIM_TRIO_SCORE``: 10 of 11
+   de novo variants found, 12 PASS calls, 2 false positives).
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the XLA
 programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
@@ -2340,100 +2363,18 @@ def phase_trio(device, workdir):
                 reads=reads, denovo=denovo)
 
 
-# bench.py's trio (bench.py:29-36): the configuration bench.py times
-# ``count_and_screen_stack_packed`` at, copied here because bench.py
-# imports jax
-BENCH_GENOME_LEN = 200_000
-BENCH_COVERAGE = 30
+# bench.py's batch shape and screen (bench.py:29-36; the constants of
+# kevlar_tpu_torch.bench.count_novel, whose generators phase 13 runs),
+# kept here because --compare-screen loads this file beside an older
+# tree's package
 BENCH_PADLEN = 160
 BENCH_BATCH = 8192
 BENCH_TABLESIZE = 2_000_003
 BENCH_CASEMIN, BENCH_CTRLMAX = 6, 1
-BENCH_SEED = 20260817
 # the helium samples' sketches (-M 500M, 4 tables)
 HELIUM_TABLESIZE = 124_999_999
 # the program's own kernels, which phase 13 must launch
 PROGRAM_KERNELS = ('kmer_hashes', 'consume', 'screen_reads')
-
-
-def _bench_tile_reads(genome, readlen, coverage, rng):
-    """bench.py's ``tile_reads``: error-free reads at random starts, padded
-    to ``BENCH_PADLEN`` with code 4."""
-    n_reads = len(genome) * coverage // readlen
-    starts = rng.integers(0, len(genome) - readlen, size=n_reads)
-    idx = starts[:, None] + np.arange(readlen)[None, :]
-    out = np.full((n_reads, BENCH_PADLEN), 4, dtype=np.uint8)
-    out[:, :readlen] = genome[idx]
-    return out
-
-
-def _bench_stack_all(reads):
-    """bench.py's ``stack_all``: [N, PADLEN] -> [NB, BATCH, PADLEN], rows
-    padded with code 4."""
-    NB = -(-len(reads) // BENCH_BATCH)
-    out = np.full((NB * BENCH_BATCH, BENCH_PADLEN), 4, dtype=np.uint8)
-    out[:len(reads)] = reads
-    return out.reshape(NB, BENCH_BATCH, BENCH_PADLEN)
-
-
-def bench_trio(genome_len=BENCH_GENOME_LEN):
-    """bench.py's trio as its ``main`` draws it: (case, mother, father)
-    reads [N, PADLEN] uint8; the case carries 20 de novo SNVs."""
-    rng = np.random.default_rng(BENCH_SEED)
-    genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
-    child = genome.copy()
-    snv_positions = rng.choice(genome_len - 100, size=20,
-                               replace=False) + 50
-    child[snv_positions] = (child[snv_positions] + rng.integers(
-        1, 4, size=len(snv_positions))) % 4
-    case = _bench_tile_reads(child, READLEN, BENCH_COVERAGE, rng)
-    mom = _bench_tile_reads(genome, READLEN, BENCH_COVERAGE, rng)
-    dad = _bench_tile_reads(genome, READLEN, BENCH_COVERAGE, rng)
-    return case, mom, dad
-
-
-def bench_host_pipeline(case_reads, ctrl_reads_list,
-                        tablesize=BENCH_TABLESIZE):
-    """bench.py's ``host_pipeline``: the same count and screen in
-    single-threaded numpy (the port's copy of ``dna.kmer_hashes``).
-    Returns (seconds, interesting k-mers)."""
-    from kevlar_tpu_torch import dna
-    ntables = 4
-
-    def consume(reads):
-        tables = np.zeros((ntables, tablesize), dtype=np.uint8)
-        for i in range(0, len(reads), BENCH_BATCH):
-            chunk = reads[i:i + BENCH_BATCH]
-            h1, h2, valid = dna.kmer_hashes(chunk, KSIZE)
-            h1f = h1[valid]
-            h2f = h2[valid]
-            for t in range(ntables):
-                idx = (h1f + np.uint32(t) * h2f) % np.uint32(tablesize)
-                inc = np.bincount(idx.astype(np.int64), minlength=tablesize)
-                tables[t] = np.minimum(
-                    tables[t].astype(np.int64) + inc, 255).astype(np.uint8)
-        return tables
-
-    def gather(tables, h1, h2):
-        counts = None
-        for t in range(ntables):
-            idx = (h1 + np.uint32(t) * h2) % np.uint32(tablesize)
-            c = tables[t][idx.astype(np.int64)]
-            counts = c if counts is None else np.minimum(counts, c)
-        return counts
-
-    t0 = time.time()
-    all_tables = [consume(r) for r in [case_reads] + ctrl_reads_list]
-    n_interesting = 0
-    for i in range(0, len(case_reads), BENCH_BATCH):
-        chunk = case_reads[i:i + BENCH_BATCH]
-        h1, h2, valid = dna.kmer_hashes(chunk, KSIZE)
-        case_counts = gather(all_tables[0], h1, h2)
-        ok = valid & (case_counts >= BENCH_CASEMIN)
-        for tb in all_tables[1:]:
-            ok &= gather(tb, h1, h2) <= BENCH_CTRLMAX
-        n_interesting += int(ok.sum())
-    return time.time() - t0, n_interesting
 
 
 def _read_packed_stack(fastq):
@@ -2611,40 +2552,50 @@ def _drive_program(device, stacks, lens, nreads, tablesize, label,
     return result
 
 
-def phase_count_screen(device, reads, tablesize=HELIUM_TABLESIZE,
-                       bench_genome_len=BENCH_GENOME_LEN):
-    """Phase 13: ``count_and_screen_stack_packed`` on the card at
-    bench.py's trio and on phase 6's helium trio."""
-    from concurrent.futures import ThreadPoolExecutor
+def _program_at_bench_trio(device, plain=False):
+    """``count_and_screen_stack_packed`` on bench.py's trio (the generators
+    of ``kevlar_tpu_torch.bench.count_novel``), its interesting k-mers held
+    to ``host_pipeline``'s on the same reads; returns the program's
+    record and the trio."""
     from kevlar_tpu_torch.batch import pack_bases
-    smi = _nvidia_smi()
-
-    # (a) bench.py's trio, its interesting k-mers against host_pipeline's
-    case, mom, dad = bench_trio(bench_genome_len)
-    lens = np.full((-(-len(case) // BENCH_BATCH), BENCH_BATCH), READLEN,
-                   np.int32)
+    from kevlar_tpu_torch.bench import count_novel
+    case, mom, dad = count_novel.bench_trio(count_novel.GENOME_LEN)
+    lens = np.full((-(-len(case) // count_novel.BATCH), count_novel.BATCH),
+                   READLEN, np.int32)
     lens.reshape(-1)[len(case):] = 0
-    stacks = [pack_bases(_bench_stack_all(r)) for r in (case, mom, dad)]
+    stacks = [pack_bases(count_novel.stack_all(r)) for r in (case, mom, dad)]
     bench = _drive_program(device, stacks, lens,
                            (len(case), len(mom), len(dad)), BENCH_TABLESIZE,
-                           "bench.py's trio")
-    _, host_hits = bench_host_pipeline(case, [mom, dad])
+                           "bench.py's trio", plain=plain)
+    _, host_hits = count_novel.host_pipeline(case, [mom, dad])
     if host_hits != bench['interesting']:
         raise AssertionError('bench.py\'s trio: {} interesting k-mers, '
                              'host_pipeline {}'.format(bench['interesting'],
                                                        host_hits))
+    return bench, (case, mom, dad)
+
+
+def phase_count_screen(device, reads, tablesize=HELIUM_TABLESIZE):
+    """Phase 13: ``count_and_screen_stack_packed`` on the card at
+    bench.py's trio and on phase 6's helium trio."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kevlar_tpu_torch.bench import count_novel
+    smi = _nvidia_smi()
+
+    # (a) bench.py's trio, its interesting k-mers against host_pipeline's
+    bench, (case, mom, dad) = _program_at_bench_trio(device)
     # host_pipeline on bench.py's subset, best of 3, as bench.py times it
-    sub = max(len(case) // 8, BENCH_BATCH)
-    host_s = min(bench_host_pipeline(case[:sub], [mom[:sub], dad[:sub]])[0]
-                 for _ in range(3))
+    sub = max(len(case) // 8, count_novel.BATCH)
+    host_s = min(count_novel.host_pipeline(
+        case[:sub], [mom[:sub], dad[:sub]])[0] for _ in range(3))
     bench['host_ms'] = 1e3 * host_s
     bench['host_reads'] = 4 * sub
     bench['vs_baseline'] = bench['reads_per_s'] / (4 * sub / host_s)
     print('[smoke] bench.py\'s trio: interesting k-mers == host_pipeline\'s '
           '({:,}); host_pipeline on {:,} reads {:.1f} ms (best of 3), '
           'vs_baseline {:.2f}; {}'.format(
-              host_hits, 4 * sub, bench['host_ms'], bench['vs_baseline'],
-              smi), flush=True)
+              bench['interesting'], 4 * sub, bench['host_ms'],
+              bench['vs_baseline'], smi), flush=True)
 
     # (b) helium: the trio's FASTQ through the port's reader, packed on
     # the host, three samples at once
@@ -2659,6 +2610,208 @@ def phase_count_screen(device, reads, tablesize=HELIUM_TABLESIZE,
         tuple(n for _, _, _, n in read), tablesize, 'helium', plain=True)
     print('[smoke] {}'.format(smi), flush=True)
     return dict(bench=bench, helium=helium, launches=helium['launches'])
+
+
+# what the JAX entries print: bench.py's keys, bench_call.py's and
+# bench_configs.py's metric names, tools/sim_trio_bench.py's keys
+COUNT_NOVEL_KEYS = ['metric', 'value', 'unit', 'vs_baseline']
+CALL_METRICS = ['assemble_call_contigs_per_s_host',
+                'call_align_contigs_per_s_device',
+                'call_align_contigs_per_s_device_batched']
+CONFIG_METRICS = [(0, 'count_3_samples_wall_s'),
+                  (2, 'novel_filter_partition_wall_s'),
+                  (3, 'assemble_localize_wall_s'),
+                  (4, 'full_calling_wall_s'),
+                  (5, 'sharded_count_novel_wall_s')]
+SIM_TRIO_KEYS = ['metric', 'preset', 'stage_wall_s', 'genome_size',
+                 'coverage', 'error_rate', 'denovo_found', 'denovo_total',
+                 'pass_calls', 'false_positives', 'workflow_wall_s',
+                 'seed_index_wall_s', 'total_wall_s', 'peak_rss_mb']
+# tools/sim_trio_bench.py's default draw through kevlar_tpu (CPU backend)
+# and through the port on the CPU, final VCFs equal: the 314 bp insertion
+# is called as a 186 bp one and a 14 bp deletion is called where no
+# variant lies, so 10 of 11 de novo variants are found with 2 false
+# positives (BENCH_TRIO_TPU.json's 11 of 11 is an older kevlar_tpu's);
+# the sha256 is of the final VCF without its ##fileDate line
+SIM_TRIO_SCORE = dict(denovo_found=10, denovo_total=11, pass_calls=12,
+                      false_positives=2)
+SIM_TRIO_VCF_SHA256 = ('78eff3fcb39f5f0d17f540a525167f67'
+                       '211f82c74f6c92e6493d18ba3a9e6116')
+
+
+def _reset_launches():
+    from kevlar_tpu_torch.ops import align_cuda, kmer_cuda
+    for name in kmer_cuda.launches:
+        kmer_cuda.launches[name] = 0
+    align_cuda.launches = 0
+
+
+def _entry_launches(label, required):
+    """The kmer kernels' and B1's launches since :func:`_reset_launches`;
+    each kernel in ``required`` (B1 as 'ksw_extz') must have launched."""
+    from kevlar_tpu_torch.ops import align_cuda, kmer_cuda
+    launches = dict(kmer_cuda.launches, ksw_extz=align_cuda.launches)
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError('{}: no {} kernel launched'.format(label,
+                                                                   name))
+    return {name: launches[name] for name in required}
+
+
+def _run_entry(name, module, argv):
+    """``module.main(argv)`` in this process, its standard output captured
+    and then printed on the smoke's lines.  Returns what ``main``
+    returned, the JSON objects of its output lines and its wall
+    seconds."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = module.main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print('[smoke] {}: {}'.format(name, line), flush=True)
+    return ret, [json.loads(line) for line in buf.getvalue().splitlines()], \
+        time.time() - t0
+
+
+def bench_count_novel(device, interesting):
+    """Phase 14's ``kevlar_tpu_torch.bench.count_novel`` at bench.py's
+    sizes: bench.py's JSON keys, K1, ``kt_consume`` and
+    ``kt_screen_reads`` launched, and the interesting k-mers of phase
+    13 (a) (``interesting``), the same trio."""
+    from kevlar_tpu_torch.bench import count_novel
+    _reset_launches()
+    ret, lines, wall = _run_entry('count_novel', count_novel,
+                                  ['--device', device])
+    launches = _entry_launches('count_novel', PROGRAM_KERNELS)
+    if list(lines[-1]) != COUNT_NOVEL_KEYS or \
+            lines[-1]['metric'] != 'count_novel_reads_per_s':
+        raise AssertionError('count_novel printed {}'.format(lines[-1]))
+    if ret['interesting'] != interesting:
+        raise AssertionError('count_novel: {} interesting k-mers, phase 13 '
+                             '{}'.format(ret['interesting'], interesting))
+    print('[smoke] count_novel entry: {:,.1f} reads/s, vs_baseline {}; '
+          'best run {:.3f} ms = copies {:.3f} ms + program and read-back '
+          '{:.3f} ms; interesting k-mers {:,} == phase 13\'s; host_pipeline '
+          '{:.1f} ms for {:,} reads; reference architecture {:,.0f} reads/s; '
+          'launches {}; {:.1f} s in all'.format(
+              lines[-1]['value'], lines[-1]['vs_baseline'],
+              1e3 * ret['wall_s'], 1e3 * ret['copy_s'],
+              1e3 * ret['program_s'], interesting, 1e3 * ret['host_s'],
+              ret['host_reads'], ret['ref_reads_per_s'], launches, wall),
+          flush=True)
+    return dict(ret, launches=launches, entry_s=wall)
+
+
+def bench_call(device):
+    """Phase 14's ``kevlar_tpu_torch.bench.call`` at bench_call.py's
+    sizes: bench_call.py's three metrics, B1 launched, and the 128 rows'
+    (cigar, score) pairs from the card equal to the plain version's."""
+    from kevlar_tpu_torch.bench import call
+    from kevlar_tpu_torch.ops.align_cuda import align_batch
+    _reset_launches()
+    ret, lines, wall = _run_entry('call', call, ['--device', device])
+    launches = _entry_launches('call', ['ksw_extz'])
+    if [line['metric'] for line in lines] != CALL_METRICS or any(
+            list(line) != ['metric', 'value', 'unit'] for line in lines):
+        raise AssertionError('call printed {}'.format(lines))
+    t0 = time.time()
+    plain = align_batch(ret['targets'], ret['queries'], device='cpu')
+    plain_s = time.time() - t0
+    bad = [k for k, (got, want) in enumerate(zip(ret['aligned'], plain))
+           if got != want]
+    if bad or len(plain) != len(ret['aligned']):
+        raise AssertionError('call: {} of {} rows differ from the plain '
+                             'version, the first {}'.format(
+                                 len(bad), len(plain), bad[:1]))
+    print('[smoke] call entry: {}; {} rows from the card == the plain '
+          'version\'s on the CPU ({:.1f} s); launches {}; {:.1f} s in all'
+          .format(', '.join('{} {}'.format(line['metric'], line['value'])
+                            for line in lines), len(plain), plain_s,
+                  launches, wall), flush=True)
+    return dict(ret, lines=lines, launches=launches, entry_s=wall)
+
+
+def bench_configs(device, workdir):
+    """Phase 14's ``kevlar_tpu_torch.bench.configs`` at its defaults:
+    bench_configs.py's five configs, every de novo variant a PASS call
+    (config 4) and the sharded novel text equal to the unsharded one
+    (config 5)."""
+    from kevlar_tpu_torch.bench import configs
+    _reset_launches()
+    art, lines, wall = _run_entry('configs', configs, [
+        '--device', device, '--workdir', os.path.join(workdir, 'configs')])
+    launches = _entry_launches('configs', PROGRAM_KERNELS + ('ksw_extz',))
+    if [(line['config'], line['metric']) for line in lines] != \
+            CONFIG_METRICS or lines != art['results']:
+        raise AssertionError('configs printed {}'.format(lines))
+    calling = lines[3]['detail']
+    if calling['denovo_pass'] != calling['denovo_total']:
+        raise AssertionError('configs: {} of {} de novo variants PASS'
+                             .format(calling['denovo_pass'],
+                                     calling['denovo_total']))
+    if not lines[4]['detail']['output_identical_to_unsharded']:
+        raise AssertionError('configs: the sharded novel text differs')
+    print('[smoke] configs entry: {}; de novo PASS {} of {}; sharded == '
+          'unsharded; launches {}; {:.1f} s in all'.format(
+              ', '.join('config {} {} {} s'.format(c, m, line['value'])
+                        for (c, m), line in zip(CONFIG_METRICS, lines)),
+              calling['denovo_pass'], calling['denovo_total'], launches,
+              wall), flush=True)
+    return dict(lines=lines, launches=launches, entry_s=wall)
+
+
+def bench_sim_trio(device, workdir):
+    """Phase 14's ``kevlar_tpu_torch.bench.sim_trio`` at its defaults (1
+    Mb, 25x, 11 de novo): tools/sim_trio_bench.py's keys, and the final
+    VCF and its score those of ``kevlar_tpu`` on the same draw."""
+    import gzip
+    import hashlib
+    from kevlar_tpu_torch.bench import sim_trio
+    _reset_launches()
+    simdir = os.path.join(workdir, 'sim_trio')
+    rec, lines, wall = _run_entry('sim_trio', sim_trio, [
+        '--device', device, '--workdir', simdir])
+    launches = _entry_launches('sim_trio', NOVEL_PATH_KERNELS +
+                               ('ksw_extz',))
+    if list(lines[-1]) != SIM_TRIO_KEYS or lines[-1] != rec or \
+            rec['metric'] != 'trio_workflow':
+        raise AssertionError('sim_trio printed {}'.format(lines))
+    score = {key: rec[key] for key in SIM_TRIO_SCORE}
+    if score != SIM_TRIO_SCORE:
+        raise AssertionError('sim_trio scored {}, kevlar_tpu {}'.format(
+            score, SIM_TRIO_SCORE))
+    with gzip.open(os.path.join(simdir, 'out', 'calls.scored.sorted.vcf.gz'),
+                   'rt') as fh:
+        digest = hashlib.sha256(''.join(
+            line for line in fh if not line.startswith('##fileDate'))
+            .encode()).hexdigest()
+    if digest != SIM_TRIO_VCF_SHA256:
+        raise AssertionError('sim_trio: the final VCF differs from '
+                             'kevlar_tpu\'s (sha256 {})'.format(digest))
+    print('[smoke] sim_trio entry: workflow {} s; de novo {} of {}, {} PASS '
+          'calls, {} false positives, the final VCF == kevlar_tpu\'s on the '
+          'same draw; launches {}; {:.1f} s in all'.format(
+              rec['workflow_wall_s'], rec['denovo_found'],
+              rec['denovo_total'], rec['pass_calls'], rec['false_positives'],
+              launches, wall), flush=True)
+    return dict(rec=rec, launches=launches, entry_s=wall)
+
+
+def phase_bench_entries(device, workdir, interesting):
+    """Phase 14: the four bench entries of ``kevlar_tpu_torch.bench`` in
+    this process on the card."""
+    t0 = time.time()
+    out = dict(count_novel=bench_count_novel(device, interesting),
+               call=bench_call(device),
+               configs=bench_configs(device, workdir),
+               sim_trio=bench_sim_trio(device, workdir))
+    print('[smoke] bench entries: {:.1f} s; {}'.format(
+        time.time() - t0, _nvidia_smi()), flush=True)
+    return out
 
 
 def _cc_graphs(rng):
@@ -4454,8 +4607,9 @@ def count_screen_probe():
     """``--count-screen``: the word gather's and the screen kernels'
     checks at phase 5's shapes and the fused program at bench.py's trio
     (with the plain run) and on random reads of the helium stacks' shape
-    (611 batches a sample), each under the sync debug mode; a short card
-    check of phase 13 without the rest of the smoke."""
+    (611 batches a sample), each under the sync debug mode, and phase
+    14's ``count_novel`` entry; a short card check of phases 13 and 14's
+    count and screen without the rest of the smoke."""
     from kevlar_tpu_torch.batch import pack_bases
     from kevlar_tpu_torch.ops import kmer_cuda
     print(_nvidia_smi(), flush=True)
@@ -4466,18 +4620,8 @@ def count_screen_probe():
     _word_gather_checks('cuda', rng, samples)
     del samples
     _screen_kernel_checks('cuda', rng)
-    case, mom, dad = bench_trio()
-    lens = np.full((-(-len(case) // BENCH_BATCH), BENCH_BATCH), READLEN,
-                   np.int32)
-    lens.reshape(-1)[len(case):] = 0
-    stacks = [pack_bases(_bench_stack_all(r)) for r in (case, mom, dad)]
-    bench = _drive_program('cuda', stacks, lens,
-                           (len(case), len(mom), len(dad)), BENCH_TABLESIZE,
-                           "bench.py's trio", plain=True)
-    _, host_hits = bench_host_pipeline(case, [mom, dad])
-    if host_hits != bench['interesting']:
-        raise AssertionError('{} interesting k-mers, host_pipeline {}'
-                             .format(bench['interesting'], host_hits))
+    bench, _ = _program_at_bench_trio('cuda', plain=True)
+    bench_count_novel('cuda', bench['interesting'])
     nb = 611
     stacks = [pack_bases(rng.integers(0, 4, (nb, BENCH_BATCH, BENCH_PADLEN),
                                       dtype=np.uint8)) for _ in range(3)]
@@ -4552,6 +4696,7 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         trio = phase_trio(device, workdir)
         screen = phase_count_screen(device, trio['reads'])
+        phase_bench_entries(device, workdir, screen['bench']['interesting'])
         flow = phase_workflow(device, workdir, trio['refr'],
                               trio['denovo'], trio['reads'])
         shard = phase_sharded(device, workdir, trio['reads'])

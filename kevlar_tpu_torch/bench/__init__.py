@@ -1,0 +1,46 @@
+"""The port's benchmark entries, counterparts of the JAX package's:
+
+    python -m kevlar_tpu_torch.bench.count_novel   # bench.py
+    python -m kevlar_tpu_torch.bench.call          # bench_call.py
+    python -m kevlar_tpu_torch.bench.configs       # bench_configs.py
+    python -m kevlar_tpu_torch.bench.sim_trio      # tools/sim_trio_bench.py
+
+Each draws its JAX entry's data with the same seeded generators in the
+same order, times the same regions and prints the same JSON lines on
+standard output, with the same keys.  Each takes ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain PyTorch versions), passes it
+down to every stage, stops when ``cuda`` is asked for and there is no
+card, prints the card's name and power limit on a ``#`` line of standard
+error, and writes nothing into the repository.
+"""
+
+import subprocess
+import sys
+
+
+def add_device_arg(parser):
+    parser.add_argument(
+        '--device', default='cuda',
+        help='torch device of every stage (default cuda; cpu runs the '
+        'kernels\' plain PyTorch versions)')
+
+
+def start(device):
+    """Check that ``device`` can run and print the card's name and power
+    limit (``nvidia-smi``) as a ``#`` line on standard error.  Returns the
+    ``torch.device``."""
+    import torch
+    device = torch.device(device)
+    if device.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise SystemExit('no CUDA device (pass --device cpu to run the '
+                             'kernels\' plain versions)')
+        smi = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'],
+            check=True, capture_output=True, text=True).stdout.strip()
+        print('# card:', smi, file=sys.stderr, flush=True)
+    else:
+        print('# device: {} (no card)'.format(device), file=sys.stderr,
+              flush=True)
+    return device

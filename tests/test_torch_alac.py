@@ -201,6 +201,10 @@ def test_port_imports_no_jax():
             'import kevlar_tpu_torch.sandbox.get_partitions\n'
             'import kevlar_tpu_torch.sandbox.subsketch\n'
             'import kevlar_tpu_torch.workflows.bam_preproc\n'
+            'import kevlar_tpu_torch.bench.count_novel\n'
+            'import kevlar_tpu_torch.bench.call\n'
+            'import kevlar_tpu_torch.bench.configs\n'
+            'import kevlar_tpu_torch.bench.sim_trio\n'
             'import kevlar_tpu_torch.cli as c\n'
             'assert len(c.mains()) == len(c.SUBPARSER_FUNCS) == 16\n'
             'for name in c.SUBPARSER_FUNCS:\n'
