@@ -22,9 +22,16 @@
                                  # the fused count and screen at helium and
                                  # the novel stage of this tree against an
                                  # older checkout in DIR; ~4 minutes
+    python3 chip_smoke.py --bench-tools
+                                 # the builds, the helium trio and phase 15
+                                 # (the three bench tools and K4 at the
+                                 # control plane's scale) without the rest
     python3 chip_smoke.py --rank RANK WORLD PORT BACKEND SPEC
                                  # one rank of phase 12 (the smoke starts
                                  # them itself)
+    python3 chip_smoke.py --workflow-only DIR
+                                 # phase 15 (b)'s process (the smoke starts
+                                 # it itself)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -224,6 +231,24 @@ Phases (any failure raises, and the script exits non-zero):
    (its ``##fileDate`` line aside) and its score are ``kevlar_tpu``'s on
    the same draw (``SIM_TRIO_VCF_SHA256``, ``SIM_TRIO_SCORE``: 10 of 11
    de novo variants found, 12 PASS calls, 2 false positives).
+15. bench tools, after phase 10, in the helium work directory: (a)
+   ``python -m kevlar_tpu_torch.bench.verify_e2e --device cuda`` (the
+   port's tools/verify_e2e.py: a 20 kb trio through nine stage processes)
+   must exit 0 with VERIFY_PASS and three PASS calls, the de novo truth
+   rows; (b) ``kevlar_tpu_torch.bench.helium_workflow_only`` (the port's
+   tools/helium_workflow_only.py) on phase 6's helium trio at 30x, in a
+   directory of links and a process of its own (``--workflow-only``,
+   forked by a shell so that its ``ru_maxrss`` is not the smoke's): JAX's
+   keys and
+   ``run_mark1``'s stage names, K1, K2, ``kt_consume``,
+   ``kt_screen_reads`` and B1 launched, and its PASS calls through phase
+   9's de novo gate; (c) ``kevlar_tpu_torch.bench.control_plane`` (the
+   port's tools/control_plane_stress.py) at scale 1 and at its default 40
+   in this process: JAX's keys, K4 launched and its labels equal to the
+   host union-find's; then K4 alone on the incidence of scale 40
+   (4,830,162 pairs), queued behind a spin kernel, beside its plain
+   version and its bound.  The wall, RSS and control-plane figures are
+   printed beside the card's name and power limit.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the XLA
 programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
@@ -235,7 +260,8 @@ phase 9's novel stage), K3's three
 entries (the consume from hashes; ``kt_scatter_add`` from indices at
 phase 5's shape, launched by the trio's device recount, and over the
 received parts at the routed count's shape,
-launched by the sharded phase's routed count), K4, ``kt_route`` and the
+launched by the sharded phase's routed count), K4 (with phase 15's shape
+under ``control_plane``), ``kt_route`` and the
 range variants of K2 and K3's consume, each with its launches on its path's
 run, max_abs_err, ms, plain_ms, its bound on this run's inputs
 (``bound_ms``, ``bound_by``: the larger of bytes over ``HBM_BYTES_PER_S``
@@ -2814,6 +2840,193 @@ def phase_bench_entries(device, workdir, interesting):
     return out
 
 
+# ------------------------------------------------- phase 15: bench tools
+
+# what tools/helium_workflow_only.py and tools/control_plane_stress.py
+# print
+WORKFLOW_ONLY_KEYS = ['metric', 'wall_s', 'peak_rss_mb', 'pass_calls',
+                      'stage_wall_s']
+CONTROL_PLANE_KEYS = ['suite', 'scale_vs_bigsim', 'cc_bigsim_scale',
+                      'cc_human_scale', 'partition_stage_human_scale',
+                      'localize_cluster_human_scale']
+# control_plane's default scale over the 80 Mb bigsim run (~human)
+CONTROL_PLANE_SCALE = 40.0
+
+
+def bench_verify(device):
+    """Phase 15 (a): ``python -m kevlar_tpu_torch.bench.verify_e2e`` on the
+    card, each of its nine stages a process of its own: exit 0,
+    VERIFY_PASS, and three PASS calls, the de novo truth rows."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'kevlar_tpu_torch.bench.verify_e2e',
+         '--device', device], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.time() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print('[smoke] verify_e2e: {}'.format(line), flush=True)
+    if proc.returncode != 0 or not lines or lines[-1] != 'VERIFY_PASS':
+        raise AssertionError('verify_e2e: exit {}, last line {!r}:\n{}'
+                             .format(proc.returncode, lines[-1:],
+                                     proc.stderr[-4000:]))
+    truth = [line for line in lines if line.startswith('truth de novo:')]
+    calls = [line for line in lines if line.startswith('PASS calls:')]
+    if len(truth) != 1 or len(calls) != 1 or \
+            truth[0].split(':', 1)[1].strip() != \
+            calls[0].split(':', 1)[1].strip() or \
+            truth[0].count('chr1') != 3:
+        raise AssertionError('verify_e2e: {} against {}'.format(calls,
+                                                                 truth))
+    workdir = lines[0].split(':', 1)[1].strip()
+    if lines[0].startswith('verify workdir:') and os.path.isdir(workdir):
+        import shutil
+        shutil.rmtree(workdir)
+    print('[smoke] verify_e2e entry: VERIFY_PASS, exit 0, 3 PASS calls == '
+          'the de novo truth rows; {:.1f} s in all (nine stage processes)'
+          .format(wall), flush=True)
+    return dict(entry_s=wall)
+
+
+def workflow_only_main(workdir):
+    """``chip_smoke.py --workflow-only DIR``: phase 15 (b) in a process of
+    its own: the entry on the card, the kernels of the novel path and B1
+    required, then one JSON line with the record, the launches and
+    ``run_mark1``'s stage names."""
+    from kevlar_tpu_torch import workflow
+    from kevlar_tpu_torch.bench import helium_workflow_only
+    _reset_launches()
+    record = helium_workflow_only.main(
+        [workdir, str(HELIUM_COVERAGE), '--device', 'cuda'])
+    launches = _entry_launches('helium_workflow_only',
+                               NOVEL_PATH_KERNELS + ('ksw_extz',))
+    print(json.dumps({'record': record, 'launches': launches,
+                      'stages': [stage for stage, _ in
+                                 workflow.run_mark1.last_stage_times]}))
+    return 0
+
+
+def bench_workflow_only(workdir, refr, reads, denovo):
+    """Phase 15 (b): ``kevlar_tpu_torch.bench.helium_workflow_only`` on
+    phase 6's helium trio at 30x, in a directory of links (``genome.fa``
+    and its seed index, the three FASTQs) and a process of its own: JAX's
+    keys, the stage names of ``run_mark1``, K1, K2, ``kt_consume``,
+    ``kt_screen_reads`` and B1 launched, and the PASS calls through phase
+    9's de novo gate."""
+    from kevlar_tpu_torch import reference
+    linkdir = os.path.join(workdir, 'workflow_only')
+    os.makedirs(linkdir)
+    genome = os.path.join(linkdir, 'genome.fa')
+    os.symlink(refr, genome)
+    if not os.path.exists(reference.index_path(refr, 51)):
+        reference.autoindex(refr, 51)
+    os.symlink(reference.index_path(refr, 51),
+               reference.index_path(genome, 51))
+    for who in SAMPLES:
+        os.symlink(reads[who], os.path.join(linkdir, who + '.fq'))
+    # a process's ru_maxrss keeps the peak of the process it was forked
+    # from across exec, so this one's would carry the smoke's: a shell in
+    # between forks the entry's process from its own small one
+    t0 = time.time()
+    proc = subprocess.run(
+        ['sh', '-c', '"$0" "$1" --workflow-only "$2"; exit $?',
+         sys.executable, os.path.abspath(__file__), linkdir],
+        stdout=subprocess.PIPE, text=True, check=True)
+    wall = time.time() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print('[smoke] helium_workflow_only: {}'.format(line), flush=True)
+    record, child = json.loads(lines[-2]), json.loads(lines[-1])
+    if list(record) != WORKFLOW_ONLY_KEYS or record != child['record'] or \
+            record['metric'] != 'helium_workflow_only' or \
+            list(record['stage_wall_s']) != child['stages']:
+        raise AssertionError('helium_workflow_only printed {}, stages {}'
+                             .format(record, child['stages']))
+    final = os.path.join(linkdir, 'out', 'calls.scored.sorted.vcf.gz')
+    _, passing = _denovo_gate(final, denovo)
+    if record['pass_calls'] != len(passing):
+        raise AssertionError('helium_workflow_only: {} PASS calls, the '
+                             'final VCF {}'.format(record['pass_calls'],
+                                                   len(passing)))
+    print('[smoke] helium_workflow_only entry: workflow {} s, peak RSS {} '
+          'MB (its own process); {} PASS calls through phase 9\'s de novo '
+          'gate; stages {}; launches {}; {:.1f} s in all; {}'.format(
+              record['wall_s'], record['peak_rss_mb'], record['pass_calls'],
+              list(record['stage_wall_s']), child['launches'], wall,
+              _nvidia_smi()), flush=True)
+    return dict(record=record, launches=child['launches'], entry_s=wall)
+
+
+def bench_control_plane(device, scale):
+    """Phase 15 (c): ``kevlar_tpu_torch.bench.control_plane`` at ``scale``
+    in this process: JAX's keys, K4 launched, and K4's labels equal to the
+    host union-find's (the entry asserts it)."""
+    from kevlar_tpu_torch.bench import control_plane
+    from kevlar_tpu_torch.ops import cc_cuda
+    cc_cuda.launches['cc_labels'] = 0
+    ret, lines, wall = _run_entry('control_plane', control_plane, [
+        '--device', device, '--scale', str(scale)])
+    launches = cc_cuda.launches['cc_labels']
+    if launches <= 0:
+        raise AssertionError('control_plane: K4 never launched')
+    if list(lines[-1]) != CONTROL_PLANE_KEYS or lines[-1] != ret:
+        raise AssertionError('control_plane printed {}'.format(lines))
+    cc, part, loc = (ret['cc_human_scale'],
+                     ret['partition_stage_human_scale'],
+                     ret['localize_cluster_human_scale'])
+    print('[smoke] control_plane entry at scale {}: {:,} pairs, {:,} reads; '
+          'host union-find {} s, K4 first {} s, steady {} s (copies and '
+          'labels back included), labels equal; partition stage: {:,} '
+          'reads, load {} s, partitions {} s, {:,} found; localize: {:,} '
+          'hits, add {} s, cluster {} s, {:,} cutouts; K4 launches {}; '
+          '{:.1f} s in all; {}'.format(
+              scale, cc['incidences'], cc['reads'], cc['host_union_find_s'],
+              cc['device_label_prop_first_s'],
+              cc['device_label_prop_steady_s'], part['reads'],
+              part['graph_load_s'], part['partitions_s'],
+              part['partitions_found'], loc['seed_hits'], loc['add_s'],
+              loc['cluster_s'], loc['cutouts'], launches, wall,
+              _nvidia_smi()), flush=True)
+    return dict(ret, launches=launches, entry_s=wall)
+
+
+def phase_bench_tools(device, workdir, trio, scale=CONTROL_PLANE_SCALE):
+    """Phase 15: the three bench tools of ``kevlar_tpu_torch.bench`` on the
+    card, then K4 alone on the control plane's incidence at ``scale``,
+    queued behind a spin kernel, beside its plain version and its bound."""
+    import torch
+    from kevlar_tpu_torch.bench import control_plane
+    from kevlar_tpu_torch.ops import cc_cuda, cc_ops
+    t0 = time.time()
+    out = dict(verify=bench_verify(device),
+               workflow_only=bench_workflow_only(
+                   workdir, trio['refr'], trio['reads'], trio['denovo']),
+               control_plane_1=bench_control_plane(device, 1.0))
+    full = bench_control_plane(device, scale)
+    reads, kmers, n_reads, n_kmers = control_plane.cc_incidence(scale)
+    r = torch.from_numpy(reads).to(device)
+    k = torch.from_numpy(kmers).to(device)
+    got, ms = _timed(cc_cuda.cc_labels_cuda, r, k, n_reads, n_kmers,
+                     reps=20, spin=True)
+    want, plain_ms = _timed(cc_ops.connected_components_plain, r, k, n_reads,
+                            n_kmers, reps=3)
+    err = _max_diff(got, want, 'K4 control plane')
+    bound_ms, bound_by = _cc_bound(r.numel(), n_reads, n_kmers)
+    shape = '{:,} pairs, {:,} reads, {:,} k-mers (control_plane at scale ' \
+        '{})'.format(r.numel(), n_reads, n_kmers, scale)
+    print('[smoke] K4 cc_labels: {} kernel {:.4f} ms (one pass, three '
+          'launches, queued behind a spin kernel), plain {:.3f} ms, bound '
+          '{:.4f} ms by {}; {}'.format(shape, ms, plain_ms, bound_ms,
+                                       bound_by, _nvidia_smi()), flush=True)
+    out['control_plane'] = full
+    out['cc'] = dict(shape=shape, launches=full['launches'], ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     max_abs_err=err)
+    print('[smoke] bench tools: {:.1f} s'.format(time.time() - t0),
+          flush=True)
+    return out
+
+
 def _cc_graphs(rng):
     """Seeded incidences (name, read_ids, kmer_ids, n_reads, n_kmers)."""
     graphs = []
@@ -2962,6 +3175,46 @@ def _count_reads(path):
         return sum(1 for line in fh if line.startswith('@'))
 
 
+def _denovo_gate(final, denovo):
+    """Phase 9's gate on the helium trio's final VCF ``final``: each de
+    novo SNV of ``denovo`` (phase 6's list) is a PASS call at its
+    position, and no PASS call lies more than 10 bp from a de novo locus;
+    whether the insertion was called is printed.  Returns (calls, PASS
+    calls), each (0-based position, REF, ALT, FILTER)."""
+    import kevlar_tpu_torch
+    calls = []
+    with kevlar_tpu_torch.open(final, 'r') as fh:
+        for line in fh:
+            if not line.startswith('#'):
+                f = line.split('\t')
+                if f[1] != '.':
+                    calls.append((int(f[1]) - 1, f[3], f[4], f[6]))
+    passing = [c for c in calls if c[3] == 'PASS']
+    for pos, kind, _ in denovo:
+        if kind == 'SNV':
+            hit = [c for c in passing if c[0] == pos and len(c[1]) ==
+                   len(c[2]) == 1]
+            print('[smoke] de novo SNV at {:,}: {}'.format(
+                pos, 'PASS call {} > {}'.format(hit[0][1], hit[0][2])
+                if hit else 'NOT CALLED'), flush=True)
+            if not hit:
+                raise AssertionError('de novo SNV at {} is not a PASS '
+                                     'call'.format(pos))
+        else:
+            hit = [c for c in passing if abs(c[0] - pos) <= 10 and
+                   len(c[2]) - len(c[1]) == HELIUM_INSERTION]
+            print('[smoke] de novo {} at {:,}: {}'.format(
+                kind, pos, 'called (PASS, {} bp longer at {:,})'.format(
+                    HELIUM_INSERTION, hit[0][0]) if hit else 'not called'),
+                flush=True)
+    stray = [c for c in passing
+             if all(abs(c[0] - pos) > 10 for pos, _, _ in denovo)]
+    if stray:
+        raise AssertionError('PASS calls away from every de novo locus: '
+                             '{}'.format(stray[:5]))
+    return calls, passing
+
+
 def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
                    maskmemory='50M', profiled=False):
     """Phase 9: run_mark1 on the helium trio of phase 6 (sample sketches
@@ -3034,36 +3287,7 @@ def phase_workflow(device, workdir, refr, denovo, reads, memory='500M',
         if not os.path.exists(os.path.join(outdir, artifact)):
             raise AssertionError('the workflow wrote no ' + artifact)
 
-    calls = []
-    with kevlar_tpu_torch.open(final, 'r') as fh:
-        for line in fh:
-            if not line.startswith('#'):
-                f = line.split('\t')
-                if f[1] != '.':
-                    calls.append((int(f[1]) - 1, f[3], f[4], f[6]))
-    passing = [c for c in calls if c[3] == 'PASS']
-    for pos, kind, _ in denovo:
-        if kind == 'SNV':
-            hit = [c for c in passing if c[0] == pos and len(c[1]) ==
-                   len(c[2]) == 1]
-            print('[smoke] de novo SNV at {:,}: {}'.format(
-                pos, 'PASS call {} > {}'.format(hit[0][1], hit[0][2])
-                if hit else 'NOT CALLED'), flush=True)
-            if not hit:
-                raise AssertionError('de novo SNV at {} is not a PASS '
-                                     'call'.format(pos))
-        else:
-            hit = [c for c in passing if abs(c[0] - pos) <= 10 and
-                   len(c[2]) - len(c[1]) == HELIUM_INSERTION]
-            print('[smoke] de novo {} at {:,}: {}'.format(
-                kind, pos, 'called (PASS, {} bp longer at {:,})'.format(
-                    HELIUM_INSERTION, hit[0][0]) if hit else 'not called'),
-                flush=True)
-    stray = [c for c in passing
-             if all(abs(c[0] - pos) > 10 for pos, _, _ in denovo)]
-    if stray:
-        raise AssertionError('PASS calls away from every de novo locus: '
-                             '{}'.format(stray[:5]))
+    calls, passing = _denovo_gate(final, denovo)
     counts = {name: _count_reads(os.path.join(outdir, name))
               for name in ('novel.augfastq.gz', 'filtered.augfastq.gz',
                            'partitioned.augfastq.gz')}
@@ -4632,6 +4856,22 @@ def count_screen_probe():
     return 0
 
 
+def bench_tools_probe():
+    """``--bench-tools``: the builds, the helium trio of phase 6 (its
+    generator only) and phase 15, without the rest of the smoke."""
+    print(_nvidia_smi(), flush=True)
+    builds = build_all()
+    print('[smoke] built in {}'.format(builds), flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.time()
+        refr, reads, denovo = make_trio_case(workdir)
+        print('[smoke] generated the helium trio in {:.1f} s'.format(
+            time.time() - t0), flush=True)
+        phase_bench_tools('cuda', workdir, dict(refr=refr, reads=reads,
+                                                denovo=denovo))
+    return 0
+
+
 def build_all():
     """Phase 2: compile every library from the checkout's sources, all at
     once (one compiler process each); returns {library: seconds}."""
@@ -4667,6 +4907,10 @@ def main():
         return count_screen_probe()
     if sys.argv[1:2] == ['--compare-screen']:
         return compare_screen(sys.argv[2])
+    if sys.argv[1:2] == ['--workflow-only']:
+        return workflow_only_main(sys.argv[2])
+    if sys.argv[1:2] == ['--bench-tools']:
+        return bench_tools_probe()
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -4704,6 +4948,7 @@ def main():
                           shard['walls']['count proband, (1, 4) routed'])
         sim = phase_simlike(device, workdir)
         phase_dist(device, workdir, trio['reads'])
+        tools = phase_bench_tools(device, workdir, trio)
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
           flush=True)
 
@@ -4763,10 +5008,12 @@ def main():
         'name': 'cc_labels (read-graph components, one-pass union-find)',
         'route': 'cuda', 'source': 'kevlar_tpu_torch/csrc/cc.cu',
         'replaces': 'kevlar_tpu/ops/cc_ops.py:16',
-        'launches': part['launches'], 'max_abs_err': cc['err'],
+        'launches': part['launches'],
+        'max_abs_err': max(cc['err'], tools['cc']['max_abs_err']),
         'ms': cc['ms'], 'plain_ms': cc['plain_ms'],
         'bound_ms': cc['bound_ms'], 'bound_by': cc['bound_by'],
-        'library_ms': None})
+        'library_ms': None, 'shape': cc['shape'],
+        'control_plane': tools['cc']})
     programs = [{
         'name': 'seed_ranges (B7: two torch.searchsorted over the sorted '
                 'keys as order-preserving int64)',

@@ -4,18 +4,27 @@
     python -m kevlar_tpu_torch.bench.call          # bench_call.py
     python -m kevlar_tpu_torch.bench.configs       # bench_configs.py
     python -m kevlar_tpu_torch.bench.sim_trio      # tools/sim_trio_bench.py
+    python -m kevlar_tpu_torch.bench.verify_e2e    # tools/verify_e2e.py
+    python -m kevlar_tpu_torch.bench.helium_workflow_only
+                                    # tools/helium_workflow_only.py
+    python -m kevlar_tpu_torch.bench.control_plane # tools/control_plane_stress.py
 
 Each draws its JAX entry's data with the same seeded generators in the
-same order, times the same regions and prints the same JSON lines on
-standard output, with the same keys.  Each takes ``--device`` (default
+same order, times the same regions and prints the same lines on
+standard output, JSON with the same keys.  Each takes ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions), passes it
 down to every stage, stops when ``cuda`` is asked for and there is no
 card, prints the card's name and power limit on a ``#`` line of standard
-error, and writes nothing into the repository.
+error, and writes nothing into the repository (``configs`` and
+``control_plane`` write their JSON where ``--out`` says).
 """
 
 import subprocess
 import sys
+
+# the subcommands whose command line takes --device
+DEVICE_STAGES = ('count', 'novel', 'filter', 'partition', 'localize', 'call',
+                 'alac', 'simlike', 'dist')
 
 
 def add_device_arg(parser):

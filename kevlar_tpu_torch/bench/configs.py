@@ -36,12 +36,8 @@ import sys
 import tempfile
 import time
 
-from kevlar_tpu_torch.bench import add_device_arg, start
+from kevlar_tpu_torch.bench import DEVICE_STAGES, add_device_arg, start
 from kevlar_tpu_torch.bench.sim_trio import denovo_truth, simulate_reads
-
-# the stages whose command line takes --device
-DEVICE_STAGES = ('count', 'novel', 'filter', 'partition', 'localize', 'call',
-                 'simlike')
 
 
 def timed_stage(arglist, device):

@@ -601,6 +601,11 @@ def consume_codes(accumulator, codes, ksize, numbands=None, band=None,
     whose mask count is ``<= mask_threshold`` are kept, or ``>=`` with
     ``consume_masked``.  ``nkept`` as for :func:`consume_hashes`.
     """
+    if codes.device.type == 'cpu':
+        # the plain version hashes every row: leave out the batch's
+        # padding rows (all codes 4, no valid window) past its last read
+        rows = torch.nonzero((codes < 4).any(dim=1))
+        codes = codes[:int(rows[-1]) + 1 if len(rows) else 1]
     h1, h2, valid = hashing.kmer_hashes_codes(codes, ksize)
     h1, h2, valid = h1.reshape(-1), h2.reshape(-1), valid.reshape(-1)
     mcnt = None

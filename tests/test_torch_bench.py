@@ -30,7 +30,9 @@ import bench
 import bench_call
 import chip_smoke
 import kevlar_tpu_torch
-from kevlar_tpu_torch.bench import call, configs, count_novel, sim_trio
+from kevlar_tpu_torch.bench import (call, configs, control_plane, count_novel,
+                                    helium_workflow_only, sim_trio,
+                                    verify_e2e)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # what the entries' tests here cut their sizes to
@@ -326,11 +328,14 @@ def test_configs_main_prints_bench_configs_keys(tmp_path, capsys):
     assert lines[4]['detail']['output_identical_to_unsharded'] is True
 
 
-@pytest.mark.parametrize('entry', [count_novel, call, configs, sim_trio],
-                         ids=['count_novel', 'call', 'configs', 'sim_trio'])
-def test_entries_refuse_cuda_without_a_card(entry, capsys):
+@pytest.mark.parametrize('entry,argv', [
+    (count_novel, []), (call, []), (configs, []), (sim_trio, []),
+    (verify_e2e, []), (helium_workflow_only, ['.']), (control_plane, [])],
+    ids=['count_novel', 'call', 'configs', 'sim_trio', 'verify_e2e',
+         'helium_workflow_only', 'control_plane'])
+def test_entries_refuse_cuda_without_a_card(entry, argv, capsys):
     if torch.cuda.is_available():
         pytest.skip('a card is present')
     with pytest.raises(SystemExit, match='no CUDA device'):
-        entry.main(['--device', 'cuda'])
+        entry.main(argv + ['--device', 'cuda'])
     assert capsys.readouterr().out == ''

@@ -147,6 +147,34 @@ def test_accumulator_saturates_before_int32_wraps(monkeypatch):
     assert acc.tables().tolist() == [[255, 0, 0]]
 
 
+@pytest.mark.parametrize('last_read', [-1, 0, 6, 11])
+def test_consume_codes_skips_padding_rows(last_read):
+    """On the CPU a batch is hashed only up to its last read: the padding
+    rows after it (all codes 4) hold no valid window, so the tables and
+    the count of kept k-mers are those of every row hashed (a padding row
+    between reads stays; a batch of padding alone hashes one row)."""
+    from kevlar_tpu_torch.ops import hashing
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, (12, 40), dtype=np.uint8)
+    codes[0, 5] = 4
+    codes[last_read + 1:] = 4
+    if last_read > 1:
+        codes[1] = 4
+    codes = torch.from_numpy(codes)
+    tables = torch.zeros((4, TABLESIZE), dtype=torch.uint8)
+    got = sketch_ops.Accumulator(tables, 8, TABLESIZE)
+    got_kept = sketch_ops.consume_batch(got, codes, KSIZE, numbands=2,
+                                        band=0)
+    want = sketch_ops.Accumulator(tables, 8, TABLESIZE)
+    want_kept = torch.zeros(1, dtype=torch.int64)
+    h1, h2, valid = hashing.kmer_hashes_plain(codes, KSIZE)
+    want.add(h1.reshape(-1), h2.reshape(-1), valid.reshape(-1), numbands=2,
+             band=0, nkept=want_kept)
+    assert int(got_kept) == int(want_kept[0])
+    assert (int(got_kept) > 0) == (last_read >= 0)
+    assert torch.equal(got.tables(), want.tables())
+
+
 CONSUME_MODES = {
     'all': {},
     'band': dict(numbands=4, band=1),
