@@ -26,6 +26,10 @@
                                  # the builds, the helium trio and phase 15
                                  # (the three bench tools and K4 at the
                                  # control plane's scale) without the rest
+    python3 chip_smoke.py --bigsim
+                                 # the builds and phase 16 (the bigsim run
+                                 # at its 10 Mb cut and its forensics)
+                                 # without the rest
     python3 chip_smoke.py --rank RANK WORLD PORT BACKEND SPEC
                                  # one rank of phase 12 (the smoke starts
                                  # them itself)
@@ -249,6 +253,23 @@ Phases (any failure raises, and the script exits non-zero):
    (4,830,162 pairs), queued behind a spin kernel, beside its plain
    version and its bound.  The wall, RSS and control-plane figures are
    printed beside the card's name and power limit.
+16. bigsim, after phase 15 (the helium work directory removed): (a)
+   ``kevlar_tpu_torch.bench.bigsim`` (the port's tools/bigsim_bench.py)
+   in this process with ``--device cuda`` and :data:`BIGSIM_ARGV`, the
+   tool's defaults cut to 1/8 (a 10 Mb repeat-rich genome, 188 de novo
+   variants balanced over the six classes, 125 inherited; 30x, 2.0M reads
+   a sample, 171,600,000-byte sketches), its work directory and ``--out``
+   in a temporary directory: the whole pipeline (count x 3, novel,
+   filter, partition, alac, refr count, simlike) through the port's
+   command line; JAX's result keys and last line, K1, ``kt_consume``,
+   ``kt_screen_reads`` and B1 launched, and a recall of at least
+   ``MIN_RECALL`` under both the evaluation and the reference protocol;
+   (b) ``kevlar_tpu_torch.bench.miss_forensics`` (the port's
+   tools/miss_forensics.py) on that work directory: its misses are the
+   reference protocol's missing variants, each given one stage.  The
+   stage walls, both scorers' recall, FDR and per-class recall, the
+   misses by stage and the peak RSS are printed beside the card's name and
+   power limit.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the XLA
 programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
@@ -3027,6 +3048,109 @@ def phase_bench_tools(device, workdir, trio, scale=CONTROL_PLANE_SCALE):
     return out
 
 
+# ------------------------------------------------------ phase 16: bigsim
+
+# tools/bigsim_bench.py's defaults cut to 1/8: a 10 Mb genome, 1,500 and
+# 1,000 variants x 10/80; its coverage, error, read length, seed and stage
+# arguments as they are
+BIGSIM_ARGV = ['--genome-size', '10000000', '--denovo', '188',
+               '--inherited', '125', '--repeats', '--class-balanced']
+# what tools/bigsim_bench.py writes and prints last
+BIGSIM_KEYS = ['suite', 'backend', 'genome_size', 'coverage', 'error_rate',
+               'reads_per_sample', 'denovo_simulated', 'denovo_in_truth',
+               'sketch_memory', 'repeat_genome', 'repeat_composition',
+               'wall_s', 'total_wall_s', 'evaluation',
+               'evaluation_reference_protocol', 'reference_30x_scored',
+               'reference_30x_operating_point', 'note']
+BIGSIM_LINE_KEYS = ['metric', 'value', 'unit', 'fdr', 'total_wall_s']
+# the kernels of its path: K1 and kt_consume in every count, the screen in
+# novel, B1 in alac (K4 only where partition sees 200,000 pairs)
+BIGSIM_KERNELS = ('kmer_hashes', 'consume', 'screen_reads', 'ksw_extz')
+
+
+def _per_class_recall(evaluation):
+    return ', '.join('{} {}/{}'.format(name, c['tp'], c['total'])
+                     for name, c in evaluation['per_class'].items())
+
+
+def phase_bigsim(device):
+    """Phase 16: (a) ``kevlar_tpu_torch.bench.bigsim`` in this process at
+    :data:`BIGSIM_ARGV` in a temporary directory outside the repository:
+    JAX's keys and last line, K1, ``kt_consume``, ``kt_screen_reads`` and
+    B1 launched, a recall of at least ``MIN_RECALL`` under both scorers;
+    (b) ``kevlar_tpu_torch.bench.miss_forensics`` on (a)'s work
+    directory: every miss of the reference protocol given a stage."""
+    import contextlib
+    import io
+    import resource
+    from kevlar_tpu_torch.bench import bigsim, miss_forensics
+    t0 = time.time()
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    with tempfile.TemporaryDirectory(prefix='kevlar_bigsim_') as tmp:
+        workdir = os.path.join(tmp, 'work')
+        out = os.path.join(tmp, 'bigsim.json')
+        _reset_launches()
+        rec, lines, wall = _run_entry('bigsim', bigsim, [
+            '--device', device] + BIGSIM_ARGV + [
+            '--workdir', workdir, '--out', out])
+        launches = _entry_launches('bigsim', BIGSIM_KERNELS)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+        with open(out) as fh:
+            written = json.load(fh)
+        if list(rec) != BIGSIM_KEYS or written != json.loads(
+                json.dumps(rec)) or list(lines[-1]) != BIGSIM_LINE_KEYS or \
+                lines[-1]['metric'] != 'bigsim_recall' or \
+                rec['backend'] != device:
+            raise AssertionError('bigsim printed {}, returned keys {}'.format(
+                lines, list(rec)))
+        ev, ref = rec['evaluation'], rec['evaluation_reference_protocol']
+        for label, e in (('evaluation', ev),
+                         ('evaluation_reference_protocol', ref)):
+            if e['recall'] is None or e['recall'] < MIN_RECALL:
+                raise AssertionError('bigsim: {} recall {} < {}'.format(
+                    label, e['recall'], MIN_RECALL))
+        print('[smoke] bigsim entry ({}): reads a sample {}; walls {} s, '
+              '{} s in all ({:.1f} s with set-up); evaluation recall {} '
+              'FDR {} ({} TP, {} FP, {} collisions of {}); reference '
+              'protocol recall {} FDR {} ({} TP, {} FP, {} missing; {} PASS '
+              'calls, {} compacted); per class: evaluation {}; reference '
+              'protocol {}; repeats {}; launches {}; peak RSS of the process '
+              '{:.0f} MB after the run, {:.0f} MB before it; {}'.format(
+                  ' '.join(BIGSIM_ARGV), rec['reads_per_sample'],
+                  rec['wall_s'], rec['total_wall_s'], wall, ev['recall'],
+                  ev['fdr'], ev['tp'], ev['fp'], ev['collisions'],
+                  ev['total_truth'], ref['recall'], ref['fdr'], ref['tp'],
+                  ref['fp'], ref['missing'], ref['calls_pass'],
+                  ref['calls_compacted'], _per_class_recall(ev),
+                  _per_class_recall(ref), rec['repeat_composition'],
+                  launches, rss, rss_before, _nvidia_smi()), flush=True)
+
+        buf = io.StringIO()
+        t1 = time.time()
+        with contextlib.redirect_stdout(buf):
+            forensics = miss_forensics.main([workdir])
+        fwall = time.time() - t1
+        printed = json.loads(buf.getvalue())
+        print('[smoke] miss_forensics: {}'.format(json.dumps(printed)),
+              flush=True)
+        n_miss = forensics['n_miss']
+        if printed != json.loads(json.dumps(dict(
+                forensics, misses='[{} rows]'.format(n_miss)))) or \
+                n_miss != ref['missing'] or \
+                sum(forensics['by_stage'].values()) != n_miss or \
+                len(forensics['misses']) != n_miss:
+            raise AssertionError('miss_forensics: {} misses by stage {}, '
+                                 'the reference protocol {}'.format(
+                                     n_miss, forensics['by_stage'],
+                                     ref['missing']))
+        print('[smoke] miss_forensics entry: {} misses of {}, by stage {}; '
+              '{:.1f} s'.format(n_miss, forensics['n_truth'],
+                                forensics['by_stage'], fwall), flush=True)
+    print('[smoke] bigsim: {:.1f} s'.format(time.time() - t0), flush=True)
+    return dict(rec=rec, launches=launches, forensics=forensics['by_stage'],
+                entry_s=wall)
+
+
 def _cc_graphs(rng):
     """Seeded incidences (name, read_ids, kmer_ids, n_reads, n_kmers)."""
     graphs = []
@@ -4872,6 +4996,19 @@ def bench_tools_probe():
     return 0
 
 
+def bigsim_probe():
+    """``--bigsim``: the card, the builds and phase 16, without the rest
+    of the smoke."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    print(_nvidia_smi(), flush=True)
+    builds = build_all()
+    print('[smoke] built in {}'.format(builds), flush=True)
+    phase_bigsim('cuda')
+    return 0
+
+
 def build_all():
     """Phase 2: compile every library from the checkout's sources, all at
     once (one compiler process each); returns {library: seconds}."""
@@ -4911,6 +5048,8 @@ def main():
         return workflow_only_main(sys.argv[2])
     if sys.argv[1:2] == ['--bench-tools']:
         return bench_tools_probe()
+    if sys.argv[1:2] == ['--bigsim']:
+        return bigsim_probe()
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -4949,6 +5088,7 @@ def main():
         sim = phase_simlike(device, workdir)
         phase_dist(device, workdir, trio['reads'])
         tools = phase_bench_tools(device, workdir, trio)
+    phase_bigsim(device)
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
           flush=True)
 

@@ -8,15 +8,19 @@
     python -m kevlar_tpu_torch.bench.helium_workflow_only
                                     # tools/helium_workflow_only.py
     python -m kevlar_tpu_torch.bench.control_plane # tools/control_plane_stress.py
+    python -m kevlar_tpu_torch.bench.bigsim        # tools/bigsim_bench.py
+    python -m kevlar_tpu_torch.bench.miss_forensics WORKDIR
+                                    # tools/miss_forensics.py (host only)
 
 Each draws its JAX entry's data with the same seeded generators in the
 same order, times the same regions and prints the same lines on
-standard output, JSON with the same keys.  Each takes ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain PyTorch versions), passes it
-down to every stage, stops when ``cuda`` is asked for and there is no
-card, prints the card's name and power limit on a ``#`` line of standard
-error, and writes nothing into the repository (``configs`` and
-``control_plane`` write their JSON where ``--out`` says).
+standard output, JSON with the same keys.  Each but ``miss_forensics``
+takes ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
+PyTorch versions), passes it down to every stage, stops when ``cuda`` is
+asked for and there is no card, and prints the card's name and power
+limit on a ``#`` line of standard error.  None writes into the repository
+(``configs``, ``control_plane``, ``bigsim`` and ``miss_forensics`` write
+their JSON where ``--out`` says).
 """
 
 import subprocess

@@ -208,6 +208,8 @@ def test_port_imports_no_jax():
             'import kevlar_tpu_torch.bench.verify_e2e\n'
             'import kevlar_tpu_torch.bench.helium_workflow_only\n'
             'import kevlar_tpu_torch.bench.control_plane\n'
+            'import kevlar_tpu_torch.bench.bigsim\n'
+            'import kevlar_tpu_torch.bench.miss_forensics\n'
             'import kevlar_tpu_torch.cli as c\n'
             'assert len(c.mains()) == len(c.SUBPARSER_FUNCS) == 16\n'
             'for name in c.SUBPARSER_FUNCS:\n'

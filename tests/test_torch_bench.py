@@ -30,9 +30,9 @@ import bench
 import bench_call
 import chip_smoke
 import kevlar_tpu_torch
-from kevlar_tpu_torch.bench import (call, configs, control_plane, count_novel,
-                                    helium_workflow_only, sim_trio,
-                                    verify_e2e)
+from kevlar_tpu_torch.bench import (bigsim, call, configs, control_plane,
+                                    count_novel, helium_workflow_only,
+                                    sim_trio, verify_e2e)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # what the entries' tests here cut their sizes to
@@ -330,9 +330,10 @@ def test_configs_main_prints_bench_configs_keys(tmp_path, capsys):
 
 @pytest.mark.parametrize('entry,argv', [
     (count_novel, []), (call, []), (configs, []), (sim_trio, []),
-    (verify_e2e, []), (helium_workflow_only, ['.']), (control_plane, [])],
+    (verify_e2e, []), (helium_workflow_only, ['.']), (control_plane, []),
+    (bigsim, [])],
     ids=['count_novel', 'call', 'configs', 'sim_trio', 'verify_e2e',
-         'helium_workflow_only', 'control_plane'])
+         'helium_workflow_only', 'control_plane', 'bigsim'])
 def test_entries_refuse_cuda_without_a_card(entry, argv, capsys):
     if torch.cuda.is_available():
         pytest.skip('a card is present')
