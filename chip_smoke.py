@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of kevlar_tpu_torch: build, check and drive its slices.
 
-    python3 chip_smoke.py        # needs one CUDA GPU; about 15 minutes
+    python3 chip_smoke.py        # needs one CUDA GPU; about 19 minutes
     python3 chip_smoke.py --compare-parent DIR
                                  # the aligner, the consume step, the routed
                                  # consume's kernels and a helium sample
@@ -27,9 +27,13 @@
                                  # (the three bench tools and K4 at the
                                  # control plane's scale) without the rest
     python3 chip_smoke.py --bigsim
-                                 # the builds and phase 16 (the bigsim run
-                                 # at its 10 Mb cut and its forensics)
-                                 # without the rest
+                                 # the builds and phases 16 and 17 (the
+                                 # bigsim run at its 10 Mb cut and its
+                                 # forensics, the banded run on its draw,
+                                 # the scaling tool) without the rest
+    python3 chip_smoke.py --scaling
+                                 # the builds and phase 17 (b) (the
+                                 # scaling tool and one (1, 4) worker)
     python3 chip_smoke.py --rank RANK WORLD PORT BACKEND SPEC
                                  # one rank of phase 12 (the smoke starts
                                  # them itself)
@@ -270,6 +274,28 @@ Phases (any failure raises, and the script exits non-zero):
    stage walls, both scorers' recall, FDR and per-class recall, the
    misses by stage and the peak RSS are printed beside the card's name and
    power limit.
+17. banded and scaling, after phase 16: (a) before phase 16's directory
+   goes, ``kevlar_tpu_torch.bench.banded`` (the port's
+   tools/banded_bench.py) in this process with ``--device cuda`` and
+   :data:`BANDED_ARGV` on links to phase 16's genome, truth and reads
+   (``--skip-sim``; the tool's sizing at 10 Mb: 171,600,000 bytes a
+   sample, 42,900,000 a band, four bands): 12 banded counts, 4 banded
+   novel screens, ``unband``, filter, partition, alac, the refr count
+   and simlike over the band tables; JAX's result keys and last line,
+   ``device_mb_after`` for every count pass, K1, ``kt_consume``,
+   ``kt_screen_reads`` and B1 launched, a recall of at least
+   ``MIN_RECALL`` under both scorers.  The walls, both scorers' recall,
+   FDR and per-class recall, each pass's peak device bytes against its
+   band table and phase 16's unbanded recall are printed beside the
+   card's name and power limit.  (b) ``python -m
+   kevlar_tpu_torch.bench.scaling --device cuda`` (the port's
+   tools/scaling_bench.py) as a child process after (a), every mesh
+   naming this card 1-8 times: JAX's keys on every row, the four shard
+   rows, the data-axis row and both gloo rows (2 x 4 and 4 x 2 ranks on
+   this card) with no ``error``, exit 0; then one (1, 4) worker in this
+   process, which must launch K1, ``kt_route``, ``kt_scatter_add`` over
+   parts and the range variants of ``kt_consume`` and K2.  The rows are
+   printed beside the card's name and power limit.
 
 Before the card's name, a JSON line ``{"programs": [...]}`` records the XLA
 programs ported as torch (B7 ``seed_ranges``, B8 ``score_bundles``, B.1
@@ -3073,82 +3099,322 @@ def _per_class_recall(evaluation):
                      for name, c in evaluation['per_class'].items())
 
 
-def phase_bigsim(device):
+def phase_bigsim(device, tmp):
     """Phase 16: (a) ``kevlar_tpu_torch.bench.bigsim`` in this process at
-    :data:`BIGSIM_ARGV` in a temporary directory outside the repository:
+    :data:`BIGSIM_ARGV` in ``tmp``, a directory outside the repository:
     JAX's keys and last line, K1, ``kt_consume``, ``kt_screen_reads`` and
     B1 launched, a recall of at least ``MIN_RECALL`` under both scorers;
     (b) ``kevlar_tpu_torch.bench.miss_forensics`` on (a)'s work
-    directory: every miss of the reference protocol given a stage."""
+    directory: every miss of the reference protocol given a stage.
+    Returns (a)'s record and work directory with the rest."""
     import contextlib
     import io
     import resource
     from kevlar_tpu_torch.bench import bigsim, miss_forensics
     t0 = time.time()
     rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
-    with tempfile.TemporaryDirectory(prefix='kevlar_bigsim_') as tmp:
+    workdir = os.path.join(tmp, 'work')
+    out = os.path.join(tmp, 'bigsim.json')
+    _reset_launches()
+    rec, lines, wall = _run_entry('bigsim', bigsim, [
+        '--device', device] + BIGSIM_ARGV + [
+        '--workdir', workdir, '--out', out])
+    launches = _entry_launches('bigsim', BIGSIM_KERNELS)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    with open(out) as fh:
+        written = json.load(fh)
+    if list(rec) != BIGSIM_KEYS or written != json.loads(
+            json.dumps(rec)) or list(lines[-1]) != BIGSIM_LINE_KEYS or \
+            lines[-1]['metric'] != 'bigsim_recall' or \
+            rec['backend'] != device:
+        raise AssertionError('bigsim printed {}, returned keys {}'.format(
+            lines, list(rec)))
+    ev, ref = rec['evaluation'], rec['evaluation_reference_protocol']
+    for label, e in (('evaluation', ev),
+                     ('evaluation_reference_protocol', ref)):
+        if e['recall'] is None or e['recall'] < MIN_RECALL:
+            raise AssertionError('bigsim: {} recall {} < {}'.format(
+                label, e['recall'], MIN_RECALL))
+    print('[smoke] bigsim entry ({}): reads a sample {}; walls {} s, '
+          '{} s in all ({:.1f} s with set-up); evaluation recall {} '
+          'FDR {} ({} TP, {} FP, {} collisions of {}); reference '
+          'protocol recall {} FDR {} ({} TP, {} FP, {} missing; {} PASS '
+          'calls, {} compacted); per class: evaluation {}; reference '
+          'protocol {}; repeats {}; launches {}; peak RSS of the process '
+          '{:.0f} MB after the run, {:.0f} MB before it; {}'.format(
+              ' '.join(BIGSIM_ARGV), rec['reads_per_sample'],
+              rec['wall_s'], rec['total_wall_s'], wall, ev['recall'],
+              ev['fdr'], ev['tp'], ev['fp'], ev['collisions'],
+              ev['total_truth'], ref['recall'], ref['fdr'], ref['tp'],
+              ref['fp'], ref['missing'], ref['calls_pass'],
+              ref['calls_compacted'], _per_class_recall(ev),
+              _per_class_recall(ref), rec['repeat_composition'],
+              launches, rss, rss_before, _nvidia_smi()), flush=True)
+
+    buf = io.StringIO()
+    t1 = time.time()
+    with contextlib.redirect_stdout(buf):
+        forensics = miss_forensics.main([workdir])
+    fwall = time.time() - t1
+    printed = json.loads(buf.getvalue())
+    print('[smoke] miss_forensics: {}'.format(json.dumps(printed)),
+          flush=True)
+    n_miss = forensics['n_miss']
+    if printed != json.loads(json.dumps(dict(
+            forensics, misses='[{} rows]'.format(n_miss)))) or \
+            n_miss != ref['missing'] or \
+            sum(forensics['by_stage'].values()) != n_miss or \
+            len(forensics['misses']) != n_miss:
+        raise AssertionError('miss_forensics: {} misses by stage {}, '
+                             'the reference protocol {}'.format(
+                                 n_miss, forensics['by_stage'],
+                                 ref['missing']))
+    print('[smoke] miss_forensics entry: {} misses of {}, by stage {}; '
+          '{:.1f} s'.format(n_miss, forensics['n_truth'],
+                            forensics['by_stage'], fwall), flush=True)
+    print('[smoke] bigsim: {:.1f} s'.format(time.time() - t0),
+          flush=True)
+    return dict(rec=rec, workdir=workdir, launches=launches,
+                forensics=forensics['by_stage'], entry_s=wall)
+
+
+# ------------------------------------------- phase 17: banded and scaling
+
+# tools/banded_bench.py on phase 16's draw: its genome size for the
+# sizing (171,600,000 bytes a sample unbanded, 42,900,000 a band), four
+# bands, the reads and truth of phase 16 (--skip-sim)
+BANDED_ARGV = ['--skip-sim', '--genome-size', '10000000', '--repeats',
+               '--num-bands', '4']
+BANDED_INPUTS = ('genome.fa', 'truth.vcf', 'proband.fq', 'mother.fq',
+                 'father.fq')
+# what tools/banded_bench.py writes and prints last
+BANDED_KEYS = ['suite', 'backend', 'genome_size', 'coverage', 'num_bands',
+               'per_band_memory', 'unbanded_memory_per_sample', 'memory',
+               'repeat_genome', 'wall_s', 'total_wall_s', 'evaluation',
+               'evaluation_reference_protocol', 'note']
+BANDED_LINE_KEYS = ['metric', 'value', 'unit', 'fdr', 'num_bands',
+                    'total_wall_s']
+# the kernels of its path: K1 and kt_consume in every banded count, the
+# screen in every banded novel, B1 in alac
+BANDED_KERNELS = ('kmer_hashes', 'consume', 'screen_reads', 'ksw_extz')
+# what tools/scaling_bench.py writes, and each worker's row
+SCALING_KEYS = ['host_physical_cores', 'reads_per_rep', 'note',
+                'shard_axis', 'data_axis', 'gloo_2proc', 'gloo_4proc']
+SCALING_ROW_KEYS = ['devices', 'n_data', 'n_shard', 'reads_per_rep', 'reps',
+                    'consume_alltoall_s', 'consume_alltoall_reads_per_s',
+                    'consume_replicate_s', 'consume_replicate_reads_per_s',
+                    'screen_s', 'screen_reads_per_s']
+SCALING_SHARD_KEYS = SCALING_ROW_KEYS + [
+    'routed_strong_efficiency', 'replicate_serialized_efficiency',
+    'alltoall_speedup', 'screen_serialized_efficiency']
+SCALING_GLOO_KEYS = SCALING_ROW_KEYS + [
+    'vs_single_process_consume_alltoall',
+    'vs_single_process_consume_replicate', 'vs_single_process_screen']
+SCALING_DATA_KEYS = ['1_device', 'N_devices_same_batch',
+                     'consume_efficiency', 'screen_efficiency']
+SCALING_TIMEOUT = 600      # seconds for the whole tool and its workers
+# the sharded path of a (1, 4) worker: routed consume, replicate consume,
+# screen
+SCALING_KERNELS = ('kmer_hashes', 'route', 'scatter_add_parts',
+                   'consume_range', 'gather_counts_range')
+_PEAK = re.compile(r'^# (count_\w+_b\d+) peak device bytes (\d+) '
+                   r'\(band table (\d+)\)$')
+
+
+class _Tee:
+    """A text stream that writes to ``stream`` and keeps a copy."""
+
+    def __init__(self, stream):
+        import io
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
+def phase_banded(device, simdir, unbanded):
+    """Phase 17 (a): ``kevlar_tpu_torch.bench.banded`` in this process at
+    :data:`BANDED_ARGV` on links to phase 16's inputs in ``simdir``: JAX's
+    keys and last line, ``device_mb_after`` for every count pass, K1,
+    ``kt_consume``, ``kt_screen_reads`` and B1 launched, a recall of at
+    least ``MIN_RECALL`` under both scorers.  ``unbanded`` is phase 16's
+    record on the same reads."""
+    import contextlib
+    import kevlar_tpu_torch
+    from kevlar_tpu_torch.bench import banded
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix='kevlar_banded_') as tmp:
         workdir = os.path.join(tmp, 'work')
-        out = os.path.join(tmp, 'bigsim.json')
+        os.makedirs(workdir)
+        for name in BANDED_INPUTS:
+            os.symlink(os.path.join(simdir, name),
+                       os.path.join(workdir, name))
+        out = os.path.join(tmp, 'banded.json')
+        tee = _Tee(sys.stderr)
         _reset_launches()
-        rec, lines, wall = _run_entry('bigsim', bigsim, [
-            '--device', device] + BIGSIM_ARGV + [
-            '--workdir', workdir, '--out', out])
-        launches = _entry_launches('bigsim', BIGSIM_KERNELS)
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+        try:
+            with contextlib.redirect_stderr(tee):
+                rec, lines, wall = _run_entry('banded', banded, [
+                    '--device', device] + BANDED_ARGV + [
+                    '--workdir', workdir, '--out', out])
+        finally:
+            kevlar_tpu_torch.logstream = None
+        launches = _entry_launches('banded', BANDED_KERNELS)
         with open(out) as fh:
             written = json.load(fh)
-        if list(rec) != BIGSIM_KEYS or written != json.loads(
-                json.dumps(rec)) or list(lines[-1]) != BIGSIM_LINE_KEYS or \
-                lines[-1]['metric'] != 'bigsim_recall' or \
-                rec['backend'] != device:
-            raise AssertionError('bigsim printed {}, returned keys {}'.format(
-                lines, list(rec)))
-        ev, ref = rec['evaluation'], rec['evaluation_reference_protocol']
-        for label, e in (('evaluation', ev),
-                         ('evaluation_reference_protocol', ref)):
-            if e['recall'] is None or e['recall'] < MIN_RECALL:
-                raise AssertionError('bigsim: {} recall {} < {}'.format(
-                    label, e['recall'], MIN_RECALL))
-        print('[smoke] bigsim entry ({}): reads a sample {}; walls {} s, '
-              '{} s in all ({:.1f} s with set-up); evaluation recall {} '
-              'FDR {} ({} TP, {} FP, {} collisions of {}); reference '
-              'protocol recall {} FDR {} ({} TP, {} FP, {} missing; {} PASS '
-              'calls, {} compacted); per class: evaluation {}; reference '
-              'protocol {}; repeats {}; launches {}; peak RSS of the process '
-              '{:.0f} MB after the run, {:.0f} MB before it; {}'.format(
-                  ' '.join(BIGSIM_ARGV), rec['reads_per_sample'],
-                  rec['wall_s'], rec['total_wall_s'], wall, ev['recall'],
-                  ev['fdr'], ev['tp'], ev['fp'], ev['collisions'],
-                  ev['total_truth'], ref['recall'], ref['fdr'], ref['tp'],
-                  ref['fp'], ref['missing'], ref['calls_pass'],
-                  ref['calls_compacted'], _per_class_recall(ev),
-                  _per_class_recall(ref), rec['repeat_composition'],
-                  launches, rss, rss_before, _nvidia_smi()), flush=True)
+    nbands = int(BANDED_ARGV[BANDED_ARGV.index('--num-bands') + 1])
+    passes = ['count_{}_b{}'.format(who, b) for who in SAMPLES
+              for b in range(1, nbands + 1)]
+    if list(rec) != BANDED_KEYS or written != json.loads(json.dumps(rec)) \
+            or list(lines[-1]) != BANDED_LINE_KEYS or \
+            lines[-1]['metric'] != 'banded_recall' or \
+            rec['backend'] != device or rec['num_bands'] != nbands or \
+            list(rec['memory'].get('device_mb_after', {})) != passes:
+        raise AssertionError('banded printed {}, returned {}'.format(
+            lines, {k: rec[k] for k in rec if k != 'note'}))
+    peaks = {}
+    for line in tee.copy.getvalue().splitlines():
+        m = _PEAK.match(line)
+        if m:
+            peaks[m.group(1)] = (int(m.group(2)), int(m.group(3)))
+    band_bytes = rec['memory']['band_table_bytes_per_sample']
+    if list(peaks) != passes or any(table != band_bytes
+                                    for _, table in peaks.values()):
+        raise AssertionError('banded: peak device bytes {}'.format(peaks))
+    ev, ref = rec['evaluation'], rec['evaluation_reference_protocol']
+    for label, e in (('evaluation', ev),
+                     ('evaluation_reference_protocol', ref)):
+        if e['recall'] is None or e['recall'] < MIN_RECALL:
+            raise AssertionError('banded: {} recall {} < {}'.format(
+                label, e['recall'], MIN_RECALL))
+    print('[smoke] banded entry ({}; phase 16\'s reads): walls {} s, {} s '
+          'in all ({:.1f} s with set-up); evaluation recall {} FDR {} ({} '
+          'TP, {} FP of {}); reference protocol recall {} FDR {} ({} TP, {} '
+          'FP, {} missing); unbanded on the same reads (phase 16): recall '
+          '{} / {}, FDR {} / {}; per class: evaluation {}; reference '
+          'protocol {}; table bytes a sample {} unbanded, {} a band; peak '
+          'device bytes a count pass {}; device MB after each pass {}; peak '
+          'RSS {} MB; launches {}; {}'.format(
+              ' '.join(BANDED_ARGV), rec['wall_s'], rec['total_wall_s'],
+              wall, ev['recall'], ev['fdr'], ev['tp'], ev['fp'],
+              ev['total_truth'], ref['recall'], ref['fdr'], ref['tp'],
+              ref['fp'], ref['missing'], unbanded['evaluation']['recall'],
+              unbanded['evaluation_reference_protocol']['recall'],
+              unbanded['evaluation']['fdr'],
+              unbanded['evaluation_reference_protocol']['fdr'],
+              _per_class_recall(ev), _per_class_recall(ref),
+              rec['unbanded_memory_per_sample'], band_bytes,
+              {k: v[0] for k, v in peaks.items()},
+              rec['memory']['device_mb_after'],
+              rec['memory']['peak_rss_mb'], launches, _nvidia_smi()),
+          flush=True)
+    print('[smoke] banded: {:.1f} s'.format(time.time() - t0), flush=True)
+    return dict(rec=rec, launches=launches, peaks=peaks, entry_s=wall)
 
-        buf = io.StringIO()
-        t1 = time.time()
-        with contextlib.redirect_stdout(buf):
-            forensics = miss_forensics.main([workdir])
-        fwall = time.time() - t1
-        printed = json.loads(buf.getvalue())
-        print('[smoke] miss_forensics: {}'.format(json.dumps(printed)),
-              flush=True)
-        n_miss = forensics['n_miss']
-        if printed != json.loads(json.dumps(dict(
-                forensics, misses='[{} rows]'.format(n_miss)))) or \
-                n_miss != ref['missing'] or \
-                sum(forensics['by_stage'].values()) != n_miss or \
-                len(forensics['misses']) != n_miss:
-            raise AssertionError('miss_forensics: {} misses by stage {}, '
-                                 'the reference protocol {}'.format(
-                                     n_miss, forensics['by_stage'],
-                                     ref['missing']))
-        print('[smoke] miss_forensics entry: {} misses of {}, by stage {}; '
-              '{:.1f} s'.format(n_miss, forensics['n_truth'],
-                                forensics['by_stage'], fwall), flush=True)
-    print('[smoke] bigsim: {:.1f} s'.format(time.time() - t0), flush=True)
-    return dict(rec=rec, launches=launches, forensics=forensics['by_stage'],
-                entry_s=wall)
+
+def phases_bigsim_banded(device):
+    """Phase 16, then phase 17 (a) on its draw before its directory
+    goes."""
+    with tempfile.TemporaryDirectory(prefix='kevlar_bigsim_') as tmp:
+        big = phase_bigsim(device, tmp)
+        phase_banded(device, big['workdir'], big['rec'])
+
+
+def phase_scaling(device):
+    """Phase 17 (b): ``python -m kevlar_tpu_torch.bench.scaling --device
+    D`` as a child in a session of its own (killed with its workers after
+    :data:`SCALING_TIMEOUT`), every mesh naming this card: exit 0, JAX's
+    keys on every row, the four shard rows, the data-axis row and both
+    gloo rows with no ``error``; then one (1, 4) worker in this process,
+    which must launch K1, ``kt_route``, ``kt_scatter_add`` over parts and
+    the range variants of ``kt_consume`` and K2."""
+    import signal
+    from kevlar_tpu_torch.bench import scaling
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix='kevlar_scaling_') as tmp:
+        out = os.path.join(tmp, 'scaling.json')
+        with open(out + '.log', 'w') as log:
+            proc = subprocess.Popen(
+                [sys.executable, '-m', 'kevlar_tpu_torch.bench.scaling',
+                 '--device', device, '--out', out], cwd=here,
+                stdout=subprocess.PIPE, stderr=log, text=True,
+                start_new_session=True)
+            try:
+                stdout = proc.communicate(timeout=SCALING_TIMEOUT)[0]
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise AssertionError('scaling: no end after {} s'.format(
+                    SCALING_TIMEOUT))
+        wall = time.time() - t0
+        lines = stdout.splitlines()
+        for line in lines:
+            print('[smoke] scaling: {}'.format(line), flush=True)
+        if proc.returncode != 0:
+            with open(out + '.log') as fh:
+                raise AssertionError('scaling: exit {}:\n{}'.format(
+                    proc.returncode, fh.read()[-4000:]))
+        with open(out) as fh:
+            res = json.load(fh)
+    shard, data = res.get('shard_axis', []), res.get('data_axis', {})
+    gloo = [res.get('gloo_{}proc'.format(n), {}) for n in (2, 4)]
+    rows = shard + [data.get('1_device', {}),
+                    data.get('N_devices_same_batch', {})] + gloo
+    if list(res) != SCALING_KEYS or \
+            [row.get('devices') for row in shard] != [1, 2, 4, 8] or \
+            any(list(row) != SCALING_SHARD_KEYS for row in shard) or \
+            list(data) != SCALING_DATA_KEYS or \
+            any(list(row)[:len(SCALING_ROW_KEYS)] != SCALING_ROW_KEYS
+                for row in rows) or \
+            any(list(row) != SCALING_GLOO_KEYS or row['devices'] != 8
+                for row in gloo) or len(lines) != 7:
+        raise AssertionError('scaling: keys {}, rows {}'.format(
+            list(res), json.dumps(rows)))
+    ndata = data['N_devices_same_batch']['n_data']
+    _reset_launches()
+    t1 = time.time()
+    row = scaling.worker(4, 1, 4, None, device=device)
+    one_wall = time.time() - t1
+    launches = _entry_launches('scaling worker (1, 4)', SCALING_KERNELS)
+    if list(row) != SCALING_ROW_KEYS:
+        raise AssertionError('scaling worker: {}'.format(row))
+    print('[smoke] scaling entry: shard axis (cells: routed, replicate, '
+          'screen s; routed_strong / replicate_serialized / '
+          'screen_serialized efficiency, alltoall_speedup) {}; data axis 1 '
+          'vs {} cells: consume {} / {} s, screen {} / {} s, efficiency {} '
+          '/ {}; gloo 2 x 4: {} / {} / {} s, vs one process {} / {} / {}; '
+          'gloo 4 x 2: {} / {} / {} s, vs one process {} / {} / {}; {:.1f} s '
+          'the tool (12 worker processes); in-process (1, 4) worker {:.1f} '
+          's, {}, launches {}; {}'.format(
+              '; '.join('{}: {} / {} / {} s, {} / {} / {}, {}'.format(
+                  r['devices'], r['consume_alltoall_s'],
+                  r['consume_replicate_s'], r['screen_s'],
+                  r['routed_strong_efficiency'],
+                  r['replicate_serialized_efficiency'],
+                  r['screen_serialized_efficiency'], r['alltoall_speedup'])
+                  for r in shard), ndata,
+              data['1_device']['consume_alltoall_s'],
+              data['N_devices_same_batch']['consume_alltoall_s'],
+              data['1_device']['screen_s'],
+              data['N_devices_same_batch']['screen_s'],
+              data['consume_efficiency'], data['screen_efficiency'],
+              *[g[k] for g in gloo for k in (
+                  'consume_alltoall_s', 'consume_replicate_s', 'screen_s',
+                  'vs_single_process_consume_alltoall',
+                  'vs_single_process_consume_replicate',
+                  'vs_single_process_screen')],
+              wall, one_wall, json.dumps(row), launches, _nvidia_smi()),
+          flush=True)
+    print('[smoke] scaling: {:.1f} s'.format(time.time() - t0), flush=True)
+    return dict(res=res, launches=launches, tool_s=wall)
 
 
 def _cc_graphs(rng):
@@ -4996,16 +5262,19 @@ def bench_tools_probe():
     return 0
 
 
-def bigsim_probe():
-    """``--bigsim``: the card, the builds and phase 16, without the rest
-    of the smoke."""
+def bigsim_probe(bigsim=True):
+    """``--bigsim``: the card, the builds and phases 16 and 17, without
+    the rest of the smoke; ``--scaling`` (``bigsim`` False): phase 17 (b)
+    alone."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     print(_nvidia_smi(), flush=True)
     builds = build_all()
     print('[smoke] built in {}'.format(builds), flush=True)
-    phase_bigsim('cuda')
+    if bigsim:
+        phases_bigsim_banded('cuda')
+    phase_scaling('cuda')
     return 0
 
 
@@ -5050,6 +5319,8 @@ def main():
         return bench_tools_probe()
     if sys.argv[1:2] == ['--bigsim']:
         return bigsim_probe()
+    if sys.argv[1:2] == ['--scaling']:
+        return bigsim_probe(bigsim=False)
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     device = 'cuda'
@@ -5088,7 +5359,8 @@ def main():
         sim = phase_simlike(device, workdir)
         phase_dist(device, workdir, trio['reads'])
         tools = phase_bench_tools(device, workdir, trio)
-    phase_bigsim(device)
+    phases_bigsim_banded(device)
+    phase_scaling(device)
     print('[smoke] total wall {:.1f} s'.format(time.time() - t_all),
           flush=True)
 

@@ -11,6 +11,8 @@
     python -m kevlar_tpu_torch.bench.bigsim        # tools/bigsim_bench.py
     python -m kevlar_tpu_torch.bench.miss_forensics WORKDIR
                                     # tools/miss_forensics.py (host only)
+    python -m kevlar_tpu_torch.bench.banded        # tools/banded_bench.py
+    python -m kevlar_tpu_torch.bench.scaling       # tools/scaling_bench.py
 
 Each draws its JAX entry's data with the same seeded generators in the
 same order, times the same regions and prints the same lines on
@@ -19,8 +21,18 @@ takes ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions), passes it down to every stage, stops when ``cuda`` is
 asked for and there is no card, and prints the card's name and power
 limit on a ``#`` line of standard error.  None writes into the repository
-(``configs``, ``control_plane``, ``bigsim`` and ``miss_forensics`` write
-their JSON where ``--out`` says).
+(``configs``, ``control_plane``, ``bigsim``, ``miss_forensics``,
+``banded`` and ``scaling`` write their JSON where ``--out`` says).
+
+On the CPU, small: ``banded --device cpu --genome-size 200000 --coverage
+15 --denovo 8 --inherited 6 --num-bands 2`` (with ``filter``'s ``-M 1G``
+shrunk by wrapping ``banded.timed_stage``, as for ``bigsim``), and one
+row of ``scaling``: ``--worker --ndev 1 --n-data 1 --n-shard 1 --device
+cpu`` (minutes: the plain versions on 65,536 reads a rep).  On the card,
+``chip_smoke.py``'s phase 17 runs ``banded`` on phase 16's draw in 4
+bands and ``scaling`` whole (``--bigsim`` runs
+phases 16 and 17, ``--scaling`` the scaling tool alone); ``banded`` at
+its 300 Mb defaults is a run of its own.
 """
 
 import subprocess

@@ -50,8 +50,67 @@ def _fold_codes(codes):
     return acc
 
 
-# .npy header readers by format version: numpy's public API only (its
-# private ``_read_array_header`` is missing from later numpy 2 releases)
+# seed positions packed at a time when a sequence's index is built
+_INDEX_CHUNK = 1 << 22
+
+
+def _seed_keys(bases, seedsize):
+    """The keys and positions of the valid seeds of one encoded sequence.
+
+    The sequence is packed in chunks of :data:`_INDEX_CHUNK` seed
+    positions on a thread each (numpy releases the GIL), which gives the
+    keys of packing it whole: a seed's code depends on its own bases
+    only."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    npos = len(bases) - seedsize + 1
+
+    def chunk(lo):
+        hi = min(lo + _INDEX_CHUNK, npos)
+        codes, valid = dna.seed_codes(bases[lo:hi + seedsize - 1], seedsize)
+        pos = np.nonzero(valid)[0]
+        return _fold_codes(codes[pos]), pos + lo
+
+    starts = range(0, npos, _INDEX_CHUNK)
+    if len(starts) == 1:
+        return chunk(0)
+    with ThreadPoolExecutor(min(len(starts), os.cpu_count() or 1)) as pool:
+        parts = list(pool.map(chunk, starts))
+    return (np.concatenate([keys for keys, _ in parts]),
+            np.concatenate([pos for _, pos in parts]))
+
+
+def _stable_order(keys):
+    """``np.argsort(keys, kind='stable')``, sorted by the keys' top three
+    bits first and then within each of those eight parts on a thread of
+    its own, by the faster unstable sort: only the runs of equal keys are
+    put back into index order."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    top = (keys >> np.uint64(61)).astype(np.uint8)
+    first = np.argsort(top, kind='stable')
+    edges = np.searchsorted(top[first], np.arange(9))
+
+    def part(i):
+        at = first[edges[i]:edges[i + 1]]
+        sub = keys[at]
+        order = np.argsort(sub)
+        same = sub[order[1:]] == sub[order[:-1]]
+        if same.any():
+            tied = np.zeros(len(sub), dtype=bool)
+            tied[1:] = same
+            tied[:-1] |= same
+            where = np.nonzero(tied)[0]
+            run = np.cumsum(~np.concatenate(([False], same)))[where]
+            order[where] = order[where][np.lexsort((order[where], run))]
+        return at[order]
+
+    if len(keys) < _INDEX_CHUNK:
+        return np.concatenate([part(i) for i in range(8)])
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return np.concatenate(list(pool.map(part, range(8))))
+
+
 _NPY_HEADER_READERS = {(1, 0): np.lib.format.read_array_header_1_0,
                        (2, 0): np.lib.format.read_array_header_2_0}
 
@@ -150,15 +209,13 @@ class SeedIndex:
             seq = refrseqs[seqid]
             if len(seq) < seedsize:
                 continue
-            codes, valid = dna.seed_codes(dna.encode(seq), seedsize)
-            keys = _fold_codes(codes)
-            pos = np.nonzero(valid)[0]
-            keys_all.append(keys[pos])
+            keys, pos = _seed_keys(dna.encode(seq), seedsize)
+            keys_all.append(keys)
             seqidx_all.append(np.full(pos.shape, si, dtype=np.int32))
             pos_all.append(pos.astype(np.int64))
         if keys_all:
             keys = np.concatenate(keys_all)
-            order = np.argsort(keys, kind='stable')
+            order = _stable_order(keys)
             self._keys = keys[order]
             self._seqidx = np.concatenate(seqidx_all)[order]
             self._pos = np.concatenate(pos_all)[order]

@@ -115,6 +115,29 @@ def test_dna_helpers_match():
                 np.testing.assert_array_equal(mine, theirs)
 
 
+@pytest.mark.parametrize('chunk', [1000, 5000])
+def test_seed_index_in_chunks_equals_jax(monkeypatch, chunk):
+    """The index built in chunks of seed positions on threads, and sorted
+    in eight parts, holds JAX's arrays: repeats (equal keys in index
+    order), N runs and a sequence with no valid seed, across chunk edges
+    (chunks of 1,000 take the generic packing, of 5,000 the stream)."""
+    monkeypatch.setattr(reference, '_INDEX_CHUNK', chunk)
+    rng = random.Random(7)
+    chr1 = simdata.make_genome(rng, 23000)
+    chr1 = (chr1[:4900] + chr1[:700] + 'N' * 40 + chr1[5640:9950] +
+            chr1[100:900] + chr1[10750:])
+    seqs = {'chr1': chr1, 'chr2': chr1[2000:9000] + 'N' * 3 + chr1[:3000],
+            'chr3': 'N' * 80}
+    mine = reference.SeedIndex(seqs, 51)
+    theirs = jax_reference.SeedIndex(seqs, 51)
+    assert np.any(theirs._keys[1:] == theirs._keys[:-1])
+    for name in ('_keys', '_seqidx', '_pos'):
+        want = getattr(theirs, name)
+        got = getattr(mine, name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
 def test_seed_index_lookup_and_index_files(tmp_path):
     rng = random.Random(21)
     chr1 = simdata.make_genome(rng, 6000)
