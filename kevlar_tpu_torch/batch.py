@@ -191,7 +191,8 @@ class CodeStager:
     again only once the copy out of it has completed (its event), so the
     host fills one batch while the copy of the one before is in flight.
     For the CPU every batch gets a fresh array, which the tensor shares.
-    One thread uses a stager at a time.
+    One thread uses a stager at a time.  ``waits`` counts the times the
+    host waited for a buffer's copy.
     """
 
     DEPTH = 2       # pinned buffers: one being filled, one being copied
@@ -202,6 +203,7 @@ class CodeStager:
         self._ring = [[None, None] for _ in range(self.DEPTH)]
         self._next = 0
         self._current = None
+        self.waits = 0
 
     def buffer(self, shape):
         """A ``uint8`` array of ``shape`` to fill with the next batch."""
@@ -213,6 +215,7 @@ class CodeStager:
         tensor, event = slot
         if event is not None:
             event.synchronize()
+            self.waits += 1
         if tensor is None or tuple(tensor.shape) != tuple(shape):
             tensor = slot[0] = torch.empty(shape, dtype=torch.uint8,
                                            pin_memory=True)

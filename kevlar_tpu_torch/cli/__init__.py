@@ -21,6 +21,7 @@ import re
 import sys
 
 import kevlar_tpu_torch
+from kevlar_tpu_torch import support
 
 
 def memory_setting(value):
@@ -437,28 +438,17 @@ def parse_args(arglist=None):
     return args
 
 
-def _start_profile(tracedir):
-    """A started ``torch.profiler`` trace of the host and, where there is
-    one, the card (the workflow's ``profile`` key does the same per
-    stage)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(tracedir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    tracer = profile(activities=activities)
-    tracer.__enter__()
-    kevlar_tpu_torch.plog('[kevlar] profiler trace ->', tracedir)
-    return tracer
-
-
 def main(arglist=None):
     args = parse_args(arglist)
     if args.cmd is None:
         parser().parse_args(['-h'])
         return
-    tracer = _start_profile(args.profile) if args.profile else None
+    tracer = None
+    if args.profile:
+        import torch
+        tracer = support.start_profile(args.profile,
+                                       torch.cuda.is_available())
+        kevlar_tpu_torch.plog('[kevlar] profiler trace ->', args.profile)
     try:
         mains()[args.cmd](args)
     except BrokenPipeError:
@@ -473,6 +463,5 @@ def main(arglist=None):
         sys.exit(1)
     finally:
         if tracer is not None:
-            tracer.__exit__(None, None, None)
-            tracer.export_chrome_trace(os.path.join(
+            support.stop_profile(tracer, os.path.join(
                 args.profile, args.cmd + '.trace.json'))

@@ -33,7 +33,7 @@ from kevlar_tpu_torch.sketch import (
     BUCKETS_PER_BYTE, allocate_from_memory, estimate_fpr, get_extension,
     register_saved, KevlarUnsuitableFPRError,
 )
-from kevlar_tpu_torch.support import Timer
+from kevlar_tpu_torch.support import Timer, span
 
 # Reads per consume launch: the 8 batches of 4,096 reads that kevlar_tpu
 # stacks into one device dispatch.
@@ -51,6 +51,10 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
     mesh for a sharded ``sketch``).  ``band`` is 0-based.  Records longer
     than 1,024 bases chunk into rows overlapping by k-1 bases, so no k-mer
     is lost or counted twice.
+
+    Spans (:mod:`kevlar_tpu_torch.support`): ``count::read``, a batch's
+    parse on the producer thread; ``count::consume``, the loop, which holds
+    each ``count::wait`` on the producer.
     """
     device = sketch.device
     sharded = isinstance(sketch, ShardedSketch)
@@ -77,12 +81,17 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
         try:
             stager = CodeStager(device)
             for seqfile in seqfiles:
-                for _, lengths in native_base_batches(
-                        seqfile, batch_size, overlap=wing,
-                        alloc=stager.buffer):
+                batches = native_base_batches(seqfile, batch_size,
+                                              overlap=wing,
+                                              alloc=stager.buffer)
+                while True:
+                    with span('count::read'):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
                     if stop.is_set():
                         return
-                    q.put((stager.ship(), len(lengths)))
+                    q.put((stager.ship(), len(batch[1])))
         except BaseException as exc:  # surfaced on the calling thread
             producer_error.append(exc)
         finally:
@@ -107,13 +116,15 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
     with sketch.consuming() as acc:
         thread.start()
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    break
-                codes, nreads = item
-                consume(acc, codes)
-                numreads += nreads
+            with span('count::consume', device=device):
+                while True:
+                    with span('count::wait'):
+                        item = q.get()
+                    if item is None:
+                        break
+                    codes, nreads = item
+                    consume(acc, codes)
+                    numreads += nreads
         finally:
             # on an error here, unblock the producer and let it end
             stop.set()

@@ -39,7 +39,16 @@ from kevlar_tpu_torch import sequence
 from kevlar_tpu_torch.ops import novel_ops, sketch_ops
 from kevlar_tpu_torch.parallel import (ShardedSketch, make_mesh,
                                        sharded_novel_screen)
-from kevlar_tpu_torch.support import ProgressIndicator, Timer
+from kevlar_tpu_torch.support import ProgressIndicator, Timer, span
+from kevlar_tpu_torch import support
+
+# Always-on counts of the screen's work, per batch, in host ints (read as
+# differences): batches, reads, capacity re-screens, bytes shipped to the
+# device (codes and lengths) and the host's blocking waits on it (the ring
+# slot's event where it waits, the lengths' pageable copy, the hit count,
+# the three copies back; no-ops on a CPU device, counted alike).
+counters = {'batches': 0, 'reads': 0, 'rescreens': 0, 'h2d_bytes': 0,
+            'syncs': 0}
 
 
 class KevlarCaseSampleMismatchError(ValueError):
@@ -98,19 +107,26 @@ class _NativeBatch:
 
 def native_read_batches(files, batch_size, max_len=1024):
     """Stream _NativeBatch objects through the C++ reader (compiled at
-    first use; a failed build raises)."""
+    first use; a failed build raises).  Each batch's parse is a
+    ``novel::read`` span."""
     from kevlar_tpu_torch import native
     for path in files:
-        reader = native.FastxBatchReader(path, max_reads=batch_size,
-                                         max_len=max_len, want_quals=True)
+        reader = iter(native.FastxBatchReader(
+            path, max_reads=batch_size, max_len=max_len, want_quals=True))
         bucket = 0
-        for bases, lengths, names, quals in reader:
-            maxlen = int(lengths.max()) if len(lengths) else 0
-            bucket = max(bucket, batch_mod.bucket_length(maxlen))
-            yield _NativeBatch(np.ascontiguousarray(bases[:, :bucket]),
-                               lengths, names,
-                               quals[:, :bucket] if quals is not None
-                               else None, batch_size)
+        while True:
+            with span('novel::read'):
+                parsed = next(reader, None)
+                if parsed is None:
+                    break
+                bases, lengths, names, quals = parsed
+                maxlen = int(lengths.max()) if len(lengths) else 0
+                bucket = max(bucket, batch_mod.bucket_length(maxlen))
+                rbatch = _NativeBatch(
+                    np.ascontiguousarray(bases[:, :bucket]), lengths, names,
+                    quals[:, :bucket] if quals is not None else None,
+                    batch_size)
+            yield rbatch
 
 
 def load_samples(counttables=None, filelists=None, ksize=31, memory=1e6,
@@ -172,6 +188,14 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
     augmented-FASTX text blocks (one per screened batch) instead of
     Records: the hit arrays are serialised columnar-to-text without
     per-read Python objects — the write path of ``main``.
+
+    While spans are recorded (:mod:`kevlar_tpu_torch.support`), a pass is
+    ``novel::pass``, recorded when the stream ends with the differences of
+    :data:`counters` over it; inside it each wait for the next batch is
+    ``novel::wait`` and each batch ``novel::batch``, which holds its
+    ``novel::stage``, ``screen``, ``sync`` (the hit count), ``rescreen``
+    (a batch past the capacity), ``readback`` and, for text, ``text``.
+    Every span of a batch ends before its output is yielded.
     """
     numbands_unset = not numbands
     band_unset = not band and band != 0
@@ -200,7 +224,8 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
     words = None
     if not sharded and 1 < len(samples) <= novel_ops.MAX_SCREEN_SAMPLES \
             and len({tuple(t.shape) for t, _, _ in specs}) == 1:
-        words = sketch_ops.pack_sample_tables([t for t, _, _ in specs])
+        with span('novel::pack'):
+            words = sketch_ops.pack_sample_tables([t for t, _, _ in specs])
 
     timer = Timer()
     timer.start()
@@ -223,35 +248,52 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
 
     def screen(rbatch):
         """(hits, hit abundances, discard) of one batch, on the host."""
-        np.copyto(stager.buffer(rbatch.bases.shape), rbatch.bases)
-        codes = stager.ship()
-        lengths = torch.from_numpy(np.asarray(rbatch.lengths, np.int32)).to(
-            device)
+        waits = stager.waits
+        with span('novel::stage'):
+            np.copyto(stager.buffer(rbatch.bases.shape), rbatch.bases)
+            codes = stager.ship()
+            lengths = torch.from_numpy(
+                np.asarray(rbatch.lengths, np.int32)).to(device)
+        syncs = stager.waits - waits + 4     # lengths, three copies back
         if sharded:
-            hits, hit_abunds, discard = sharded_novel_screen(
-                samples[0].mesh, casecounts, controlcounts, codes, lengths,
-                casemin=casemin, ctrlmax=ctrlmax, screen=abundscreen)
+            with span('novel::screen'):
+                hits, hit_abunds, discard = sharded_novel_screen(
+                    samples[0].mesh, casecounts, controlcounts, codes,
+                    lengths, casemin=casemin, ctrlmax=ctrlmax,
+                    screen=abundscreen)
         elif words is not None:
-            hit_idx, hit_abunds, n_hits, discard, _ = \
-                novel_ops.novel_screen_compact(
-                    words, len(samples), ncase, codes, lengths, ksize,
-                    casemin, ctrlmax, screen=abundscreen, numbands=numbands,
-                    band=band)
-            n = int(n_hits)
+            with span('novel::screen'):
+                hit_idx, hit_abunds, n_hits, discard, _ = \
+                    novel_ops.novel_screen_compact(
+                        words, len(samples), ncase, codes, lengths, ksize,
+                        casemin, ctrlmax, screen=abundscreen,
+                        numbands=numbands, band=band)
+            with span('novel::sync'):
+                n = int(n_hits)
+            syncs += 1
             if n > hit_idx.shape[0]:
                 # more hits than the capacity: the batch again, uncapped
-                hits, hit_abunds, discard = novel_ops.novel_screen(
-                    specs, ncase, codes, lengths, ksize, casemin, ctrlmax,
-                    screen=abundscreen, numbands=numbands, band=band,
-                    words=words)
+                counters['rescreens'] += 1
+                with span('novel::rescreen'):
+                    hits, hit_abunds, discard = novel_ops.novel_screen(
+                        specs, ncase, codes, lengths, ksize, casemin,
+                        ctrlmax, screen=abundscreen, numbands=numbands,
+                        band=band, words=words)
             else:
                 hits, hit_abunds = hit_idx[:n], hit_abunds[:, :n]
         else:
-            hits, hit_abunds, discard = novel_ops.novel_screen(
-                specs, ncase, codes, lengths, ksize, casemin, ctrlmax,
-                screen=abundscreen, numbands=numbands, band=band)
-        return (hits.cpu().numpy(), hit_abunds.cpu().numpy(),
-                discard.cpu().numpy())
+            with span('novel::screen'):
+                hits, hit_abunds, discard = novel_ops.novel_screen(
+                    specs, ncase, codes, lengths, ksize, casemin, ctrlmax,
+                    screen=abundscreen, numbands=numbands, band=band)
+        with span('novel::readback'):
+            out = (hits.cpu().numpy(), hit_abunds.cpu().numpy(),
+                   discard.cpu().numpy())
+        counters['batches'] += 1
+        counters['reads'] += len(rbatch)
+        counters['h2d_bytes'] += rbatch.bases.nbytes + 4 * len(lengths)
+        counters['syncs'] += syncs
+        return out
 
     def decode_hits(rbatch, hits_np, hitab_np, discard):
         """Turn compacted hit indices into annotated Records."""
@@ -334,7 +376,16 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
 
     emit_text = (emit == 'text')
     nskipped = 0
-    for rbatch in batchstream:
+    # a pass's span cannot stay open across the yields: it is recorded
+    # when the stream ends, each batch's spans name it their parent
+    pass_ = support.mark('novel::pass')
+    before = dict(counters)
+    batchstream = iter(batchstream)
+    while True:
+        with span('novel::wait', parent=pass_):
+            rbatch = next(batchstream, None)
+        if rbatch is None:
+            break
         if skipping:
             # restartability (reference novel.py:114-132): fast-forward to
             # a named read, host-side; the found read itself is also
@@ -356,11 +407,16 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
                 nskipped += len(names)
                 continue
         progress.update(len(rbatch))
-        hits_np, hitab_np, discard = screen(rbatch)
+        with span('novel::batch', parent=pass_):
+            hits_np, hitab_np, discard = screen(rbatch)
+            if emit_text:
+                with span('novel::text'):
+                    text = format_hits(rbatch, hits_np, hitab_np, discard)
         if emit_text:
-            yield format_hits(rbatch, hits_np, hitab_np, discard)
+            yield text
         else:
             yield from decode_hits(rbatch, hits_np, hitab_np, discard)
+    support.record(pass_, {k: counters[k] - before[k] for k in counters})
 
     elapsed = timer.stop()
     message = 'Found {:d} instances of {:d} unique novel kmers in {:d} reads'

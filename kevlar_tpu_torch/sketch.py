@@ -26,6 +26,7 @@ import torch
 from kevlar_tpu_torch import dna
 from kevlar_tpu_torch.ops import hashing, sketch_ops
 from kevlar_tpu_torch.reference import _load_npz_mmap
+from kevlar_tpu_torch.support import span
 
 
 class KevlarSketchTypeError(ValueError):
@@ -125,22 +126,27 @@ class Sketch:
                     sketch.consume_batch(bases)
 
         The block's entry unpacks the tables into it and its exit saturates
-        and packs them back, once for all its batches; inside, ``tables`` is
-        None and the sketch cannot be read.  A batch consume outside a block
-        is a block of its own.  Blocks nest: the outermost closes."""
+        and packs them back, once for all its batches (the spans
+        ``count::open`` and ``count::close``, timed on the device too);
+        inside, ``tables`` is None and the sketch cannot be read.  A batch
+        consume outside a block is a block of its own.  Blocks nest: the
+        outermost closes."""
         if self.backend != 'device':
             raise ValueError('a host-backend sketch has no accumulator')
         if self._acc is not None:
             yield self._acc
             return
-        self._acc = sketch_ops.Accumulator(self.tables, self.counter_bits,
-                                           self.tablesize)
+        with span('count::open', device=self.device):
+            self._acc = sketch_ops.Accumulator(
+                self.tables, self.counter_bits, self.tablesize)
         self.tables = None
         self._invalidate()
         try:
             yield self._acc
         finally:
-            self.tables, self._acc = self._acc.tables(), None
+            with span('count::close', device=self.device):
+                tables = self._acc.tables()
+            self.tables, self._acc = tables, None
 
     # -- khmer-parity introspection ------------------------------------
     def ksize(self):
@@ -368,7 +374,8 @@ class Sketch:
     def consume_batch_stack(self, bases_stack, numbands=None, band=None,
                             mask=None, mask_threshold=0,
                             consume_masked=False):
-        """Count a ``[NB, B, L]`` stack of batches."""
+        """Count a ``[NB, B, L]`` stack of batches (the span
+        ``count::consume``, timed on the device too)."""
         if self.backend == 'host':
             for bases in bases_stack:
                 self.consume_batch(bases, numbands=numbands, band=band,
@@ -376,7 +383,8 @@ class Sketch:
                                    consume_masked=consume_masked)
             return
         maskspec = self._mask_spec(mask)
-        with self.consuming() as acc:
+        with self.consuming() as acc, \
+                span('count::consume', device=self.device):
             sketch_ops.consume_batch_stack(
                 acc, self._codes(bases_stack), self._ksize,
                 numbands=numbands, band=band, mask=maskspec,

@@ -35,7 +35,8 @@ Config (JSON) mirrors the reference's mark-I config.json vocabulary, plus
     }
 
 ``profile`` names a directory: the run is traced with ``torch.profiler``,
-one ``workflow::<stage>`` span per stage, and the chrome trace is written
+one ``workflow::<stage>`` span per stage around the stages' own spans
+(:mod:`kevlar_tpu_torch.support`), and the chrome trace is written
 there.  ``shards`` hash-shards every sample sketch over that many shards of
 a mesh (:mod:`kevlar_tpu_torch.parallel`: every card of ``device``, or the
 CPU standing in for each) and runs the counts, the novel screen and
@@ -44,11 +45,13 @@ simlike's queries over it, as in ``kevlar_tpu``.
     python -m kevlar_tpu_torch.workflow config.json
 """
 
+import contextlib
 import json
 import os
 import resource
 
 import kevlar_tpu_torch
+from kevlar_tpu_torch import support
 from kevlar_tpu_torch.cli import memory_setting
 from kevlar_tpu_torch.support import Timer
 
@@ -96,35 +99,23 @@ def run_mark1(config, logstream=None):
     timer.start()
     refrfile = config['reference']['fasta']
     stage_marks = []
-    # per-stage torch.profiler spans: with the 'profile' config key (a
-    # trace directory) every stage is a named record_function range in
-    # the chrome trace, so device time attributes to pipeline stages
+    # with the 'profile' config key (a trace directory) every stage is a
+    # named range in the chrome trace, so device time attributes to
+    # pipeline stages
     profile_dir = config.get('profile')
     profiler = None
-    span = [None]
     if profile_dir:
         import torch
-        from torch.profiler import ProfilerActivity, profile
-        os.makedirs(profile_dir, exist_ok=True)
-        activities = [ProfilerActivity.CPU]
-        if torch.device(device).type == 'cuda':
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.__enter__()
+        profiler = support.start_profile(
+            profile_dir, torch.device(device).type == 'cuda')
         kevlar_tpu_torch.plog('[workflow] profiler trace ->', profile_dir)
-
-    def close_span():
-        if span[0] is not None:
-            span[0].__exit__(None, None, None)
-            span[0] = None
+    current = [contextlib.nullcontext()]
 
     def stage(msg):
         stage_marks.append((msg, timer.probe()))
-        if profiler is not None:
-            import torch
-            close_span()
-            span[0] = torch.profiler.record_function('workflow::' + msg)
-            span[0].__enter__()
+        current[0].__exit__(None, None, None)
+        current[0] = support.span('workflow::' + msg)
+        current[0].__enter__()
         _malloc_trim()
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
         kevlar_tpu_torch.plog('[workflow] ({:.1f}s, rss {:.0f} MB) {}'.format(
@@ -289,11 +280,10 @@ def run_mark1(config, logstream=None):
     kevlar_tpu_torch.plog('[workflow] complete in {:.1f}s; final calls in'
                           .format(total), finalfile)
     stage_marks.append(('done', timer.probe()))
+    current[0].__exit__(None, None, None)
     if profiler is not None:
-        close_span()
-        profiler.__exit__(None, None, None)
-        profiler.export_chrome_trace(
-            os.path.join(profile_dir, 'workflow.trace.json'))
+        support.stop_profile(
+            profiler, os.path.join(profile_dir, 'workflow.trace.json'))
     # per-stage wall deltas, exposed for benchmarking
     run_mark1.last_stage_times = [
         (label, round(stage_marks[i + 1][1] - t, 2))
