@@ -1,5 +1,6 @@
 """Compiled components: the build helper, the C++ assembler binding, the
-single-pair aligner and the FASTA/FASTQ batch reader.
+single-pair aligner, the FASTA/FASTQ batch reader and the novel stage's
+text writer.
 
 Every library is compiled at first use into ``BUILD_DIR`` (git-ignored,
 inside the package) and loaded with ``ctypes``.  A failed build raises:
@@ -16,7 +17,10 @@ the JAX package's files):
   (``libkevlar_hostalign.so``, apart from the CUDA aligner's); its
   ``kt_align`` entry point is bound as :func:`align`;
 - the reader from ``csrc/fastx.cpp`` alone, linked with ``-lz`` (plain and
-  gzipped input); its ``kt_fastx_*`` entry points are bound.
+  gzipped input); its ``kt_fastx_*`` entry points are bound;
+- the novel stage's text writer from ``csrc/augtext.cpp`` alone; its
+  ``kt_augtext_lines`` and ``kt_augtext`` entry points are bound as
+  :class:`AugTextWriter`.
 """
 
 import ctypes
@@ -35,10 +39,12 @@ BUILD_DIR = os.path.join(_HERE, '_build')
 ASM_SOURCE = os.path.join(_HERE, 'csrc', 'asm.cpp')
 FASTX_SOURCE = os.path.join(_HERE, 'csrc', 'fastx.cpp')
 ALIGN_SOURCE = os.path.join(_HERE, 'csrc', 'align.cpp')
+AUGTEXT_SOURCE = os.path.join(_HERE, 'csrc', 'augtext.cpp')
 
 _lib = None
 _fastx_lib = None
 _align_lib = None
+_augtext_lib = None
 
 
 def nvcc():
@@ -111,6 +117,14 @@ def build_align(force=False):
     return build_shared(
         'libkevlar_hostalign.so',
         ['g++', '-O3', '-shared', '-fPIC', '-std=c++17'], [ALIGN_SOURCE],
+        force=force)
+
+
+def build_augtext(force=False):
+    """Compile the novel stage's text writer library. Returns its path."""
+    return build_shared(
+        'libkevlar_augtext.so',
+        ['g++', '-O3', '-shared', '-fPIC', '-std=c++17'], [AUGTEXT_SOURCE],
         force=force)
 
 
@@ -293,3 +307,140 @@ class FastxBatchReader:
 
     def __del__(self):
         self.close()
+
+
+def load_augtext():
+    """Load (building if needed) the novel stage's text writer library."""
+    global _augtext_lib
+    if _augtext_lib is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib = ctypes.CDLL(build_augtext())
+        lib.kt_augtext_lines.restype = i64
+        lib.kt_augtext_lines.argtypes = [p, i64, i64, i64, p, i64, p, p, p]
+        lib.kt_augtext.restype = i64
+        lib.kt_augtext.argtypes = [
+            ctypes.c_int, p, i64, i64, p, i64, p, i64, i64, p, p, i64, p,
+            i64, p, i64, p, i64, i64, p, i64, ctypes.c_int, p, i64, p, p]
+        _augtext_lib = lib
+    return _augtext_lib
+
+
+# ``AugTextWriter.write``'s canonical code of a k-mer it leaves to the host
+NO_CANON = (1 << 64) - 1
+
+
+def _rows(a):
+    """``(address, row stride, bytes addressable)`` of the uint8 array
+    ``a``, rows at any non-negative stride, bytes one apart."""
+    if a.dtype != np.uint8 or a.ndim != 2 or a.strides[1] != 1 or \
+            a.strides[0] < 0:
+        raise TypeError('read rows must be uint8 rows of adjacent bytes')
+    extent = 0 if not a.size else \
+        1 + (a.shape[0] - 1) * a.strides[0] + a.shape[1] - 1
+    return a.ctypes.data, a.strides[0], extent
+
+
+class AugTextWriter:
+    """One novel-screen batch's augmented-FASTX block in two calls of
+    ``csrc/augtext.cpp`` (``kt_augtext_lines``, ``kt_augtext``), into host
+    buffers that each call reuses (the text's grown to twice a block that
+    does not fit, and that block written again)."""
+
+    def __init__(self):
+        self._lib = load_augtext()
+        self._grow_out(0)
+        self._grow_lines(0)
+
+    def _grow_out(self, size):
+        self._out = np.empty(size, np.uint8)
+        self._out_p = self._out.ctypes.data
+
+    def _grow_lines(self, size):
+        """Each hit's index kept, each read's row and each line's code."""
+        self._keep = np.empty(size, np.int64)
+        self._rows = np.empty(size, np.int64)
+        self._codes = np.empty(size, np.uint64)
+        self._lines_p = [a.ctypes.data for a in
+                         (self._keep, self._rows, self._codes)]
+
+    def write(self, ksize, windows, hits, abund, nvalid, discard, fields):
+        """``(text, canon, reads, host_hits)`` of one batch's hits.
+
+        Hit ``h`` is window ``h % windows`` of batch row ``h // windows``,
+        with the uint8 abundances ``abund[:, h]``; hits on rows from
+        ``nvalid`` on, or whose ``discard`` is set, are dropped.
+        ``fields(rows)`` gives the reads of the batch rows ``rows`` (int64,
+        ascending) as a dict: ``names``, one a row; ``seq``, uint8 rows, and
+        ``lengths``, int32, one a data row; ``read_row``, each read's data
+        row (absent: the batch rows themselves); where there are qualities,
+        ``qual``, uint8 rows, and ``qual_len`` (absent: the lengths);
+        ``from_reader`` (default True): the rows are the reader's base
+        codes and raw quality bytes (FASTA where those are all NUL), else
+        text as the records hold it (FASTA where ``qual_len`` is negative).
+        ``canon`` lists each line's canonical k-mer as a 2-bit code,
+        :data:`NO_CANON` where ``ksize`` > 32 or the k-mer is not upper-case
+        ACGT; ``host_hits`` are those lines' hits."""
+        lib = self._lib
+        hits = np.ascontiguousarray(hits, dtype=np.int64)
+        nhits = len(hits)
+        abund = np.ascontiguousarray(abund)
+        if abund.dtype != np.uint8 or abund.ndim != 2 or \
+                abund.shape[1] != nhits:
+            raise TypeError('abundances must be uint8 [samples, hits]')
+        discard = np.ascontiguousarray(discard, dtype=np.uint8)
+        if len(self._keep) < nhits:
+            self._grow_lines(2 * nhits)
+        keep, rows, codes = self._keep, self._rows, self._codes
+        keep_p, rows_p, codes_p = self._lines_p
+        hits_p = hits.ctypes.data
+        nrows = ctypes.c_int64()
+        nlines = lib.kt_augtext_lines(
+            hits_p, nhits, windows, nvalid, discard.ctypes.data,
+            len(discard), keep_p, rows_p, ctypes.byref(nrows))
+        if nlines < 0:
+            raise ValueError('a negative hit, or no windows')
+        if not nlines:
+            return '', [], 0, hits[:0]
+        nreads = nrows.value
+        f = fields(rows[:nreads])
+        seq, seq_stride, seq_extent = _rows(f['seq'])
+        lengths = np.ascontiguousarray(f['lengths'], dtype=np.int32)
+        read_row = f.get('read_row')
+        if read_row is None:
+            read_row_p = rows_p
+        else:
+            read_row = np.ascontiguousarray(read_row, dtype=np.int64)
+            if len(read_row) < nreads:
+                raise ValueError('a data row a read is wanted')
+            read_row_p = read_row.ctypes.data
+        qual, qual_stride, qual_extent, qual_len = None, 0, 0, None
+        if f.get('qual') is not None:
+            qual, qual_stride, qual_extent = _rows(f['qual'])
+            if f.get('qual_len') is not None:
+                qual_len = np.ascontiguousarray(f['qual_len'],
+                                                dtype=np.int32)
+                if len(qual_len) != len(lengths):
+                    raise ValueError('qualities and lengths disagree')
+        names = '\0'.join(f['names']).encode('utf-8')
+        if names.count(b'\0') != nreads - 1:
+            raise ValueError('a name a read is wanted, none with a NUL')
+        nhost = ctypes.c_int64()
+        while True:
+            need = lib.kt_augtext(
+                int(f.get('from_reader', True)), seq, seq_stride, seq_extent,
+                lengths.ctypes.data, len(lengths), qual, qual_stride,
+                qual_extent, None if qual_len is None else
+                qual_len.ctypes.data, read_row_p, nreads, names, len(names),
+                hits_p, nhits, keep_p, nlines, windows, abund.ctypes.data,
+                abund.shape[0], ksize, self._out_p, len(self._out), codes_p,
+                ctypes.byref(nhost))
+            if need < 0:
+                raise ValueError('read fields or lines out of bounds')
+            if need <= len(self._out):
+                break
+            self._grow_out(2 * need)
+        text = str(memoryview(self._out)[:need], 'utf-8')
+        codes = codes[:nlines]
+        host_hits = hits[keep[:nlines][codes == np.uint64(NO_CANON)]] \
+            if nhost.value else hits[:0]
+        return text, codes.tolist(), nreads, host_hits

@@ -30,12 +30,14 @@ compaction).  Only the hits come back.  Banding: the user-facing
 :func:`kevlar_tpu_torch.parallel.sharded_novel_screen`.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 import kevlar_tpu_torch
 from kevlar_tpu_torch import batch as batch_mod
-from kevlar_tpu_torch import sequence
+from kevlar_tpu_torch import native, sequence
 from kevlar_tpu_torch.ops import novel_ops, sketch_ops
 from kevlar_tpu_torch.parallel import (ShardedSketch, make_mesh,
                                        sharded_novel_screen)
@@ -46,9 +48,10 @@ from kevlar_tpu_torch import support
 # differences): batches, reads, capacity re-screens, bytes shipped to the
 # device (codes and lengths) and the host's blocking waits on it (the ring
 # slot's event where it waits, the lengths' pageable copy, the hit count,
-# the three copies back; no-ops on a CPU device, counted alike).
+# the three copies back; no-ops on a CPU device, counted alike); and of the
+# text: hit lines written, and those whose canonical k-mer the host made.
 counters = {'batches': 0, 'reads': 0, 'rescreens': 0, 'h2d_bytes': 0,
-            'syncs': 0}
+            'syncs': 0, 'text_lines': 0, 'text_host_kmers': 0}
 
 
 class KevlarCaseSampleMismatchError(ValueError):
@@ -56,37 +59,37 @@ class KevlarCaseSampleMismatchError(ValueError):
 
 
 class _LazyRecords:
-    """Record accessor over native-reader arrays: Records are materialised
-    only for reads that actually carry novel k-mers."""
+    """Record accessor over a :class:`_NativeBatch`: Records are
+    materialised only for reads that actually carry novel k-mers."""
 
-    def __init__(self, bases, lengths, names, quals):
-        self._bases = bases
-        self._lengths = lengths
-        self._names = names
-        self._quals = quals
+    def __init__(self, batch):
+        self._batch = batch
         self._cache = {}
 
     def __len__(self):
-        return len(self._names)
+        return len(self._batch)
 
     def __getitem__(self, i):
         if i not in self._cache:
             from kevlar_tpu_torch import dna
-            L = int(self._lengths[i])
-            seq = dna.decode(self._bases[i, :L])
+            b = self._batch
+            L = int(b.lengths[i])
+            seq = dna.decode(b.bases[i, :L])
             qual = None
-            if self._quals is not None:
-                q = bytes(self._quals[i, :L]).decode('ascii', 'replace')
+            if b.quals is not None:
+                q = bytes(b.quals[i, :L]).decode('ascii', 'replace')
                 qual = q if q.strip('\x00') else None
             self._cache[i] = sequence.Record(
-                name=self._names[i], sequence=seq, quality=qual)
+                name=b.names[i], sequence=seq, quality=qual)
         return self._cache[i]
 
 
 class _NativeBatch:
-    """ReadBatch-compatible view over native-reader output."""
+    """ReadBatch-compatible view over native-reader output: the base codes
+    and lengths (padded to ``pad_rows`` rows), and the ``n`` reads' names
+    and quality rows (None without qualities; all NUL for a FASTA read)."""
 
-    __slots__ = ('bases', 'lengths', 'records', 'n')
+    __slots__ = ('bases', 'lengths', 'names', 'quals', 'records', 'n')
 
     def __init__(self, bases, lengths, names, quals, pad_rows):
         self.n = len(names)
@@ -99,17 +102,86 @@ class _NativeBatch:
                 lengths, np.zeros(pad_rows - len(lengths), np.int32)])
         self.bases = bases
         self.lengths = lengths
-        self.records = _LazyRecords(bases, lengths, names, quals)
+        self.names = names
+        self.quals = quals
+        self.records = _LazyRecords(self)
 
     def __len__(self):
         return self.n
+
+    def text_fields(self, rows):
+        """The text writer's read fields for the batch rows ``rows``: the
+        batch's own codes, lengths and raw quality rows, where they lie."""
+        return dict(seq=self.bases, lengths=self.lengths, qual=self.quals,
+                    names=[self.names[r] for r in rows.tolist()])
+
+    def kmer(self, row, off, ksize):
+        """The k-mer text at ``off`` of row ``row``, cut at its end."""
+        from kevlar_tpu_torch import dna
+        end = min(off + ksize, int(self.lengths[row]))
+        return dna.decode(self.bases[row, off:end])
+
+
+def _padded(texts):
+    """Byte strings as the rows of a uint8 array, padded with NUL."""
+    width = max(1, max(map(len, texts)))
+    return np.frombuffer(b''.join(t.ljust(width, b'\0') for t in texts),
+                         np.uint8).reshape(len(texts), width)
+
+
+def _records_text_fields(rbatch, rows):
+    """The text writer's read fields for the rows ``rows`` of a
+    :class:`~kevlar_tpu_torch.batch.ReadBatch`: their sequences and
+    qualities as the Records hold them."""
+    records = [rbatch.records[r] for r in rows.tolist()]
+    seqs = [rec.sequence.encode('ascii') for rec in records]
+    quals = [getattr(rec, 'quality', None) for rec in records]
+    fields = dict(seq=_padded(seqs), lengths=list(map(len, seqs)),
+                  read_row=np.arange(len(records)),
+                  names=[rec.name for rec in records], from_reader=False)
+    if any(q is not None for q in quals):
+        qenc = [b'' if q is None else q.encode('utf-8') for q in quals]
+        fields.update(qual=_padded(qenc), qual_len=[
+            -1 if q is None else len(e) for q, e in zip(quals, qenc)])
+    return fields
+
+
+def format_hits(rbatch, hits_np, hitab_np, discard, ksize, writer,
+                unique_kmers):
+    """One batch's hits as augmented-FASTX text, the whole block written by
+    ``writer`` (a :class:`~kevlar_tpu_torch.native.AugTextWriter`) in C++:
+    no per-line Python.  A :class:`_NativeBatch` gives its codes and raw
+    quality rows, a ``ReadBatch`` its Records' text.  Hits on discarded
+    and padding rows are dropped.  Each line's canonical k-mer goes into
+    ``unique_kmers``: as the writer's 2-bit code, or, where it gives none
+    (k > 32, or a k-mer that is not upper-case ACGT), as the string
+    :func:`~kevlar_tpu_torch.dna.revcommin` gives.  Returns ``(text, reads,
+    lines)``."""
+    if not len(hits_np):
+        return '', 0, 0
+    windows = rbatch.bases.shape[1] - ksize + 1
+    native_rows = isinstance(rbatch, _NativeBatch)
+    fields = rbatch.text_fields if native_rows else \
+        functools.partial(_records_text_fields, rbatch)
+    text, canon, reads, host_hits = writer.write(
+        ksize, windows, hits_np, hitab_np, len(rbatch), discard, fields)
+    if len(host_hits):
+        unique_kmers.update(c for c in canon if c != native.NO_CANON)
+        for r, off in zip(*(x.tolist() for x in divmod(host_hits, windows))):
+            kmer = rbatch.kmer(r, off, ksize) if native_rows else \
+                rbatch.records[r].sequence[off:off + ksize]
+            unique_kmers.add(kevlar_tpu_torch.revcommin(kmer))
+    else:
+        unique_kmers.update(canon)
+    counters['text_lines'] += len(canon)
+    counters['text_host_kmers'] += len(host_hits)
+    return text, reads, len(canon)
 
 
 def native_read_batches(files, batch_size, max_len=1024):
     """Stream _NativeBatch objects through the C++ reader (compiled at
     first use; a failed build raises).  Each batch's parse is a
     ``novel::read`` span."""
-    from kevlar_tpu_torch import native
     for path in files:
         reader = iter(native.FastxBatchReader(
             path, max_reads=batch_size, max_len=max_len, want_quals=True))
@@ -174,9 +246,6 @@ def save_counts(filelist, tablelist):
         counttable.save(outfile)
 
 
-_ASCII_BASES = np.frombuffer(b'ACGTN', dtype=np.uint8)
-
-
 def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
           casemin=5, ctrlmax=0, numbands=None, band=None, skipuntil=None,
           batch_size=batch_mod.DEFAULT_BATCH_SIZE, updateint=1e6,
@@ -186,8 +255,8 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
     The screen runs on the device of the sample sketches (all on one), or
     over the mesh of sharded ones.  ``emit='text'`` yields preformatted
     augmented-FASTX text blocks (one per screened batch) instead of
-    Records: the hit arrays are serialised columnar-to-text without
-    per-read Python objects — the write path of ``main``.
+    Records: each batch's block written from the hit arrays in one call of
+    the C++ text writer (:func:`format_hits`) — the write path of ``main``.
 
     While spans are recorded (:mod:`kevlar_tpu_torch.support`), a pass is
     ``novel::pass``, recorded when the stream ends with the differences of
@@ -321,60 +390,8 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
             nkmers += len(irecord.annotations)
             yield irecord
 
-    def row_fields(rbatch, r):
-        """(name, sequence, quality) for one batch row without building a
-        Record: native batches decode straight from the columnar arrays."""
-        recs = rbatch.records
-        if isinstance(recs, _LazyRecords):
-            L = int(recs._lengths[r])
-            seq = _ASCII_BASES[rbatch.bases[r, :L]].tobytes().decode('ascii')
-            qual = None
-            if recs._quals is not None:
-                q = recs._quals[r, :L].tobytes().decode('ascii', 'replace')
-                qual = q if q.strip('\x00') else None
-            return recs._names[r], seq, qual
-        rec = recs[r]
-        return rec.name, rec.sequence, getattr(rec, 'quality', None)
-
-    def format_hits(rbatch, hits_np, hitab_np, discard):
-        """Serialise one batch's hits straight to augmented-FASTX text
-        (columnar arrays to one text block, no Record objects)."""
-        nonlocal nreads, nkmers
-        if not len(hits_np):
-            return ''
-        P = rbatch.bases.shape[1] - ksize + 1
-        i = hits_np // P
-        p = hits_np - i * P
-        n = len(rbatch.records)
-        ok = (i < n) & ~discard[np.minimum(i, len(discard) - 1)]
-        if not ok.all():
-            i, p, hitab_np = i[ok], p[ok], hitab_np[:, ok]
-        if not len(i):
-            return ''
-        # hits arrive in ascending flat order (ascending read, then offset)
-        boundaries = np.flatnonzero(np.diff(i)) + 1
-        starts = np.concatenate(([0], boundaries))
-        ends = np.concatenate((boundaries, [len(i)]))
-        abstr = [' '.join(map(str, col)) for col in hitab_np.T.tolist()]
-        parts = []
-        for s, e in zip(starts.tolist(), ends.tolist()):
-            r = int(i[s])
-            name, seq, qual = row_fields(rbatch, r)
-            if qual is not None:
-                parts.append('@{}\n{}\n+\n{}\n'.format(name, seq, qual))
-            else:
-                parts.append('>{}\n{}\n'.format(name, seq))
-            for j in range(s, e):
-                off = int(p[j])
-                kmer = seq[off:off + ksize]
-                parts.append('{}{}          {}#\n'.format(
-                    ' ' * off, kmer, abstr[j]))
-                unique_kmers.add(kevlar_tpu_torch.revcommin(kmer))
-            nreads += 1
-            nkmers += e - s
-        return ''.join(parts)
-
     emit_text = (emit == 'text')
+    writer = native.AugTextWriter() if emit_text else None
     nskipped = 0
     # a pass's span cannot stay open across the yields: it is recorded
     # when the stream ends, each batch's spans name it their parent
@@ -411,7 +428,11 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
             hits_np, hitab_np, discard = screen(rbatch)
             if emit_text:
                 with span('novel::text'):
-                    text = format_hits(rbatch, hits_np, hitab_np, discard)
+                    text, reads, lines = format_hits(
+                        rbatch, hits_np, hitab_np, discard, ksize, writer,
+                        unique_kmers)
+                nreads += reads
+                nkmers += lines
         if emit_text:
             yield text
         else:

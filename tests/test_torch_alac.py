@@ -216,7 +216,8 @@ def test_port_imports_no_jax():
             '    c.mains()[name]\n'
             'c.parser()\n'
             'from kevlar_tpu_torch import native\n'
-            'for src in (native.ASM_SOURCE, native.FASTX_SOURCE):\n'
+            'for src in (native.ASM_SOURCE, native.FASTX_SOURCE,\n'
+            '            native.AUGTEXT_SOURCE):\n'
             '    assert "/kevlar_tpu_torch/csrc/" in src, src\n'
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "kevlar_tpu.")) or m == "kevlar_tpu"]\n'

@@ -323,3 +323,24 @@ def test_native_builds_from_the_ports_own_sources(name):
     assert len(path.findall(original)) == 1
     assert path.sub(b'(kevlar/', copy) == path.sub(b'(kevlar/', original)
     assert copy != original and len(copy) < len(original)
+
+
+def test_text_writer_builds_from_the_ports_own_source():
+    """The novel stage's text writer compiles from the port's own
+    ``csrc/augtext.cpp``, which ``setup.py``'s package data ships."""
+    import ast
+    import fnmatch
+    import os
+    here = os.path.dirname(os.path.abspath(native.__file__))
+    assert native.AUGTEXT_SOURCE == os.path.join(here, 'csrc', 'augtext.cpp')
+    path = native.build_augtext()
+    assert os.path.dirname(path) == native.BUILD_DIR
+    lib = native.load_augtext()
+    assert lib.kt_augtext_lines and lib.kt_augtext
+    with open(os.path.join(os.path.dirname(here), 'setup.py')) as fh:
+        tree = ast.parse(fh.read())
+    data = next(kw.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call)
+                for kw in node.keywords if kw.arg == 'package_data')
+    globs = ast.literal_eval(data)['kevlar_tpu_torch']
+    assert any(fnmatch.fnmatch('csrc/augtext.cpp', g) for g in globs)

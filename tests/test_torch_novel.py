@@ -324,3 +324,176 @@ def test_novel_reads_sub_byte_tables_as_jax_does(bits, monkeypatch):
     assert ''.join(novel.novel(iter(reads), true[:1], true[1:], ksize=KSIZE,
                                casemin=min(6, maxcount), ctrlmax=0,
                                emit='text')) != texts['port']
+
+
+# ------------------------------------------------- the augmented-FASTX text
+
+def _python_format_hits(rbatch, hits_np, hitab_np, discard, ksize):
+    """The per-line Python formatter that ``native.AugTextWriter``
+    replaced, kept as the reference it is held to: ``(text, revcommin
+    strings, reads, lines)``."""
+    unique = set()
+    if not len(hits_np):
+        return '', unique, 0, 0
+    P = rbatch.bases.shape[1] - ksize + 1
+    i = hits_np // P
+    p = hits_np - i * P
+    n = len(rbatch.records)
+    ok = (i < n) & ~discard[np.minimum(i, len(discard) - 1)]
+    i, p, hitab_np = i[ok], p[ok], hitab_np[:, ok]
+    if not len(i):
+        return '', unique, 0, 0
+    boundaries = np.flatnonzero(np.diff(i)) + 1
+    starts = np.concatenate(([0], boundaries))
+    ends = np.concatenate((boundaries, [len(i)]))
+    abstr = [' '.join(map(str, col)) for col in hitab_np.T.tolist()]
+    parts = []
+    for s, e in zip(starts.tolist(), ends.tolist()):
+        r = int(i[s])
+        if isinstance(rbatch, novel._NativeBatch):
+            L = int(rbatch.lengths[r])
+            seq = np.frombuffer(b'ACGTN', np.uint8)[
+                rbatch.bases[r, :L]].tobytes().decode('ascii')
+            name, qual = rbatch.names[r], None
+            if rbatch.quals is not None:
+                q = rbatch.quals[r, :L].tobytes().decode('ascii', 'replace')
+                qual = q if q.strip('\x00') else None
+        else:
+            rec = rbatch.records[r]
+            name, seq, qual = rec.name, rec.sequence, rec.quality
+        if qual is not None:
+            parts.append('@{}\n{}\n+\n{}\n'.format(name, seq, qual))
+        else:
+            parts.append('>{}\n{}\n'.format(name, seq))
+        for j in range(s, e):
+            off = int(p[j])
+            kmer = seq[off:off + ksize]
+            parts.append('{}{}          {}#\n'.format(
+                ' ' * off, kmer, abstr[j]))
+            unique.add(kevlar_tpu_torch.revcommin(kmer))
+    return ''.join(parts), unique, len(starts), len(i)
+
+
+def _kmer_strings(keys, ksize):
+    """``format_hits``'s canonical keys as strings: 2-bit codes decoded."""
+    return {k if isinstance(k, str) else ''.join(
+        'ACGT'[(k >> 2 * (ksize - 1 - b)) & 3] for b in range(ksize))
+        for k in keys}
+
+
+def _text_batch(kind, ksize, rng):
+    """A batch of 11 reads in 16 rows, 72 columns wide: reads of ksize to
+    72 bases, every fourth carrying an N; ``fastq`` the reader's codes with
+    one quality row for all (stride 0, as the benchmark hands them),
+    ``fasta`` with no qualities, ``nul`` qualities that are all NUL in some
+    rows, short of the read in others and outside ASCII in others (a view
+    of wider rows, as the reader gives them), ``records`` Records of
+    lower-case and IUPAC text, with and without qualities."""
+    from kevlar_tpu_torch import batch as batch_mod
+    from kevlar_tpu_torch.sequence import Record
+    nreads, rows, width = 11, 16, 72
+    lengths = rng.integers(ksize, width + 1, nreads).astype(np.int32)
+    lengths[0] = width
+    if kind == 'records':
+        records = []
+        for r in range(nreads):
+            seq = ''.join(rng.choice(list('ACGT'), lengths[r]))
+            if r % 3 == 1:
+                seq = seq.lower()
+            if r % 3 == 2:
+                pos = rng.integers(0, lengths[r], 3)
+                seq = ''.join('RYNk'[pos.tolist().index(x) % 4]
+                              if x in pos else c for x, c in enumerate(seq))
+            qual = [None, 'I' * len(seq), '', chr(0x263A) * len(seq)][r % 4]
+            records.append(Record(name='rec{}-ä'.format(r),
+                                  sequence=seq, quality=qual))
+        return batch_mod.ReadBatch(records, pad_to=width, pad_rows=rows)
+    bases = np.full((nreads, width), 4, np.uint8)
+    for r in range(nreads):
+        bases[r, :lengths[r]] = rng.integers(0, 4, lengths[r])
+        if r % 4 == 3:
+            bases[r, rng.integers(0, lengths[r])] = 4
+    names = ['read{}'.format(r) for r in range(nreads)]
+    quals = None
+    if kind == 'fastq':
+        row = np.zeros((1, width), np.uint8)
+        row[0, :] = ord('F')
+        quals = np.broadcast_to(row, (nreads, width))
+    elif kind == 'nul':
+        wide = np.zeros((nreads, 2 * width), np.uint8)
+        for r in range(nreads):
+            if r % 3:
+                wide[r, :lengths[r] - (r % 3 == 2)] = rng.integers(
+                    33, 127, lengths[r] - (r % 3 == 2))
+            if r % 5 == 4:
+                wide[r, :3] = [0x80, 0xC3, 0xFF]
+        quals = wide[:, :width]
+    return novel._NativeBatch(bases, lengths, names, quals, rows)
+
+
+TEXT_KINDS = ['fastq', 'fasta', 'nul', 'records']
+TEXT_KSIZES = [15, 31, 32, 33]
+
+
+@pytest.mark.parametrize('ksize', TEXT_KSIZES)
+@pytest.mark.parametrize('kind', TEXT_KINDS)
+def test_text_writer_matches_the_python_formatter(kind, ksize):
+    """``novel.format_hits`` (one ``kt_augtext`` call a batch) writes the
+    bytes of the per-line Python formatter, and its canonical keys are the
+    reference's ``revcommin`` strings: hits at offset 0, at L - k and past
+    it, on discarded and padding rows; abundances 0, 9, 10, 99, 100 and
+    255 over 2 to 8 samples; then an empty batch and one whose every hit
+    is dropped, through the same writer (its buffer grown, then reused)."""
+    from kevlar_tpu_torch import native
+    case = TEXT_KINDS.index(kind) * len(TEXT_KSIZES) + \
+        TEXT_KSIZES.index(ksize)
+    rng = np.random.default_rng(case)
+    nsamples = 2 + case % 7
+    rbatch = _text_batch(kind, ksize, rng)
+    rows, width = rbatch.bases.shape
+    P = width - ksize + 1
+    flat = set(rng.choice(rows * P, 3 * rows, replace=False).tolist())
+    for r in range(rows):
+        L = int(rbatch.lengths[r])
+        flat.update({r * P, r * P + max(L - ksize, 0)})
+    hits = np.array(sorted(flat), np.int32 if case % 2 else np.int64)
+    abund = rng.integers(0, 256, (nsamples, len(hits)), dtype=np.uint8)
+    abund[:, :6] = np.array([0, 9, 10, 99, 100, 255], np.uint8)[
+        (np.arange(nsamples)[:, None] + np.arange(6)) % 6]
+    discard = rng.random(rows) < 0.2
+    discard[0] = False
+    writer = native.AugTextWriter()
+    before = dict(novel.counters)
+    keys = set()
+    got = novel.format_hits(rbatch, hits, abund, discard, ksize, writer,
+                            keys)
+    text, unique, nreads, nlines = _python_format_hits(
+        rbatch, hits, abund, discard, ksize)
+    assert got == (text, nreads, nlines)
+    assert nlines > rows
+    headers = {line[0] for line in text.splitlines()
+               if line[:1] in ('@', '>')}
+    # the case holds what it says it does
+    assert headers == {'fastq': {'@'}, 'fasta': {'>'}, 'nul': {'@', '>'},
+                       'records': {'@', '>'}}[kind]
+    assert ('\x00' in text and '\ufffd' in text) == (kind == 'nul')
+    assert len(keys) == len(unique)
+    assert _kmer_strings(keys, ksize) == unique
+    host = sum(1 for line in text.splitlines() if line.endswith('#')
+               and (ksize > 32 or len(line.split()[0]) != ksize or
+                    set(line.split()[0]) - set('ACGT')))
+    assert novel.counters['text_lines'] - before['text_lines'] == nlines
+    assert novel.counters['text_host_kmers'] - \
+        before['text_host_kmers'] == host
+    if kind == 'records' or ksize > 32:
+        assert host > 0
+    for hits_, abund_, discard_ in (
+            (hits[:0], abund[:, :0], discard),
+            (hits, abund, np.ones_like(discard))):
+        assert novel.format_hits(rbatch, hits_, abund_, discard_, ksize,
+                                 writer, keys) == ('', 0, 0)
+        assert _python_format_hits(rbatch, hits_, abund_, discard_,
+                                   ksize)[0] == ''
+    # a second batch through the grown buffer
+    assert novel.format_hits(rbatch, hits, abund, discard, ksize, writer,
+                             set())[0] == text

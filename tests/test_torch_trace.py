@@ -129,6 +129,36 @@ def test_text_is_the_same_with_recording_on_and_off(trio):
     assert on == off and off.count('#\n') > 100
 
 
+def test_text_counters_of_a_native_pass(trio, tmp_path):
+    """A pass over the reader's batches at k 31: ``text_lines`` counts its
+    ``#\\n`` lines, no canonical k-mer is left to the host, and the text is
+    the same with recording on and off."""
+    _, reads = trio
+    rng = np.random.default_rng(31)
+    case = rng.integers(0, 256, (4, TABLESIZE), dtype=np.uint8)
+    ctrl = np.zeros((4, TABLESIZE), np.uint8)
+    ctrl[rng.random((4, TABLESIZE)) < 0.1] = 255
+    samples = [sketch.Sketch(31, TABLESIZE, 4, counter_bits=8, tables=t,
+                             device='cpu') for t in (case, ctrl, ctrl)]
+    fastq = tmp_path / 'reads.fq'
+    fastq.write_text(''.join('@{}\n{}\n+\n{}\n'.format(
+        r.name, r.sequence, r.quality) for r in reads))
+
+    def screen():
+        return ''.join(novel.novel(
+            None, samples[:1], samples[1:], ksize=31, casemin=6, ctrlmax=0,
+            emit='text',
+            batchstream=novel.native_read_batches([str(fastq)], BATCH)))
+
+    off = screen()
+    with support.recording() as spans:
+        on = screen()
+    assert on == off and off.count('#\n') > 100
+    counts = [s for s in spans if s.name == 'novel::pass'][0].counts
+    assert counts['text_lines'] == off.count('#\n')
+    assert counts['text_host_kmers'] == 0
+
+
 def test_records_mode_spans_end_before_its_records(trio):
     samples, reads = trio
     yielded = []
@@ -165,13 +195,15 @@ def test_no_span_outlives_a_yield(trio):
 
 def test_pass_counts_are_what_the_metrics_read(trio):
     """The per-pass differences behind ``screen_syncs_per_batch``,
-    ``screen_h2d_bytes_per_read`` and ``screen_rescreens``."""
+    ``screen_h2d_bytes_per_read`` and ``screen_rescreens``, and the text's
+    own two counters."""
     with support.recording() as spans:
-        _screen(trio, batch_size=12)
+        text = _screen(trio, batch_size=12)
     counts = spans[1].counts
     assert spans[1].name == 'novel::pass'
     assert counts == {'batches': 2, 'reads': 24, 'rescreens': 0,
-                      'h2d_bytes': 2 * 12 * (128 + 4), 'syncs': 2 * 5}
+                      'h2d_bytes': 2 * 12 * (128 + 4), 'syncs': 2 * 5,
+                      'text_lines': text.count('#\n'), 'text_host_kmers': 0}
     assert counts['batches'] == [s.name for s in spans].count('novel::batch')
 
 
