@@ -1,5 +1,6 @@
-"""Judging the screen's output: augmented FASTQ text read back and held
-against the reference's hits.
+"""Judging the screen's output, and ``kevlar unband``'s merge of several
+bands' outputs: augmented FASTQ text read back and held against the
+reference's hits.
 
 The novel stage writes each read that holds a hit as its FASTQ record,
 followed by one line for each hit: the hit's k-mer under its place in the
@@ -64,3 +65,33 @@ def compare(text, expected, sequence_of, index_of, ksize):
                     counts != expected[key]:
                 wrong += 1
     return len(expected) - len(seen), extra, wrong
+
+
+def compare_merged(text, expected, sequence_of, index_of, ksize):
+    """Reads of one merged output ``text`` (``kevlar unband``'s) that
+    differ from ``expected``, a dict ``read -> ((offset, counts), ...)``
+    sorted by offset: a read missing, a read extra (a second record of a
+    read counts too) and a read whose sequence or list of hits, in order,
+    differs from the reference's."""
+    try:
+        records = parse(text, ksize)
+    except ValueError:
+        return len(expected) + 1
+    seen = set()
+    extra = wrong = 0
+    for name, seq, hits in records:
+        try:
+            read = index_of(name)
+            truth = sequence_of(read)
+        except (ValueError, IndexError):
+            extra += 1
+            continue
+        if read in seen or read not in expected:
+            extra += 1
+            continue
+        seen.add(read)
+        want = [(offset, truth[offset:offset + ksize], counts)
+                for offset, counts in expected[read]]
+        if seq != truth or hits != want:
+            wrong += 1
+    return len(expected) - len(seen) + extra + wrong

@@ -61,8 +61,8 @@ def test_setup_stages_run_once_and_the_step_repeats():
     assert cell.spans['count'] == [] and len(cell.spans['screen']) == 1
     assert cell.reads_per_step() == cell.trio.nreads['proband']
     # the two screens' texts are equal, so the cell holds one
-    assert [(case, times) for case, times, _ in cell.outputs] == \
-        [('proband', 2)]
+    assert [(key, times) for key, times, _ in cell.outputs] == \
+        [(('proband', None), 2)]
     checks, failed = cell.check()
     correct, _ = harness.verdict(checks, config['limits'], cell.steps)
     assert correct and failed == 0, checks
