@@ -71,13 +71,15 @@ def pack_rows(values, counter_bits):
     if counter_bits == 8:
         return values.contiguous()
     cpb = COUNTERS_PER_BYTE[counter_bits]
-    T, Z = values.shape
-    pad = (-Z) % cpb
+    pad = (-values.shape[1]) % cpb
     if pad:
         values = torch.nn.functional.pad(values, (0, pad))
-    shifts = torch.arange(cpb, device=values.device) * counter_bits
-    words = values.reshape(T, -1, cpb).to(torch.int32) << shifts
-    return words.sum(dim=2).to(torch.uint8)
+    # each byte's lanes added in as bytes (the sum of the shifted counters,
+    # modulo 256): no temporary wider than the packed rows
+    packed = values[:, 0::cpb].clone()
+    for lane in range(1, cpb):
+        packed += values[:, lane::cpb] << (lane * counter_bits)
+    return packed
 
 
 def unpack_rows(packed, counter_bits, tablesize):
@@ -563,6 +565,8 @@ class Accumulator:
 
     def _make_room(self, n):
         """Saturate first if ``n`` more windows could wrap a counter."""
+        if self.acc is None:
+            raise RuntimeError('the accumulator is closed')
         if self._since_saturation + n > _I32_HEADROOM:
             self.acc.clamp_(max=MAXCOUNT[self.counter_bits])
             self._since_saturation = 0
@@ -581,11 +585,19 @@ class Accumulator:
 
     def tables(self, maxcount=None):
         """Close the consume: saturate at ``maxcount`` (default and at most
-        the counter width's maximum) and pack to the persistent layout."""
+        the counter width's maximum) and pack to the persistent layout.
+
+        The saturation is in place and the int32 counters are dropped
+        before the pack, so the close holds 5 bytes a bucket at most (no
+        int32 copy beside the accumulator).  The accumulator is closed
+        after it: a second call raises."""
+        if self.acc is None:
+            raise RuntimeError('the accumulator is closed')
         top = MAXCOUNT[self.counter_bits]
         if maxcount is not None:
             top = min(top, maxcount)
-        sat = self.acc.clamp(max=top).to(torch.uint8)
+        sat = self.acc.clamp_(max=top).to(torch.uint8)
+        self.acc = None
         return pack_rows(sat, self.counter_bits)
 
 

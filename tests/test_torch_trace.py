@@ -2,10 +2,12 @@
 and the count: off, it records nothing and reads no clock; on, a novel pass
 records each batch's spans in order under one ``novel::pass``, none open
 across a yield, with the counters' differences; producer threads record
-spans of their own; ``--profile`` bridges the spans into its chrome trace.
-All on the CPU, at a few hundred reads."""
+spans of their own; ``--profile`` bridges the spans into its chrome trace;
+``unband`` records its spill and one merge a bucket under one
+``unband::pass``.  All on the CPU, at a few hundred reads."""
 
 import functools
+import io
 import json
 import os
 import random
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 
 import kevlar_tpu_torch
-from kevlar_tpu_torch import cli, count, novel, sketch, support
+from kevlar_tpu_torch import cli, count, novel, sketch, support, unband
 from kevlar_tpu_torch.ops import novel_ops
 from kevlar_tpu_torch.sequence import Record
 
@@ -88,6 +90,7 @@ def test_off_records_nothing_and_reads_no_clock(trio, tmp_path, monkeypatch):
     fastq.write_text(''.join('@{}\n{}\n+\n{}\n'.format(
         r.name, r.sequence, r.quality) for r in trio[1]))
     assert count.consume_seqfile(sk, [str(fastq)]) == len(trio[1])
+    assert _unband_text().count('#\n') > 0
     assert support.recorded() == before
 
 
@@ -306,3 +309,60 @@ def test_profile_flag_writes_the_novel_spans(trio, tmp_path):
         events = json.load(fh)['traceEvents']
     names = {e.get('name') for e in events}
     assert {'novel::sync', 'novel::text', 'novel::read'} <= names
+
+
+def _band_records(nreads=40, nbands=3):
+    """Each read's hits split over up to ``nbands`` band outputs, as the
+    screens of a banded run leave them: one record a read and band."""
+    rng = random.Random(12)
+    out = []
+    for band in range(nbands):
+        for i, read in enumerate(_reads(12, nreads)):
+            if (i + band) % 3 == 2:
+                continue
+            record = Record(name=read.name, sequence=read.sequence,
+                            quality=read.quality)
+            for offset in sorted(rng.sample(range(70), 2)):
+                record.annotate(read.sequence[offset:offset + KSIZE], offset,
+                                (rng.randint(5, 40), 0, 1))
+            out.append(record)
+    return out
+
+
+def _unband_text(nbuckets=4):
+    out = io.StringIO()
+    for record in unband.unband(iter(_band_records()), nbuckets):
+        kevlar_tpu_torch.print_augmented_fastx(record, out)
+    return out.getvalue()
+
+
+def test_unband_records_its_pass_spill_and_merges(monkeypatch):
+    monkeypatch.setattr(unband, 'SPILL_CHUNK', 16)
+    before = dict(unband.counters)
+    with support.recording() as spans:
+        _unband_text(nbuckets=4)
+    names = [s.name for s in spans]
+    nin = len(_band_records())
+    # one spill a chunk of 16 records and one for the buckets' close, then
+    # one merge a bucket
+    assert names == ['unband::pass'] + \
+        ['unband::spill'] * (-(-nin // 16) + 1) + ['unband::merge'] * 4
+    pass_ = spans[0]
+    for s in spans[1:]:
+        assert s.parent == pass_.id
+        assert pass_.start_ns <= s.start_ns <= s.end_ns <= pass_.end_ns
+    for a, b in zip(spans[1:], spans[2:]):
+        assert a.end_ns <= b.start_ns
+    counts = pass_.counts
+    assert counts == {k: unband.counters[k] - before[k]
+                      for k in unband.counters}
+    assert counts['records_in'] == nin
+    assert counts['records_out'] == 40 <= counts['records_in']
+    assert counts['spilled_bytes'] > 0
+
+
+def test_unband_output_is_the_same_with_recording_on_and_off():
+    off = _unband_text()
+    with support.recording():
+        on = _unband_text()
+    assert on == off and off.count('#\n') > 100
